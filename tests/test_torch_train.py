@@ -1,0 +1,208 @@
+"""The port's config, CLI and training slice on the CPU, and its import rule.
+
+The same argv resolves to equal fields in both packages; every flag the
+port has no code for is rejected by name; `cli train` with W2B_FORCE_CPU=1
+trains the fused engine on the verify corpus (epoch losses trend less
+negative, the JAX reader reads the output, bitlevel-1 rows are +-1/3); and
+importing every port module pulls in neither JAX nor the JAX package.
+"""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from word2bits_tpu import config as jconfig
+from word2bits_tpu.io.vectors import read_vectors as jread
+from word2bits_tpu_torch import cli
+from word2bits_tpu_torch import config as tconfig
+from word2bits_tpu_torch import train as ttrain
+
+REPO = Path(__file__).resolve().parent.parent
+SHIPPED = ["-bitlevel", "1", "-size", "200", "-window", "8", "-negative",
+           "24", "-min-count", "5", "-sample", "1e-3", "-alpha", "0.1",
+           "-batch-size", "8192", "-steps-per-chunk", "256",
+           "-fused-tables", "1", "-neg-sharing", "64", "-neg-pool", "2",
+           "-dtype", "bfloat16", "-banded-tile", "256",
+           "-scatter-impl", "span", "-context-pallas", "1"]
+FUSED_ADD = ["-fused-tables", "1", "-neg-sharing", "8", "-banded-tile", "16"]
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    SHIPPED,
+    SHIPPED + ["-train", "c.txt", "-output", "v.bin", "-binary", "1",
+               "-save-vocab", "voc.txt", "-iter", "3", "-seed", "9"],
+    ["-bitlevel", "2", "-alpha", "0.05", "-span-window", "256"],
+    ["-bitlevel", "8", "-auto-lr", "1", "-cbow", "1", "-threads", "4"],
+    ["-bitlevel", "4", "-auto-lr", "0", "-reg", "0.01", "-bogus", "x"],
+])
+def test_config_same_fields_as_jax(argv):
+    t = tconfig.config_from_argv(argv)
+    j = jconfig.config_from_argv(argv)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert (t.lr_scale, t.effective_alpha) == (j.lr_scale, j.effective_alpha)
+
+
+@pytest.mark.parametrize("argv", [
+    ["-bitlevel", "3"],
+    ["-fused-tables", "1"],
+    ["-neg-sharing", "3", "-batch-size", "64"],
+    ["-neg-pool", "3", "-neg-sharing", "64", "-batch-size", "8192"],
+    ["-context-pallas", "1", "-fused-tables", "1", "-neg-sharing", "8"],
+    ["-scatter-impl", "sweep"],
+    ["-scatter-impl", "span", "-span-window", "100"],
+    ["-size", "0"],
+])
+def test_config_rejects_what_jax_rejects(argv):
+    with pytest.raises(ValueError):
+        jconfig.config_from_argv(argv)
+    with pytest.raises(ValueError):
+        tconfig.config_from_argv(argv)
+
+
+@pytest.mark.parametrize("flag,argv", [
+    ("-use-pallas", FUSED_ADD + ["-use-pallas", "1"]),
+    ("-hot-rows", FUSED_ADD + ["-hot-rows", "100"]),
+    ("-hot-pallas", FUSED_ADD + ["-hot-rows", "100", "-hot-pallas", "1"]),
+    ("-neg-stratify", FUSED_ADD + ["-hot-rows", "100",
+                                   "-neg-stratify", "1"]),
+    ("-neg-dense-hot", FUSED_ADD + ["-hot-rows", "100",
+                                    "-neg-dense-hot", "1"]),
+    ("-rmw-scatter", FUSED_ADD + ["-rmw-scatter", "1"]),
+    ("-dedup-block", FUSED_ADD + ["-dedup-block", "64"]),
+    ("-scatter-impl", FUSED_ADD + ["-scatter-impl", "grmw"]),
+    ("-mesh-shape", FUSED_ADD + ["-mesh-shape", "data=2,vocab=4"]),
+    ("-model", ["-model", "skipgram"]),
+    ("-model", ["-cbow", "0"]),
+    ("-loop-mode", FUSED_ADD + ["-loop-mode", "fori"]),
+    ("-loop-mode", FUSED_ADD + ["-loop-mode", "unroll"]),
+    ("-device-epoch", ["-device-epoch", "1"]),
+    ("-checkpoint-dir", ["-checkpoint-dir", "ckpt"]),
+    ("-resume", ["-resume", "1"]),
+    ("-packed", ["-packed", "1"]),
+    ("-profile-dir", ["-profile-dir", "prof"]),
+    ("-dtype", ["-dtype", "float16"]),
+])
+def test_unported_flags_rejected_by_name(flag, argv):
+    jconfig.config_from_argv(argv)       # a valid configuration for JAX
+    with pytest.raises(ValueError, match=re.escape(flag)):
+        tconfig.config_from_argv(argv)
+
+
+@pytest.mark.parametrize("argv,flag", [
+    ([], "-fused-tables"),
+    (["-fused-tables", "1", "-neg-sharing", "8"], "-banded-tile"),
+])
+def test_unported_engines_rejected_by_name(tmp_path, argv, flag):
+    (tmp_path / "c.txt").write_text("a b c a b c\n" * 20)
+    cfg = tconfig.config_from_argv(argv + ["-train", str(tmp_path / "c.txt"),
+                                           "-min-count", "1", "-debug", "0",
+                                           "-size", "8"])
+    with pytest.raises(ValueError, match=re.escape(flag)):
+        ttrain.train(cfg, device="cpu")
+
+
+def test_no_silent_cpu(monkeypatch):
+    """Without a card the default device raises instead of dropping to
+    the CPU; the CLI's W2B_FORCE_CPU=1 asks for the CPU explicitly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="W2B_FORCE_CPU"):
+        ttrain.resolve_device(None)
+    assert ttrain.resolve_device("cpu").type == "cpu"
+    monkeypatch.delenv("W2B_FORCE_CPU", raising=False)
+    assert cli._device() == "cuda"
+    monkeypatch.setenv("W2B_FORCE_CPU", "1")
+    assert cli._device() == "cpu"
+
+
+def _verify_corpus(path):
+    """The topic corpus of .claude/skills/verify/SKILL.md (surface 1)."""
+    rng = np.random.default_rng(42)
+    topics = [["cat", "dog", "pet", "fur", "paw", "tail"],
+              ["sun", "moon", "star", "sky", "cloud", "rain"],
+              ["red", "blue", "green", "color", "paint", "ink"],
+              ["run", "walk", "jump", "move", "step", "go"]]
+    fill = ["the", "a", "of", "and", "to", "in"]
+    lines = [" ".join([fill[rng.integers(6)] if rng.random() < .3
+                       else t[rng.integers(6)]
+                       for _ in range(rng.integers(8, 16))])
+             for t in (topics[rng.integers(4)] for _ in range(3000))]
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def test_cli_train_slice_on_cpu(tmp_path, monkeypatch, capsys):
+    corpus, out = tmp_path / "corpus.txt", tmp_path / "vecs.bin"
+    _verify_corpus(corpus)
+    monkeypatch.setenv("W2B_FORCE_CPU", "1")
+    argv = ["train", "-train", str(corpus), "-output", str(out),
+            "-size", "32", "-window", "3", "-negative", "5", "-iter", "3",
+            "-min-count", "2", "-bitlevel", "1", "-binary", "1",
+            "-save-vocab", str(tmp_path / "vocab.txt"),
+            "-batch-size", "128", "-steps-per-chunk", "16",
+            "-fused-tables", "1", "-neg-sharing", "8", "-neg-pool", "2",
+            "-dtype", "bfloat16", "-banded-tile", "16",
+            "-scatter-impl", "span", "-context-pallas", "1", "-debug", "1"]
+    monkeypatch.setattr(sys, "argv", ["word2bits_tpu_torch.cli"] + argv)
+    assert cli.main() == 0
+    log = capsys.readouterr().out
+    losses = [float(x) for x in re.findall(r"Epoch Loss: (\S+)", log)]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert losses[-1] > losses[0], losses        # less negative
+    assert re.search(r"Trained \d+ steps", log)
+    words, vecs = jread(str(out))                # the JAX package's reader
+    vocab = (tmp_path / "vocab.txt").read_text().split("\n")[:-1]
+    assert words == [line.split()[0] for line in vocab]
+    assert vecs.shape == (len(words), 32)
+    assert np.all(np.abs(vecs) == np.float32(1) / np.float32(3))
+
+
+def test_cli_vocab_only_without_output(tmp_path, monkeypatch):
+    corpus = tmp_path / "corpus.txt"
+    _verify_corpus(corpus)
+    monkeypatch.setenv("W2B_FORCE_CPU", "1")
+    assert cli.train_main(["-train", str(corpus), "-min-count", "2",
+                           "-save-vocab", str(tmp_path / "v.txt"),
+                           "-debug", "0"]) == 0
+    assert (tmp_path / "v.txt").read_text().startswith("</s> ")
+
+
+def test_cli_other_subcommands_not_ported(monkeypatch):
+    monkeypatch.setattr(sys, "argv", ["cli", "accuracy", "v.bin"])
+    with pytest.raises(SystemExit, match="accuracy"):
+        cli.main()
+
+
+def test_port_imports_neither_jax_nor_jax_package():
+    """In a fresh interpreter, importing every port module leaves JAX and
+    the JAX package out of sys.modules, and no port source names them."""
+    code = (
+        "import pkgutil, importlib, sys, word2bits_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or "
+        "n.startswith('jax.') or n == 'word2bits_tpu' or "
+        "n.startswith('word2bits_tpu.'))\n"
+        "print(len(mods), bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=120, check=True).stdout.split(" ", 1)
+    assert int(out[0]) >= 20 and out[1].strip() == "[]", out
+    pattern = re.compile(r"import jax|from jax|word2bits_tpu(?!_torch)")
+    sources = [p for p in (REPO / "word2bits_tpu_torch").rglob("*")
+               if p.suffix in (".py", ".cu", ".cuh")]
+    assert len(sources) > 20
+    for src in sources:
+        assert not pattern.search(src.read_text()), src
+    # chip_smoke.py names the TPU kernels it replaces, but imports neither
+    imports = re.compile(r"^\s*(import|from)\s+(jax|word2bits_tpu)\b",
+                         re.MULTILINE)
+    assert not imports.search((REPO / "chip_smoke.py").read_text())

@@ -1,0 +1,84 @@
+"""Corpus tokenization and encoding (pure-Python path).
+
+Tokenization matches the reference ReadWord (reference
+src/word2bits.cpp:131-155): words split on space, tab and newline; '\\r' is
+ignored; a newline emits `</s>` after the word it ends; a final word with
+no separator before EOF is dropped; words of MAX_STRING-1 or more bytes
+keep their first MAX_STRING-2 bytes.  The JAX package's C++ tokenizer
+produces the same stream; it is not ported yet.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import Dict, List
+
+import numpy as np
+
+from word2bits_tpu_torch.data.vocab import (
+    REDUCE_THRESHOLD,
+    SENTENCE_TOKEN,
+    Vocab,
+    reduce_counts,
+)
+
+MAX_STRING = 4096  # reference src/word2bits.cpp:29
+
+
+def _truncate_word(w: bytes) -> bytes:
+    """The reference keeps exactly the first MAX_STRING-2 bytes of a long
+    word (its write index saturates and the NUL lands on the last slot)."""
+    if len(w) < MAX_STRING - 1:
+        return w
+    return w[: MAX_STRING - 2]
+
+
+def split_tokens(data: bytes) -> List[bytes]:
+    """Token stream of raw corpus bytes, `</s>` as the bytes b'</s>'."""
+    data = data.replace(b"\r", b"")
+    out: List[bytes] = []
+    segments = data.split(b"\n")
+    last = len(segments) - 1
+    for si, seg in enumerate(segments):
+        words = seg.split()
+        if si == last and words and not (seg.endswith(b" ")
+                                         or seg.endswith(b"\t")):
+            words = words[:-1]   # trailing word with no separator: dropped
+        out.extend(_truncate_word(w) for w in words)
+        if si != last:
+            out.append(b"</s>")
+    return out
+
+
+def count_words(path: str) -> Dict[str, int]:
+    """Single-pass word-frequency count (reference LearnVocabFromTrainFile,
+    src/word2bits.cpp:265-301), with the emergency ReduceVocab pruning when
+    distinct words exceed 21M (:292)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    counts: Counter = Counter(split_tokens(data))
+    min_reduce = 1
+    while len(counts) > REDUCE_THRESHOLD:
+        counts = Counter(reduce_counts(counts, min_reduce))
+        min_reduce += 1
+    out = {k.decode("utf-8", errors="surrogateescape"): v
+           for k, v in counts.items()}
+    out.setdefault(SENTENCE_TOKEN, 0)  # pinned at index 0 even if unseen
+    return out
+
+
+def encode_corpus(path: str, vocab: Vocab) -> np.ndarray:
+    """int32 id array of the corpus: OOV words dropped (reference :398),
+    newlines as id 0 (`</s>`)."""
+    index = {w.encode("utf-8", errors="surrogateescape"): i
+             for i, w in enumerate(vocab.words)}
+    with open(path, "rb") as f:
+        data = f.read()
+    get = index.get
+    ids = [i for i in map(get, split_tokens(data)) if i is not None]
+    return np.asarray(ids, dtype=np.int32)
+
+
+def build_vocab(path: str, min_count: int = 5) -> Vocab:
+    """Corpus scan -> sorted, pruned Vocab."""
+    return Vocab.from_counts(count_words(path), min_count=min_count)

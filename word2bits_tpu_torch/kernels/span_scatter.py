@@ -1,0 +1,170 @@
+"""Sorted in-place scatter-add: `table[ids] += rows`.
+
+Kernel: csrc/span_scatter.cu, a CUDA C++ kernel for sm_90a that replaces
+the JAX package's TPU span-sweep kernel (kernels/span_scatter.py,
+`_span_kernel` via `_span_call`).  It keeps the contract, not the TPU
+mechanism: rows are taken in the table dtype, duplicates are summed in
+float32, each touched row gets ONE add in the table dtype with no atomics
+(deterministic), ids outside [0, V) — the 0x7FFFFFF0 drop sentinel — are
+dropped, and the table is updated in place with no table-sized temporary.
+
+The plan is plain PyTorch: one stable sort of the ids plus the start of
+every run of equal in-range ids.  It depends only on the ids, so the
+training chunk builds it once for all S steps (batched over a leading
+dimension) and each step launches only the kernel.  One block sums one
+run, gathering rows[order[k]] directly from the unsorted rows, with the
+run's rows spread over a few row lanes that it adds in a fixed order.
+
+Bound on the H100 (3.35 TB/s): bytes — the rows read once, each touched
+table row read and written once (~10 us at the main path).  A Zipf-head run
+of hundreds of rows is still summed by one block, so the longest run sets
+a floor that the bytes do not show; the kernel's time is in PERF.md.
+
+`scatter_add_span_planned` / `scatter_add_span` run the plain version for
+CPU tensors (an f32 `index_add_` into a temporary holding the touched rows,
+then one cast-add) and launch the kernel for CUDA tensors, raising on what
+it does not take; there is no fallback.  `scatter_add_span_planned.launches`
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from word2bits_tpu_torch.kernels._build import check_launch, load_library
+
+SENTINEL = 0x7FFFFFF0   # drop id, as in the JAX package
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class SpanPlan(NamedTuple):
+    """Pure function of (ids, V); leading dimensions batch S steps."""
+
+    order: torch.Tensor      # [..., N] int32 source row of each sorted slot
+    sids: torch.Tensor       # [..., N] int32 sorted ids
+    run_start: torch.Tensor  # [..., N+1] int32 start of each run of equal
+    #                          in-range ids; run_start[n_runs] = end of the
+    #                          in-range ids, N after that
+    n_runs: torch.Tensor     # [...] int32 number of runs
+
+    def step(self, s: int) -> "SpanPlan":
+        """The plan of step s of a batched plan."""
+        return SpanPlan(*(a[s] for a in self))
+
+
+def span_plan(ids: torch.Tensor, V: int) -> SpanPlan:
+    """Sort/run plan of `ids` ([..., N]) against a table of V rows."""
+    N = ids.shape[-1]
+    sids, order = torch.sort(ids, dim=-1, stable=True)
+    in_range = (sids >= 0) & (sids < V)
+    new = torch.ones_like(in_range)
+    new[..., 1:] = sids[..., 1:] != sids[..., :-1]
+    start = new & in_range
+    n_runs = start.sum(dim=-1)
+    pos = torch.arange(N, device=ids.device).expand(sids.shape)
+    # starts go to their run's slot, everything else to a spare slot N+1
+    dest = torch.where(start, torch.cumsum(start, dim=-1) - 1, N + 1)
+    run_start = torch.full(ids.shape[:-1] + (N + 2,), N, dtype=torch.int64,
+                           device=ids.device)
+    run_start.scatter_(-1, dest, pos)
+    # ids < 0 sort first, so the in-range ids end at (#ids < V)
+    run_start.scatter_(-1, n_runs[..., None],
+                       (sids < V).sum(dim=-1, keepdim=True))
+    i32 = torch.int32
+    return SpanPlan(order=order.to(i32), sids=sids.to(i32),
+                    run_start=run_start[..., :N + 1].to(i32),
+                    n_runs=n_runs.to(i32))
+
+
+def scatter_add_span_plain(table: torch.Tensor, ids: torch.Tensor,
+                           rows: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: an f32 index_add_ into a temporary that
+    holds only the touched rows, then one cast-add into the table."""
+    V, C = table.shape
+    keep = (ids >= 0) & (ids < V)
+    touched, slot = torch.unique(ids[keep].long(), return_inverse=True)
+    acc = torch.zeros((touched.numel(), C), dtype=torch.float32,
+                      device=table.device)
+    acc.index_add_(0, slot, rows[keep].to(table.dtype).to(torch.float32))
+    table[touched] = (table[touched].to(torch.float32) + acc).to(table.dtype)
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """w2b_span_scatter of csrc/span_scatter.cu, built on first use."""
+    fn = load_library("span_scatter").w2b_span_scatter
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(table, plan: SpanPlan, rows):
+    V, C = table.shape
+    N = plan.sids.shape[-1]
+    dev = table.device
+    if table.dtype not in _DTYPES:
+        raise ValueError(f"scatter_add_span: table dtype {table.dtype} is not "
+                         "float32 or bfloat16")
+    if rows.dtype not in (torch.float32, table.dtype):
+        raise ValueError(f"scatter_add_span: rows must be float32 or "
+                         f"{table.dtype}, got {rows.dtype}")
+    if rows.shape != (N, C):
+        raise ValueError(f"scatter_add_span: rows {tuple(rows.shape)} vs "
+                         f"plan of {N} ids into width {C}")
+    if plan.sids.dim() != 1:
+        raise ValueError("scatter_add_span: pass one step's plan "
+                         "(SpanPlan.step)")
+    for name, t in (("table", table), ("rows", rows), ("order", plan.order),
+                    ("sids", plan.sids), ("run_start", plan.run_start),
+                    ("n_runs", plan.n_runs)):
+        if t.device != dev:
+            raise ValueError(f"scatter_add_span: {name} is on {t.device}, "
+                             f"table on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"scatter_add_span: {name} must be contiguous")
+    for name, t in (("order", plan.order), ("sids", plan.sids),
+                    ("run_start", plan.run_start), ("n_runs", plan.n_runs)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"scatter_add_span: plan.{name} must be int32")
+    if plan.run_start.shape[-1] != N + 1:
+        raise ValueError("scatter_add_span: plan.run_start must have N+1 "
+                         "entries")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _kernel()(
+        table.data_ptr(), rows.data_ptr(), plan.sids.data_ptr(),
+        plan.order.data_ptr(), plan.run_start.data_ptr(),
+        plan.n_runs.data_ptr(), N, V, C, _DTYPES[table.dtype],
+        _DTYPES[rows.dtype], stream)
+    check_launch("w2b_span_scatter", err)
+    scatter_add_span_planned.launches += 1
+    return table
+
+
+def scatter_add_span_planned(table: torch.Tensor, plan: SpanPlan,
+                             rows: torch.Tensor) -> torch.Tensor:
+    """Apply one step's span_plan: table[ids] += rows, in place.
+    rows [N, C] in float32 or the table dtype, in the ids' original order."""
+    if table.device.type == "cpu":
+        return scatter_add_span_plain(table, plan.sids,
+                                      rows[plan.order.long()])
+    if table.device.type != "cuda":
+        raise ValueError("scatter_add_span runs on cpu (plain version) or "
+                         f"cuda (kernel), not {table.device}")
+    return _launch(table, plan, rows)
+
+
+scatter_add_span_planned.launches = 0
+
+
+def scatter_add_span(table: torch.Tensor, ids: torch.Tensor,
+                     rows: torch.Tensor) -> torch.Tensor:
+    """table[ids] += rows in place (ids [N], rows [N, C]); builds the plan
+    and applies it."""
+    return scatter_add_span_planned(table, span_plan(ids, table.shape[0]),
+                                    rows)

@@ -1,0 +1,142 @@
+"""Where a training step's time goes on the card, at the shipped flags.
+
+    python3 -m word2bits_tpu_torch.tools.profile_step [--tokens N] [--steps S]
+
+Builds the port's kernels, prepares a synthetic text8-like corpus (inside
+the checkout, removed afterwards), warms the fused-table chunk up for one
+full chunk, then times `--steps` steps with the host clock and profiles the
+same number of steps with torch.profiler.  Prints the step time, the
+device's busy and idle share of the profiled window (kernel time summed
+over the window's wall time; the port runs on one stream), and device time
+by kernel name.  Needs a CUDA card; numbers are the card's named on the
+first line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def _shipped_config(corpus: str):
+    from word2bits_tpu_torch.config import config_from_argv
+    return config_from_argv([
+        "-train", corpus, "-bitlevel", "1", "-size", "200", "-window", "8",
+        "-negative", "24", "-min-count", "5", "-sample", "1e-3",
+        "-alpha", "0.1", "-batch-size", "8192", "-steps-per-chunk", "256",
+        "-fused-tables", "1", "-neg-sharing", "64", "-neg-pool", "2",
+        "-dtype", "bfloat16", "-banded-tile", "256", "-scatter-impl", "span",
+        "-context-pallas", "1", "-debug", "0"])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tokens", type=int, default=17_000_000)
+    ap.add_argument("--steps", type=int, default=32)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
+    from word2bits_tpu_torch.data.synthetic import zipf_corpus
+    from word2bits_tpu_torch.kernels._build import build_all
+    from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
+    from word2bits_tpu_torch.models.init import init_params
+    from word2bits_tpu_torch.train import (build_engine, prepare,
+                                           segment_capacity)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    print(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_all()
+    dev = torch.device("cuda", 0)
+    work = os.path.join(REPO, ".smoke_work", "profile")
+    os.makedirs(work, exist_ok=True)
+    try:
+        corpus = os.path.join(work, "corpus.txt")
+        zipf_corpus(corpus, n_tokens=args.tokens, vocab=70_000, seed=0)
+        cfg = _shipped_config(corpus)
+        vocab, encoded = prepare(cfg)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    B, S, W = cfg.batch_size, cfg.steps_per_chunk, cfg.window
+    hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=cfg.size, window=W,
+                      negative=cfg.negative, reg=cfg.reg)
+    u, v = init_params(vocab.size, cfg.size, dtype=getattr(torch, cfg.dtype))
+    eng = build_engine(cfg, vocab, u, v, hyper, dev)
+    _, capacity = segment_capacity(cfg, len(encoded))
+    ea = build_epoch_arrays(encoded, vocab.counts, cfg.sample,
+                            vocab.train_words, W, np.random.default_rng(0),
+                            capacity=capacity)
+    tokens = torch.from_numpy(ea.tokens).to(dev, torch.int64)
+    sents = torch.from_numpy(ea.sent_ids).to(dev, torch.int64)
+    n_steps = math.ceil(ea.n_tokens / B)
+    if n_steps < S + 2 * args.steps:
+        raise SystemExit(f"corpus gives {n_steps} steps; need "
+                         f"{S + 2 * args.steps} (raise --tokens)")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    table = eng.table
+
+    def run(first_step: int, steps: int):
+        sc = ChunkScalars(base0=W + first_step * B,
+                          alpha0=cfg.effective_alpha, wca_start=0.0,
+                          wca_per_step=float(B),
+                          denom=float(vocab.train_words) + 1.0)
+        return eng.chunk_fn(table, tokens, sents, eng.alias, sc, gen,
+                            n_steps=steps)
+
+    print(f"V={vocab.size}, {n_steps} steps in the epoch; warm-up chunk of "
+          f"{S} steps")
+    run(0, S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(S, args.steps)
+    torch.cuda.synchronize()
+    step_us = (time.perf_counter() - t0) / args.steps * 1e6
+    print(f"host clock: {step_us:.1f} us/step over {args.steps} steps "
+          f"(chunk of {args.steps} steps: its span plan included)")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(S + args.steps, args.steps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.elapsed_us()
+            by_name[e.name][1] += 1
+    busy_us = sum(t for t, _ in by_name.values())
+    print(f"profiled window: {wall_us:.1f} us wall for {args.steps} steps; "
+          f"device busy {busy_us:.1f} us "
+          f"({100 * busy_us / wall_us:.1f}% busy, "
+          f"{100 * (1 - busy_us / wall_us):.1f}% idle); "
+          f"{sum(n for _, n in by_name.values())} kernel launches")
+    if not by_name:
+        print("the profiler recorded no device activity: device shares "
+              "not measured")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
+        print(f"  {t / args.steps:9.2f} us/step {100 * t / max(busy_us, 1e-9):5.1f}%"
+              f"  x{n / args.steps:4.1f}/step  {name[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
