@@ -32,6 +32,14 @@ SHIPPED = ["-bitlevel", "1", "-size", "200", "-window", "8", "-negative",
            "-dtype", "bfloat16", "-banded-tile", "256",
            "-scatter-impl", "span", "-context-pallas", "1"]
 FUSED_ADD = ["-fused-tables", "1", "-neg-sharing", "8", "-banded-tile", "16"]
+# the capacity configuration (docs/large_vocab.md:19-25)
+FLAGSHIP = ["-output", "1b800d_full.pack", "-packed", "1", "-size", "800",
+            "-window", "8", "-negative", "24", "-iter", "5", "-min-count",
+            "5", "-bitlevel", "1", "-dtype", "bfloat16", "-fused-tables", "1",
+            "-neg-sharing", "64", "-batch-size", "16384",
+            "-steps-per-chunk", "32", "-loop-mode", "fori",
+            "-scatter-impl", "grmw", "-banded-tile", "256",
+            "-context-pallas", "1"]
 
 
 @pytest.mark.parametrize("argv", [
@@ -42,6 +50,9 @@ FUSED_ADD = ["-fused-tables", "1", "-neg-sharing", "8", "-banded-tile", "16"]
     ["-bitlevel", "2", "-alpha", "0.05", "-span-window", "256"],
     ["-bitlevel", "8", "-auto-lr", "1", "-cbow", "1", "-threads", "4"],
     ["-bitlevel", "4", "-auto-lr", "0", "-reg", "0.01", "-bogus", "x"],
+    FLAGSHIP,
+    FUSED_ADD + ["-loop-mode", "unroll", "-scatter-impl", "grmw",
+                 "-span-chunk", "64"],
 ])
 def test_config_same_fields_as_jax(argv):
     t = tconfig.config_from_argv(argv)
@@ -77,16 +88,19 @@ def test_config_rejects_what_jax_rejects(argv):
                                     "-neg-dense-hot", "1"]),
     ("-rmw-scatter", FUSED_ADD + ["-rmw-scatter", "1"]),
     ("-dedup-block", FUSED_ADD + ["-dedup-block", "64"]),
-    ("-scatter-impl", FUSED_ADD + ["-scatter-impl", "grmw"]),
+    ("-rmw-scatter", FUSED_ADD + ["-rmw-scatter", "1", "-loop-mode",
+                                  "fori"]),
     ("-mesh-shape", FUSED_ADD + ["-mesh-shape", "data=2,vocab=4"]),
     ("-model", ["-model", "skipgram"]),
     ("-model", ["-cbow", "0"]),
-    ("-loop-mode", FUSED_ADD + ["-loop-mode", "fori"]),
-    ("-loop-mode", FUSED_ADD + ["-loop-mode", "unroll"]),
+    ("-dedup-block", FUSED_ADD + ["-dedup-block", "64", "-loop-mode",
+                                  "unroll"]),
+    ("-checkpoint-dir", FUSED_ADD + ["-scatter-impl", "grmw",
+                                     "-checkpoint-dir", "ckpt"]),
     ("-device-epoch", ["-device-epoch", "1"]),
     ("-checkpoint-dir", ["-checkpoint-dir", "ckpt"]),
     ("-resume", ["-resume", "1"]),
-    ("-packed", ["-packed", "1"]),
+    ("-resume", FUSED_ADD + ["-packed", "1", "-resume", "1"]),
     ("-profile-dir", ["-profile-dir", "prof"]),
     ("-dtype", ["-dtype", "float16"]),
 ])
@@ -163,6 +177,47 @@ def test_cli_train_slice_on_cpu(tmp_path, monkeypatch, capsys):
     assert np.all(np.abs(vecs) == np.float32(1) / np.float32(3))
 
 
+def test_cli_train_capacity_flags_then_accuracy(tmp_path, monkeypatch,
+                                                capsys):
+    """`cli train` with the capacity flags (-scatter-impl grmw -loop-mode
+    fori -packed 1) writes the vectors and `.pack` (the same vectors,
+    bit-packed), and `cli accuracy` on each prints the JAX package's
+    evaluator transcript for that file."""
+    from word2bits_tpu import cli as jcli
+    from word2bits_tpu.io.packed import read_packed as jread_packed
+
+    corpus, out = tmp_path / "corpus.txt", tmp_path / "vecs.bin"
+    _verify_corpus(corpus)
+    monkeypatch.setenv("W2B_FORCE_CPU", "1")
+    assert cli.train_main([
+        "-train", str(corpus), "-output", str(out), "-size", "32",
+        "-window", "3", "-negative", "5", "-iter", "2", "-min-count", "2",
+        "-bitlevel", "1", "-binary", "1", "-batch-size", "128",
+        "-steps-per-chunk", "4", "-fused-tables", "1", "-neg-sharing", "8",
+        "-dtype", "bfloat16", "-banded-tile", "16", "-scatter-impl", "grmw",
+        "-loop-mode", "fori", "-context-pallas", "1", "-packed", "1",
+        "-debug", "1"]) == 0
+    log = capsys.readouterr().out
+    losses = [float(x) for x in re.findall(r"Epoch Loss: (\S+)", log)]
+    assert len(losses) == 2 and losses[-1] > losses[0], losses
+    assert re.search(r"Init: \d+ x 64 bfloat16 table", log)
+    words, vecs = jread(str(out))
+    pwords, pvecs, bl = jread_packed(str(out) + ".pack")
+    assert (pwords, bl) == (words, 1)
+    np.testing.assert_array_equal(pvecs, vecs)
+    q = tmp_path / "q.txt"
+    q.write_text(": s1\ncat dog sun moon\nsun moon cat dog\n"
+                 ": s2\nred blue run walk\nrun walk red blue\n"
+                 "cat dog oov moon\n")
+    for path in (str(out), str(out) + ".pack"):
+        outs = []
+        for main in (cli.accuracy_main, jcli.accuracy_main):
+            assert main([path, "0", "0", "-questions", str(q)]) == 0
+            outs.append(capsys.readouterr().out)
+        assert outs[0] == outs[1]
+        assert "Questions seen / total: 4 5" in outs[0]
+
+
 def test_cli_vocab_only_without_output(tmp_path, monkeypatch):
     corpus = tmp_path / "corpus.txt"
     _verify_corpus(corpus)
@@ -174,8 +229,8 @@ def test_cli_vocab_only_without_output(tmp_path, monkeypatch):
 
 
 def test_cli_other_subcommands_not_ported(monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["cli", "accuracy", "v.bin"])
-    with pytest.raises(SystemExit, match="accuracy"):
+    monkeypatch.setattr(sys, "argv", ["cli", "convert", "v.bin", "v.txt"])
+    with pytest.raises(SystemExit, match="convert"):
         cli.main()
 
 
@@ -190,12 +245,15 @@ def test_port_imports_neither_jax_nor_jax_package():
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'word2bits_tpu' or "
         "n.startswith('word2bits_tpu.'))\n"
-        "print(len(mods), bad)\n")
+        "print(','.join(mods), bad)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                          env=env, capture_output=True, text=True,
                          timeout=120, check=True).stdout.split(" ", 1)
-    assert int(out[0]) >= 20 and out[1].strip() == "[]", out
+    mods = out[0].split(",")
+    assert len(mods) >= 20 and out[1].strip() == "[]", out
+    for new in ("kernels.group_rmw", "eval.analogy", "io.packed"):
+        assert f"word2bits_tpu_torch.{new}" in mods
     pattern = re.compile(r"import jax|from jax|word2bits_tpu(?!_torch)")
     sources = [p for p in (REPO / "word2bits_tpu_torch").rglob("*")
                if p.suffix in (".py", ".cu", ".cuh")]

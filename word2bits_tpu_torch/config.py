@@ -9,9 +9,10 @@ documented there.
 
 The port implements one engine so far: the fused-table CBOW step with
 shared negatives and banded windowed sums (models/cbow_fused.py), with the
-`add` or `span` scatter and optionally the fused context kernel.  A flag
-that selects anything else is rejected by name with a ValueError, never
-ignored: see UNSUPPORTED below and train.build_engine.
+`add`, `span` or `grmw` scatter, optionally the fused context kernel, any
+`-loop-mode` (all three run the same in-place loop), and the `-packed 1`
+export.  A flag that selects anything else is rejected by name with a
+ValueError, never ignored: see UNSUPPORTED below and train.build_engine.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ class Word2BitsConfig:
     rmw_scatter: bool = False
     context_pallas: bool = False  # fused context + positive kernel
     banded_tile: int = 0          # banded windowed sums tile (0 = off)
-    scatter_impl: str = "add"     # "add" | "span" (| "grmw" in JAX)
+    scatter_impl: str = "add"     # "add" | "span" | "grmw"
     span_window: int = 512
     span_chunk: int = 128
     hot_interleave: bool = True
@@ -315,14 +316,11 @@ UNSUPPORTED = (
     ("-hot-rows", "hot_rows", bool),
     ("-rmw-scatter", "rmw_scatter", bool),
     ("-dedup-block", "dedup_block", bool),
-    ("-scatter-impl", "scatter_impl", lambda s: s == "grmw"),
     ("-mesh-shape", "mesh_shape", bool),
     ("-model", "model", lambda m: m == "skipgram"),
-    ("-loop-mode", "loop_mode", lambda m: m != "scan"),
     ("-device-epoch", "device_epoch", lambda d: d is True),
     ("-checkpoint-dir", "checkpoint_dir", bool),
     ("-resume", "resume", bool),
-    ("-packed", "packed", bool),
     ("-profile-dir", "profile_dir", bool),
 )
 

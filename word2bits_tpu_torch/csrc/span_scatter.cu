@@ -33,74 +33,16 @@
 // lanes cut the serial
 // chain of dependent loads per thread by ROWS, and the head's runs come
 // first in the sorted stream, so their blocks start first.
-#include <stdint.h>
-
-#include "w2b_common.cuh"
+#include "w2b_rows.cuh"
 
 namespace {
 
+using w2b::add_row;
+using w2b::load_vec;
+using w2b::store_vec;
+
 constexpr int ROWS = 4;     // row lanes per block
 constexpr int UNROLL = 4;   // row loads in flight per lane
-
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) x[i] = p[i];
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&x)[VEC]) {
-  if constexpr (VEC == 4) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = __bfloat162float(h[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) x[i] = __bfloat162float(p[i]);
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) p[i] = x[i];
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
-                                          const float (&x)[VEC]) {
-  if constexpr (VEC == 4) {
-    uint2 raw;
-    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __float2bfloat16_rn(x[i]);
-    *reinterpret_cast<uint2*>(p) = raw;
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) p[i] = __float2bfloat16_rn(x[i]);
-  }
-}
-
-// x += the VEC values at p, each first rounded to the table dtype
-template <typename TableT, typename RowT, int VEC>
-__device__ __forceinline__ void add_row(const RowT* p, float (&acc)[VEC]) {
-  float x[VEC];
-  load_vec<VEC>(p, x);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i)
-    acc[i] += w2b::to_f32(w2b::from_f32<TableT>(x[i]));
-}
 
 template <typename TableT, typename RowT, int VEC>
 __global__ void span_scatter_kernel(TableT* __restrict__ table,
@@ -184,10 +126,7 @@ int launch_vec(void* table, const void* rows, const int* sids,
                int N, int V, int C, cudaStream_t stream) {
   if (N == 0) return 0;
   // 4 columns per thread when every row start is aligned for one access
-  const bool vec4 = C % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(table) % (4 * sizeof(TableT)) == 0 &&
-                    reinterpret_cast<uintptr_t>(rows) % (4 * sizeof(RowT)) == 0;
-  if (vec4)
+  if (w2b::rows_vec4<TableT, RowT>(table, rows, C))
     return launch<TableT, RowT, 4>(table, rows, sids, order, run_start,
                                    n_runs, N, V, C, stream);
   return launch<TableT, RowT, 1>(table, rows, sids, order, run_start, n_runs,

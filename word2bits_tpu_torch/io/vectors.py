@@ -7,14 +7,13 @@ Format (reference src/word2bits.cpp:544-556,561-576):
     binary=0:   printf "%lf " per value (6 decimals, trailing space)
 
 The written vector for word i is quantize(u[i] + v[i], bitlevel)
-(reference src/word2bits.cpp:548-552).  Byte-identical to the JAX
-package's writer, so files cross-read between the two packages and the
-reference `compute-accuracy`.
+(reference src/word2bits.cpp:548-552), built on the training device
+(train.write_output).  Byte-identical to the JAX package's writer, so files
+cross-read between the two packages and the reference `compute-accuracy`.
 """
 
 from __future__ import annotations
 
-import io as _io
 from typing import List, Tuple
 
 import numpy as np
@@ -24,6 +23,49 @@ def _encode_word(w: str) -> bytes:
     return w.encode("utf-8", errors="surrogateescape")
 
 
+class VectorWriter:
+    """Writes the header, then row blocks in order (the training export
+    streams the table through this in row blocks)."""
+
+    def __init__(self, path: str, n_rows: int, size: int,
+                 binary: bool = False):
+        self.binary, self.size, self.rows_left = binary, size, n_rows
+        self._f = open(path, "wb")
+        self._f.write(f"{n_rows} {size}\n".encode())
+
+    def write_rows(self, words: List[str], vectors: np.ndarray) -> None:
+        vectors = np.asarray(vectors, dtype=np.float32)
+        if vectors.shape != (len(words), self.size):
+            raise ValueError(f"{len(words)} words vs rows {vectors.shape}")
+        if len(words) > self.rows_left:
+            raise ValueError("more rows than the header's count")
+        self.rows_left -= len(words)
+        if self.binary:
+            rows = vectors.astype("<f4", copy=False)
+            self._f.write(b"".join(
+                _encode_word(w) + b" " + rows[i].tobytes() + b"\n"
+                for i, w in enumerate(words)))
+        else:
+            self._f.write(b"".join(
+                _encode_word(w) + b" "
+                + "".join(f"{x:f} " for x in vectors[i]).encode() + b"\n"
+                for i, w in enumerate(words)))
+
+    def close(self) -> None:
+        self._f.close()
+        if self.rows_left:
+            raise ValueError(f"{self.rows_left} rows were never written")
+
+    def __enter__(self) -> "VectorWriter":
+        return self
+
+    def __exit__(self, exc_type, *_) -> None:
+        if exc_type is None:
+            self.close()
+        else:
+            self._f.close()
+
+
 def write_vectors(path: str, words: List[str], vectors: np.ndarray,
                   binary: bool = False) -> None:
     """Write rows exactly as the reference does."""
@@ -31,28 +73,19 @@ def write_vectors(path: str, words: List[str], vectors: np.ndarray,
     V, D = vectors.shape
     if len(words) != V:
         raise ValueError(f"{len(words)} words vs {V} rows")
-    buf = _io.BytesIO()
-    buf.write(f"{V} {D}\n".encode())
-    if binary:
-        rows = vectors.astype("<f4", copy=False)
-        for i, w in enumerate(words):
-            buf.write(_encode_word(w) + b" ")
-            buf.write(rows[i].tobytes())
-            buf.write(b"\n")
-    else:
-        for i, w in enumerate(words):
-            vals = "".join(f"{x:f} " for x in vectors[i])
-            buf.write(_encode_word(w) + b" " + vals.encode() + b"\n")
-    with open(path, "wb") as f:
-        f.write(buf.getvalue())
+    with VectorWriter(path, V, D, binary) as w:
+        w.write_rows(words, vectors)
 
 
-def read_vectors(path: str, binary: bool | None = None
-                 ) -> Tuple[List[str], np.ndarray]:
-    """Read either format; binary=None sniffs it."""
+def read_vectors(path: str, binary: bool | None = None,
+                 max_words: int = 0) -> Tuple[List[str], np.ndarray]:
+    """Read either format; binary=None sniffs it.  max_words truncates
+    like the reference evaluator's threshold (src/compute-accuracy.c:86)."""
     with open(path, "rb") as f:
         header = f.readline().split()
         V, D = int(header[0]), int(header[1])
+        if max_words and V > max_words:
+            V = max_words
         if binary is None:
             pos = f.tell()
             probe = f.read(4096)
@@ -82,12 +115,3 @@ def read_vectors(path: str, binary: bool | None = None
                 words.append(parts[0].decode("utf-8", errors="surrogateescape"))
                 out[i] = np.asarray(parts[1:D + 1], dtype=np.float32)
     return words, out
-
-
-def output_vectors(u: np.ndarray, v: np.ndarray, bitlevel: int) -> np.ndarray:
-    """The exported representation: quantize(u + v, bitlevel), computed
-    host-side in float32 (reference src/word2bits.cpp:548-550)."""
-    from word2bits_tpu_torch.ops.quantize import quantize_np
-
-    s = np.asarray(u, np.float32) + np.asarray(v, np.float32)
-    return np.asarray(quantize_np(s, bitlevel), np.float32)

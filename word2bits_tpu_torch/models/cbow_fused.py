@@ -4,10 +4,11 @@ table[:, :D] = u and table[:, D:] = v, so the u rows updated by slab
 position and the v rows updated for the centers carry the same word ids and
 go out in ONE scatter of B+2W double-width rows; the center v rows ride the
 slab gather.  Semantics are those of the JAX package's
-models/cbow_fused.py, restricted to what the shipped throughput
-configuration runs: shared negatives (neg_sharing > 0) with pools, the
-banded windowed sums with or without the fused context kernel, and the
-`add` (index_add_) or `span` (sorted kernel) scatter.
+models/cbow_fused.py, restricted to what the ported configurations run:
+shared negatives (neg_sharing > 0) with pools, the banded windowed sums
+with or without the fused context kernel, and the `add` (index_add_),
+`span` (sorted kernel, the shipped throughput configuration) or `grmw`
+(sorted group-RMW kernel, the 3.7M x 800d capacity configuration) scatter.
 
 PyTorch idiom: the table is updated IN PLACE (JAX donates it), the S steps
 of a chunk are a Python loop, and the chunk's randomness comes from an
@@ -23,8 +24,10 @@ import numpy as np
 import torch
 
 from word2bits_tpu_torch.kernels.context_pallas import fused_context_pallas
+from word2bits_tpu_torch.kernels.group_rmw import (
+    GroupPlan, group_plan, group_rows, scatter_add_grmw_planned)
 from word2bits_tpu_torch.kernels.span_scatter import (
-    SpanPlan, scatter_add_span, scatter_add_span_planned, span_plan)
+    SpanPlan, scatter_add_span_planned, span_plan)
 from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
 from word2bits_tpu_torch.models.cbow_slab import (
     SlabInputs, from_tiles, pool_mask, to_tiles)
@@ -34,7 +37,8 @@ from word2bits_tpu_torch.ops.windowed import (
     _tile_windows, banded_context, banded_usum, build_banded_masks, pick_tile)
 from word2bits_tpu_torch.sampling.unigram import AliasTable, draw_negatives
 
-SCATTER_IMPLS = ("add", "span")
+SCATTER_IMPLS = ("add", "span", "grmw")
+LOOP_MODES = ("scan", "fori", "unroll")
 
 
 def interleave(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -77,14 +81,25 @@ def params_to_numpy(table: torch.Tensor) -> np.ndarray:
     return table.detach().to("cpu", torch.float32).numpy()
 
 
+def scatter_plan(scatter_impl: str, ids: torch.Tensor, table: torch.Tensor,
+                 span_chunk: int = 128):
+    """The sort plan of the `span` or `grmw` scatter for `ids` ([..., N],
+    leading dimensions batch steps) into `table`."""
+    if scatter_impl == "span":
+        return span_plan(ids, table.shape[0])
+    return group_plan(ids, group_rows(table.dtype), chunk=span_chunk)
+
+
 def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
                     hyper: CBOWHyper, batch_size: int, neg_sharing: int,
                     neg_pool: int = 1, banded: int = 0,
                     scatter_impl: str = "add",
-                    span_plan: Optional[SpanPlan] = None,
-                    context_pallas: bool = False):
+                    span_plan: Optional[SpanPlan | GroupPlan] = None,
+                    context_pallas: bool = False, span_chunk: int = 128):
     """One synchronous step on the fused (V, 2D) table, IN PLACE.
-    Returns (table, loss) with loss a float32 0-d tensor on the device."""
+    Returns (table, loss) with loss a float32 0-d tensor on the device.
+    `span_plan` is the step's hoisted plan for the `span` (SpanPlan) or
+    `grmw` (GroupPlan) scatter; `span_chunk` is grmw's `chunk`."""
     if not neg_sharing:
         raise ValueError("fused table step requires neg_sharing > 0")
     if not banded:
@@ -180,14 +195,20 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
     fused_rows = torch.cat([du_slab, dv_slab], dim=1)      # [B+2W, 2D]
     nd = dv_neg.reshape(-1, D)
     neg_rows = torch.cat([torch.zeros_like(nd), nd], dim=1)
-    if scatter_impl == "span":
-        # one sorted call for slab + negative rows (kernels/span_scatter.py)
+    if scatter_impl in ("span", "grmw"):
+        # one sorted call for slab + negative rows (kernels/span_scatter.py,
+        # kernels/group_rmw.py); float32 rows round to the table dtype
+        # inside the kernels
         all_rows = torch.cat([fused_rows, neg_rows])
-        if span_plan is not None:
-            scatter_add_span_planned(table, span_plan, all_rows)
+        plan = span_plan
+        if plan is None:
+            plan = scatter_plan(scatter_impl,
+                                torch.cat([slab_ids, negs.reshape(-1)]),
+                                table, span_chunk)
+        if scatter_impl == "span":
+            scatter_add_span_planned(table, plan, all_rows)
         else:
-            all_ids = torch.cat([slab_ids, negs.reshape(-1)])
-            scatter_add_span(table, all_ids, all_rows)
+            scatter_add_grmw_planned(table, plan, all_rows, chunk=span_chunk)
     else:
         table.index_add_(0, slab_ids, fused_rows.to(table.dtype))
         table.index_add_(0, negs.reshape(-1), neg_rows.to(table.dtype))
@@ -198,7 +219,8 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
                            batch_size: int, steps: int, neg_sharing: int,
                            neg_pool: int = 1, banded: int = 0,
                            scatter_impl: str = "add",
-                           context_pallas: bool = False):
+                           context_pallas: bool = False,
+                           loop_mode: str = "scan", span_chunk: int = 128):
     """chunk(table, tokens, sent_ids, atab, scalars, gen, n_steps=None,
     shrinks=None, negs=None) -> (table, loss_sum).
 
@@ -208,10 +230,19 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
     with the reference's 1e-4*alpha0 floor (reference :391-392), in
     float32.  The window shrinks [S, B] and negatives [S, B/G, P*K] of all
     steps are drawn from `gen` at chunk entry unless injected; with the
-    span scatter the sort plan of all steps is built once here."""
+    span or grmw scatter the sort plan of all steps is built once here.
+
+    `loop_mode` "scan", "fori" and "unroll" are accepted as in the JAX
+    package and run the same in-place Python loop: the JAX modes differ in
+    how XLA carries the table (lax.scan double-buffers it, which is why the
+    capacity runbook asks for fori), and an in-place PyTorch table is never
+    copied, so there is nothing for them to choose between here."""
     if scatter_impl not in SCATTER_IMPLS:
         raise ValueError(f"unknown scatter_impl {scatter_impl!r} "
                          f"(supported: {', '.join(SCATTER_IMPLS)})")
+    if loop_mode not in LOOP_MODES:
+        raise ValueError(f"unknown loop_mode {loop_mode!r} "
+                         f"(supported: {', '.join(LOOP_MODES)})")
     B, W, K = batch_size, hyper.window, hyper.negative
     P = neg_pool if (neg_pool and neg_pool > 1) else 1
     if not neg_sharing or B % neg_sharing:
@@ -249,11 +280,11 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
         slab_tokens = tokens[lo:hi].unfold(0, B + 2 * W, B)   # [S, B+2W]
         slab_sents = sent_ids[lo:hi].unfold(0, B + 2 * W, B)
         plans = None
-        if scatter_impl == "span":
+        if scatter_impl in ("span", "grmw"):
             # hoisted: every step's scatter ids are known at chunk entry
             ids_all = torch.cat([slab_tokens.clamp_min(0),
                                  negs.reshape(S, -1)], dim=1)
-            plans = span_plan(ids_all, table.shape[0])
+            plans = scatter_plan(scatter_impl, ids_all, table, span_chunk)
         loss = torch.zeros((), dtype=f32, device=dev)
         for s in range(S):
             inputs = SlabInputs(slab_tokens=slab_tokens[s],
@@ -263,7 +294,7 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
                 table, inputs, alphas[s], hyper, B, neg_sharing,
                 neg_pool=P, banded=banded, scatter_impl=scatter_impl,
                 span_plan=None if plans is None else plans.step(s),
-                context_pallas=context_pallas)
+                context_pallas=context_pallas, span_chunk=span_chunk)
             loss = loss + step_loss
         return table, loss
 

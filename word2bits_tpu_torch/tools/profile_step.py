@@ -1,10 +1,16 @@
-"""Where a training step's time goes on the card, at the shipped flags.
+"""Where a training step's time goes on the card.
 
-    python3 -m word2bits_tpu_torch.tools.profile_step [--tokens N] [--steps S]
+    python3 -m word2bits_tpu_torch.tools.profile_step [--config shipped|flagship]
+        [--tokens N] [--steps S]
 
-Builds the port's kernels, prepares a synthetic text8-like corpus (inside
-the checkout, removed afterwards), warms the fused-table chunk up for one
-full chunk, then times `--steps` steps with the host clock and profiles the
+`--config shipped` (the default) is the shipped throughput configuration
+(size 200, span scatter) on a synthetic text8-like corpus (written inside
+the checkout, removed afterwards); `--config flagship` is the
+full-Wikipedia capacity configuration of docs/large_vocab.md:19-25
+(3,699,941 types, size 800, B = 16384, grmw scatter) on the in-memory
+synthetic vocabulary of that shape (data/synthetic.zipf_vocab_corpus).
+Builds the port's kernels, warms the fused-table chunk up for one full
+chunk, then times `--steps` steps with the host clock and profiles the
 same number of steps with torch.profiler.  Prints the step time, the
 device's busy and idle share of the profiled window (kernel time summed
 over the window's wall time; the port runs on one stream), and device time
@@ -29,33 +35,59 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
+SHIPPED = ["-bitlevel", "1", "-size", "200", "-window", "8",
+           "-negative", "24", "-min-count", "5", "-sample", "1e-3",
+           "-alpha", "0.1", "-batch-size", "8192", "-steps-per-chunk", "256",
+           "-fused-tables", "1", "-neg-sharing", "64", "-neg-pool", "2",
+           "-dtype", "bfloat16", "-banded-tile", "256", "-scatter-impl",
+           "span", "-context-pallas", "1"]
+# docs/large_vocab.md:19-25 (the output flags aside)
+FLAGSHIP = ["-size", "800", "-window", "8", "-negative", "24", "-iter", "5",
+            "-min-count", "5", "-bitlevel", "1", "-dtype", "bfloat16",
+            "-fused-tables", "1", "-neg-sharing", "64",
+            "-batch-size", "16384", "-steps-per-chunk", "32",
+            "-loop-mode", "fori", "-scatter-impl", "grmw",
+            "-banded-tile", "256", "-context-pallas", "1"]
+FLAGSHIP_TYPES = 3_699_941
 
-def _shipped_config(corpus: str):
+
+def _prepare(config: str, tokens: int):
+    """(cfg, vocab, encoded) of the named configuration."""
     from word2bits_tpu_torch.config import config_from_argv
-    return config_from_argv([
-        "-train", corpus, "-bitlevel", "1", "-size", "200", "-window", "8",
-        "-negative", "24", "-min-count", "5", "-sample", "1e-3",
-        "-alpha", "0.1", "-batch-size", "8192", "-steps-per-chunk", "256",
-        "-fused-tables", "1", "-neg-sharing", "64", "-neg-pool", "2",
-        "-dtype", "bfloat16", "-banded-tile", "256", "-scatter-impl", "span",
-        "-context-pallas", "1", "-debug", "0"])
+    from word2bits_tpu_torch.data.synthetic import (zipf_corpus,
+                                                    zipf_vocab_corpus)
+    from word2bits_tpu_torch.train import prepare
+    if config == "flagship":
+        vocab, encoded = zipf_vocab_corpus(FLAGSHIP_TYPES, seed=0)
+        return config_from_argv(FLAGSHIP + ["-debug", "0"]), vocab, encoded
+    work = os.path.join(REPO, ".smoke_work", "profile")
+    os.makedirs(work, exist_ok=True)
+    try:
+        corpus = os.path.join(work, "corpus.txt")
+        zipf_corpus(corpus, n_tokens=tokens, vocab=70_000, seed=0)
+        cfg = config_from_argv(["-train", corpus, "-debug", "0"] + SHIPPED)
+        vocab, encoded = prepare(cfg)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return cfg, vocab, encoded
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tokens", type=int, default=17_000_000)
+    ap.add_argument("--config", choices=("shipped", "flagship"),
+                    default="shipped")
+    ap.add_argument("--tokens", type=int, default=17_000_000,
+                    help="corpus tokens of the shipped configuration")
     ap.add_argument("--steps", type=int, default=32)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
     from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
-    from word2bits_tpu_torch.data.synthetic import zipf_corpus
     from word2bits_tpu_torch.kernels._build import build_all
     from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-    from word2bits_tpu_torch.models.init import init_params
-    from word2bits_tpu_torch.train import (build_engine, prepare,
-                                           segment_capacity)
+    from word2bits_tpu_torch.models.init import init_fused_table
+    from word2bits_tpu_torch.train import build_engine, segment_capacity
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -65,20 +97,13 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     build_all()
     dev = torch.device("cuda", 0)
-    work = os.path.join(REPO, ".smoke_work", "profile")
-    os.makedirs(work, exist_ok=True)
-    try:
-        corpus = os.path.join(work, "corpus.txt")
-        zipf_corpus(corpus, n_tokens=args.tokens, vocab=70_000, seed=0)
-        cfg = _shipped_config(corpus)
-        vocab, encoded = prepare(cfg)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    cfg, vocab, encoded = _prepare(args.config, args.tokens)
     B, S, W = cfg.batch_size, cfg.steps_per_chunk, cfg.window
     hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=cfg.size, window=W,
                       negative=cfg.negative, reg=cfg.reg)
-    u, v = init_params(vocab.size, cfg.size, dtype=getattr(torch, cfg.dtype))
-    eng = build_engine(cfg, vocab, u, v, hyper, dev)
+    eng = build_engine(cfg, vocab, init_fused_table(
+        vocab.size, cfg.size, dtype=getattr(torch, cfg.dtype), device=dev),
+        hyper)
     _, capacity = segment_capacity(cfg, len(encoded))
     ea = build_epoch_arrays(encoded, vocab.counts, cfg.sample,
                             vocab.train_words, W, np.random.default_rng(0),
@@ -109,7 +134,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     step_us = (time.perf_counter() - t0) / args.steps * 1e6
     print(f"host clock: {step_us:.1f} us/step over {args.steps} steps "
-          f"(chunk of {args.steps} steps: its span plan included)")
+          f"(chunk of {args.steps} steps: its scatter plan included)")
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,

@@ -6,17 +6,21 @@ per epoch a host-built subsampled epoch array (fresh randomness each epoch),
 then chunks of S synchronous steps on the fused (V, 2D) table, with the
 JAX package's words-consumed accounting for the LR schedule and words/sec.
 
-The table is stored unpadded: the JAX package pads rows and columns only
-for its TPU DMA tiles.  The loss accumulates on the device and is fetched
-once per epoch (and for progress lines at -debug > 1).
+The table is stored unpadded (the JAX package pads rows and columns only
+for its TPU DMA tiles), allocated once on the training device and filled
+there in row blocks (models/init.init_fused_table), and exported in row
+blocks (`write_output`): at the 3.7M x 800d capacity configuration the
+host never holds a copy of it.  The loss accumulates on the device and is
+fetched once per epoch (and for progress lines at -debug > 1).
 """
 
 from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from contextlib import nullcontext
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,21 +29,30 @@ from word2bits_tpu_torch.config import Word2BitsConfig
 from word2bits_tpu_torch.data.corpus import build_vocab, encode_corpus
 from word2bits_tpu_torch.data.pipeline import iter_epoch_segments
 from word2bits_tpu_torch.data.vocab import Vocab
-from word2bits_tpu_torch.io.vectors import output_vectors, write_vectors
+from word2bits_tpu_torch.io.packed import PackedWriter, pack_codes
+from word2bits_tpu_torch.io.vectors import VectorWriter
 from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-from word2bits_tpu_torch.models.cbow_fused import (
-    deinterleave, interleave, make_fused_train_chunk, params_to_numpy)
-from word2bits_tpu_torch.models.init import init_params
+from word2bits_tpu_torch.models.cbow_fused import make_fused_train_chunk
+from word2bits_tpu_torch.models.init import init_fused_table
+from word2bits_tpu_torch.ops.quantize import quantize
 from word2bits_tpu_torch.sampling.unigram import AliasTable, build_alias_table
+
+# rows per export block: about 16M float32 values of quantized output
+_EXPORT_VALUES = 1 << 24
+
 
 @dataclass
 class TrainResult:
     vocab: Vocab
-    u: np.ndarray            # float32 [V, D]
-    v: np.ndarray            # float32 [V, D]
+    table: torch.Tensor      # the trained fused (V, 2D) table, on its device
     epoch_losses: List[float]
     words_per_sec: float     # words consumed per wall-second of the loop
     steps: int               # steps executed
+    # per chunk: (steps, words consumed, seconds on the device's clock —
+    # CUDA events — or the host's on the CPU)
+    chunks: List[Tuple[int, float, float]] = field(default_factory=list)
+    # seconds of the set-up phases: init, alias, epoch_build, upload, export
+    seconds: Dict[str, float] = field(default_factory=dict)
 
 
 def _log(cfg: Word2BitsConfig, msg: str, end="\n"):
@@ -91,11 +104,12 @@ class Engine:
     alias: AliasTable
 
 
-def build_engine(cfg: Word2BitsConfig, vocab: Vocab, u: torch.Tensor,
-                 v: torch.Tensor, hyper: CBOWHyper, device) -> Engine:
+def build_engine(cfg: Word2BitsConfig, vocab: Vocab, table: torch.Tensor,
+                 hyper: CBOWHyper) -> Engine:
     """The fused-table engine (the JAX package's train.build_engine fused
-    branch): interleaved table, shared negatives, banded sums, `add` or
-    `span` scatter, optional context kernel."""
+    branch) around `table`, the fused (V, 2D) table on the training device:
+    shared negatives, banded sums, the `add`, `span` or `grmw` scatter,
+    optional context kernel."""
     if not (cfg.fused_tables and cfg.neg_sharing):
         raise ValueError("-fused-tables 0 / -neg-sharing 0 (the split-table "
                          "slab engine) is not implemented by "
@@ -109,10 +123,44 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, u: torch.Tensor,
         hyper, vocab.size, cfg.batch_size, cfg.steps_per_chunk,
         neg_sharing=cfg.neg_sharing, neg_pool=cfg.neg_pool,
         banded=cfg.banded_tile, scatter_impl=cfg.scatter_impl,
-        context_pallas=cfg.context_pallas)
-    table = interleave(u, v).to(device)
-    alias = build_alias_table(vocab.unigram_weights()).to(device)
+        context_pallas=cfg.context_pallas, loop_mode=cfg.loop_mode,
+        span_chunk=cfg.span_chunk)
+    alias = build_alias_table(vocab.unigram_weights()).to(table.device)
     return Engine(chunk_fn=chunk_fn, table=table, alias=alias)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class _ChunkClock:
+    """Per-chunk time: CUDA events on the card (no sync inside the loop),
+    the host clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.marks: List[Tuple[int, float, object, object]] = []
+
+    def _now(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def start(self):
+        return self._now()
+
+    def stop(self, start, steps: int, words: float) -> None:
+        self.marks.append((steps, words, start, self._now()))
+
+    def chunks(self) -> List[Tuple[int, float, float]]:
+        """Call after the device is synchronized."""
+        if self.cuda:
+            return [(n, w, a.elapsed_time(b) / 1e3)
+                    for n, w, a, b in self.marks]
+        return [(n, w, b - a) for n, w, a, b in self.marks]
 
 
 def train(cfg: Word2BitsConfig,
@@ -132,11 +180,20 @@ def train(cfg: Word2BitsConfig,
     B, S, W = cfg.batch_size, cfg.steps_per_chunk, cfg.window
     hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=D, window=W,
                       negative=cfg.negative, reg=cfg.reg)
-    u, v = init_params(V, D, init=cfg.init, seed=cfg.seed,
-                       dtype=getattr(torch, cfg.dtype))
-    engine = build_engine(cfg, vocab, u, v, hyper, dev)
-    del u, v
-    table, chunk_fn = engine.table, engine.chunk_fn
+    seconds: Dict[str, float] = {"epoch_build": 0.0, "upload": 0.0}
+    t0 = time.perf_counter()
+    table = init_fused_table(V, D, init=cfg.init, seed=cfg.seed,
+                             dtype=getattr(torch, cfg.dtype), device=dev)
+    _sync(dev)
+    seconds["init"] = time.perf_counter() - t0
+    _log(cfg, f"Init: {V} x {2 * D} {cfg.dtype} table ({2 * V * D} draws) "
+              f"in {seconds['init']:.2f} s")
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, vocab, table, hyper)
+    seconds["alias"] = time.perf_counter() - t0
+    _log(cfg, f"Alias table: {seconds['alias']:.2f} s")
+    chunk_fn = engine.chunk_fn
+    clock = _ChunkClock(dev)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
     train_words = vocab.train_words
@@ -154,11 +211,20 @@ def train(cfg: Word2BitsConfig,
         _log(cfg, f"Starting epoch: {epoch}")
         epoch_rng = np.random.default_rng([cfg.seed, epoch])
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
-        for ea in iter_epoch_segments(encoded, vocab.counts, cfg.sample,
-                                      train_words, W, epoch_rng, seg_tokens,
-                                      capacity=capacity):
+        segments = iter_epoch_segments(encoded, vocab.counts, cfg.sample,
+                                       train_words, W, epoch_rng, seg_tokens,
+                                       capacity=capacity)
+        while True:
+            t0 = time.perf_counter()
+            ea = next(segments, None)
+            seconds["epoch_build"] += time.perf_counter() - t0
+            if ea is None:
+                break
+            t0 = time.perf_counter()
             tokens = torch.from_numpy(ea.tokens).to(dev, torch.int64)
             sents = torch.from_numpy(ea.sent_ids).to(dev, torch.int64)
+            _sync(dev)
+            seconds["upload"] += time.perf_counter() - t0
             n_centers = max(ea.n_tokens, 1)
             # this segment accounts for its share of the epoch's words
             seg_words = train_words * ea.source_len / total_len
@@ -172,9 +238,12 @@ def train(cfg: Word2BitsConfig,
                     base0=W + ci * S * B, alpha0=cfg.effective_alpha,
                     wca_start=words_done, wca_per_step=wca_per_step,
                     denom=denom)
+                start = clock.start()
                 table, loss = chunk_fn(table, tokens, sents, engine.alias,
                                        scalars, gen,
                                        n_steps=max(chunk_steps, 1))
+                clock.stop(start, max(chunk_steps, 1),
+                           chunk_steps * wca_per_step)
                 words_done += chunk_steps * wca_per_step
                 loss_acc = loss_acc + loss
                 total_steps += max(chunk_steps, 1)
@@ -202,34 +271,55 @@ def train(cfg: Word2BitsConfig,
         _log(cfg, f"Epoch Loss: {epoch_loss:.6f}")
         epoch_losses.append(epoch_loss)
         if cfg.save_every_epoch and cfg.output_file and cfg.classes == 0:
-            _write_output(f"{cfg.output_file}_epoch{epoch}", vocab, table,
-                          cfg)
+            write_output(f"{cfg.output_file}_epoch{epoch}", vocab, table, cfg)
         if stop:
             break
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     wall = time.perf_counter() - t_train0
     wps = words_done / max(wall, 1e-9)
+    _log(cfg, f"Epoch arrays: {seconds['epoch_build']:.2f} s, upload "
+              f"{seconds['upload']:.2f} s")
     _log(cfg, f"Trained {total_steps} steps in {wall:.6f} s: "
               f"{wps:.1f} words/sec, "
               f"{wall / max(total_steps, 1) * 1e6:.1f} us/step")
 
     if cfg.output_file:
+        t0 = time.perf_counter()
         if cfg.classes == 0:
-            _write_output(cfg.output_file, vocab, table, cfg)
+            write_output(cfg.output_file, vocab, table, cfg)
         else:
             # reference quirk: -classes != 0 creates an empty output file
             _log(cfg, "WARNING: -classes is parsed but unimplemented in the "
                       "reference; writing an empty file for parity")
             open(cfg.output_file, "wb").close()
+        seconds["export"] = time.perf_counter() - t0
+        _log(cfg, f"Export: {seconds['export']:.2f} s")
 
-    uu, vv = deinterleave(params_to_numpy(table))
-    return TrainResult(vocab=vocab, u=uu, v=vv, epoch_losses=epoch_losses,
-                       words_per_sec=wps, steps=total_steps)
+    return TrainResult(vocab=vocab, table=table, epoch_losses=epoch_losses,
+                       words_per_sec=wps, steps=total_steps,
+                       chunks=clock.chunks(), seconds=seconds)
 
 
-def _write_output(path: str, vocab: Vocab, table: torch.Tensor,
-                  cfg: Word2BitsConfig):
-    u, v = deinterleave(params_to_numpy(table))
-    write_vectors(path, vocab.words, output_vectors(u, v, cfg.bitlevel),
-                  binary=cfg.binary)
+def write_output(path: str, vocab: Vocab, table: torch.Tensor,
+                 cfg: Word2BitsConfig) -> None:
+    """The vectors file quantize(u + v) (reference :548-552) and, with
+    -packed 1 at bitlevel 1 or 2, `<path>.pack` (as the JAX package's
+    train._write_output), built in row blocks on the table's device: each
+    block is summed in float32, quantized and packed there and only the
+    block comes to the host.  Byte-identical to the JAX package's
+    train._write_output (output_vectors + write_vectors + write_packed)."""
+    V, D = table.shape[0], table.shape[1] // 2
+    bl = cfg.bitlevel
+    packed = cfg.packed and bl in (1, 2)
+    rows = max(1, _EXPORT_VALUES // max(D, 1))
+    with VectorWriter(path, V, D, binary=cfg.binary) as vw, \
+            (PackedWriter(path + ".pack", vocab.words, D, bl) if packed
+             else nullcontext()) as pw:
+        for r0 in range(0, V, rows):
+            r1 = min(V, r0 + rows)
+            blk = table[r0:r1]
+            q = quantize(blk[:, :D].to(torch.float32)
+                         + blk[:, D:].to(torch.float32), bl)
+            vw.write_rows(vocab.words[r0:r1], q.cpu().numpy())
+            if packed:
+                pw.write_payload(pack_codes(q, bl).cpu().numpy())

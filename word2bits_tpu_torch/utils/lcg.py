@@ -6,11 +6,18 @@ needs randomness; uniform floats come from `(next & 0xFFFF) / 65536`
 stream sequentially from seed 1 (v table first, then u — :343-361), so the
 k-th state is computed by affine skip-ahead: f^(m+n) = (A_n*A_m,
 A_n*C_m + C_n).  numpy uint64 wraps mod 2^64 like the C unsigned long long.
+
+`lcg_uniform_torch` computes the same draws on a torch device (the fused
+table's init at 3.7M x 800d is 5.92G draws): torch's int64 multiply and
+add wrap mod 2^64 in two's complement, which gives the uint64 bits.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 LCG_A = np.uint64(25214903917)
 LCG_C = np.uint64(11)
@@ -95,3 +102,45 @@ def lcg_values_scalar(n: int, seed: int = 1) -> np.ndarray:
         out[i] = (np.float32(state & np.uint64(0xFFFF)) / np.float32(65536.0)
                   - np.float32(0.5))
     return out
+
+
+def _as_int64(x: int) -> int:
+    """A value mod 2^64 as the int64 with the same bits."""
+    x &= (1 << 64) - 1
+    return x - (1 << 64) if x >> 63 else x
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_coeffs() -> np.ndarray:
+    """[2, 65536] int64: (A_j, C_j) with f^j(x) = A_j*x + C_j mod 2^64."""
+    A = np.ones(_LANES, dtype=np.uint64)
+    C = np.zeros(_LANES, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        for b in range(_LANE_BITS):   # f^(j + 2^b) = f^j o f^(2^b)
+            h = 1 << b
+            A[h:2 * h] = A[:h] * _POW_A[b]
+            C[h:2 * h] = A[:h] * _POW_C[b] + C[:h]
+    return np.stack([A, C]).view(np.int64)
+
+
+def lcg_uniform_torch(start_draw: int, n: int, device, seed: int = 1
+                      ) -> torch.Tensor:
+    """lcg_uniform_block(start_draw, n, seed) as a float32 tensor computed
+    on `device`.  State k + r*65536 + j is f^j(f^(r*65536)(state k)): the
+    row heads are Python-int skip-ahead on the host, and one broadcast
+    multiply-add over [rows, 65536] lanes gives every state."""
+    if n <= 0:
+        return torch.empty(0, dtype=torch.float32, device=device)
+    rows = -(-n // _LANES)
+    mask = (1 << 64) - 1
+    y = int(lcg_states_at(np.asarray([start_draw + 1], np.uint64),
+                          seed=seed)[0])
+    aW, cW = int(_POW_A[_LANE_BITS]), int(_POW_C[_LANE_BITS])
+    heads = []
+    for _ in range(rows):
+        heads.append(_as_int64(y))
+        y = (aW * y + cW) & mask
+    coeffs = torch.from_numpy(_lane_coeffs()).to(device)
+    h = torch.tensor(heads, dtype=torch.int64, device=device)[:, None]
+    states = (coeffs[0] * h + coeffs[1]).reshape(-1)[:n]
+    return ((states & 0xFFFF).to(torch.float32) / 65536.0) - 0.5
