@@ -4,21 +4,35 @@
 
 from the root of a checkout.  It builds the port's CUDA kernels from
 word2bits_tpu_torch/csrc/ (one nvcc per source, all at once), holds each
-against its plain PyTorch version at the shapes of the paths that run it,
-checks the fused step and chunk on the card against the same code on the
-CPU, and then drives the port's two training paths through their entry
-points, each with the kernels' launch counts set to 0 just before and read
-just after:
+against its plain PyTorch version at the shapes of the paths that run it
+([context], [span], [score], [rank1] with kernel 2 on its float32 table,
+[grmw], [context@800], [context@exact] on float32 rows), checks the steps
+and chunks of both engines on the card against the same code on the
+CPU ([step]), and then drives the port's training paths through their
+entry points, each with the kernels' launch counts set to 0 just before
+and read just after:
 
-  [train]     the shipped throughput configuration (the JAX package's
-              bench.py CFG plus ctx_span_banded256_S256: size 200, span
-              scatter) through `cli train`, one epoch of a 17M-token corpus;
-  [flagship]  the full-Wikipedia capacity configuration of
-              docs/large_vocab.md:19-25 (V = 3,699,941, size 800, B = 16384,
-              grmw scatter, -loop-mode fori, -packed 1) through
-              `train.train`, 64 steps, then its `.pack` export read back;
-  [accuracy]  `cli accuracy` on that `.pack` and on [train]'s vector file,
-              each transcript checked against the CPU evaluator.
+  [train]       the shipped throughput configuration (the JAX package's
+                bench.py CFG plus ctx_span_banded256_S256: size 200, span
+                scatter) through `cli train`, one epoch of a 17M-token
+                corpus;
+  [flagship]    the full-Wikipedia capacity configuration of
+                docs/large_vocab.md:19-25 (V = 3,699,941, size 800,
+                B = 16384, grmw scatter, -loop-mode fori, -packed 1)
+                through `train.train`, 64 steps, then its `.pack` export
+                read back;
+  [accuracy]    `cli accuracy` on that `.pack` and on [train]'s vector
+                file, each transcript checked against the CPU evaluator;
+  [quickstart]  the README Quick start's flags (the reference-default
+                split-table engine: per-center negatives, B = 256, shifted
+                sums, `add` scatter, float32) through `train.train` on
+                [train]'s corpus, cut to 4,096 steps, its vectors read back;
+  [exact]       per-center at the JAX package's exact-mode throughput
+                flags (B = 4096, 128-step chunks, banded 256, span scatter,
+                context kernel): one chunk with materialized negative rows
+                and one with the rank-1 span scatter, same state and draws;
+  [pallas]      the shipped flags with `-scatter-impl add -use-pallas 1`,
+                one 256-step chunk on the fused and one on the split tables.
 
 Any failed check raises, so the exit code is nonzero; without a CUDA card
 (or outside a checkout) it exits nonzero before printing any result.
@@ -77,6 +91,28 @@ FLAGSHIP_FLAGS = [
 ]
 FLAG_V, FLAG_D, FLAG_B = 3_699_941, 800, 16384
 FLAG_STEPS = 64                  # two 32-step chunks
+# The README Quick start (all else default: the split-table slab engine
+# with per-center negatives, B = 256, shifted sums, `add`, float32), cut to
+# QS_STEPS steps of the 17M-token corpus (one epoch is ~47,000 steps).
+QUICKSTART_FLAGS = ["-size", str(D), "-window", str(W), "-negative", str(K),
+                    "-min-count", "5", "-bitlevel", "1", "-binary", "1"]
+QS_STEPS = 4096
+# The per-center exact mode at the JAX package's measured throughput flags
+# (tools/step_bench.py:200-218), f32 tables.
+EXACT_FLAGS = QUICKSTART_FLAGS + [
+    "-batch-size", "4096", "-steps-per-chunk", "128", "-banded-tile", "256",
+    "-scatter-impl", "span", "-context-pallas", "1"]
+EXACT_B, EXACT_S = 4096, 128
+# the shipped flags with the fused score kernel (its configuration needs
+# the `add` scatter), on the fused and the split tables
+PALLAS_FLAGS = list(TRAIN_FLAGS)
+PALLAS_FLAGS[PALLAS_FLAGS.index("-scatter-impl") + 1] = "add"
+PALLAS_FLAGS += ["-use-pallas", "1"]
+# kernel 5 at the shipped shape: T = B/G tiles of G centers, P*K negatives
+SCORE_T, SCORE_PK = B // G, P * K
+# kernel 3 at the exact-mode shape: 4,096 center rows, 4,096 * 24 rank-1
+RANK1_V, RANK1_ND = 69_998, 4096
+F32_FLOP_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 # one flagship step's update rows: B+2W slab rows plus (B/64) * 24
 # negatives (one pool)
 FLAG_N = FLAG_B + 2 * W + (FLAG_B // 64) * 24
@@ -172,9 +208,11 @@ def _step_ids(rng, V: int, n_slab: int, n_neg: int,
 
 
 # ---------------------------------------------------------------- kernel 1
-def check_context(dev, b: int, d: int, tag: str) -> dict:
+def check_context(dev, b: int, d: int, tag: str,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
     """fused_context_pallas against fused_context_plain on the card at
-    B = b, D = d, W = 8, tile 256, bitlevels 0/1/2/4/8.
+    B = b, D = d, W = 8, tile 256, bitlevels 0/1/2/4/8, table rows of
+    `dtype` (bf16 on the fused engines, float32 on the split tables).
 
     Both compute each center's score f = cavg . quantize(v_center) in
     float32 in another order, and three functions of f are discontinuous:
@@ -195,7 +233,7 @@ def check_context(dev, b: int, d: int, tag: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     Nt = b // TILE
     slab = (torch.randn((b + 2 * W, 2 * d), generator=gen, device=dev)
-            * 0.3).to(torch.bfloat16)
+            * 0.3).to(dtype)
     # sentences of ~20 tokens, a few padding positions at the end
     sents = torch.arange(b + 2 * W, device=dev) // 20
     sents[-5:] = -1
@@ -254,7 +292,8 @@ def check_context(dev, b: int, d: int, tag: str) -> dict:
                 replaces="word2bits_tpu/kernels/context_pallas.py:82",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=None,
-                shapes=f"B={b}, D={d}, W={W}, tile {TILE}, bf16 rows")
+                shapes=f"B={b}, D={d}, W={W}, tile {TILE}, "
+                       f"{str(dtype).removeprefix('torch.')} rows")
 
 
 # ---------------------------------------------------------------- kernel 2
@@ -311,6 +350,198 @@ def check_span(dev) -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
                 shapes=f"table [{V}, {C}] bf16, {N} f32 rows")
+
+
+# ---------------------------------------------------------------- kernel 5
+def _edge_pairs(f: torch.Tensor, eps: float = 2e-5) -> torch.Tensor:
+    """Scores whose plain value lies within eps of a LUT bin edge ((f+6)*83
+    an integer) or of +-6, where another float order may take the other
+    side.  The dot products differ by ~1e-7 here; eps is 100 times that."""
+    x = (f + 6.0) * 83.0
+    lut = ((x - x.round()).abs() < 83.0 * eps) & (f.abs() <= 6.0)
+    return lut | ((f.abs() - 6.0).abs() < eps)
+
+
+def check_score(dev) -> dict:
+    """quantized_scores_pallas against quantized_scores_plain on the card at
+    the shipped shape: T = 128 tiles of G = 64 centers sharing P*K = 48
+    negatives (2 pools), D = 200, float32, bitlevels 1 and 2, reg 0 and
+    0.01.  Each output row sums 48 (cavge) or 64 (dv) LUT gradients, so a
+    row holding a pair whose plain score sits at a LUT edge (_edge_pairs)
+    is not compared; every other row: atol 1e-5 + rtol 1e-4.  Loss: rtol
+    1e-5 plus the log-sigmoid jump for each pair at +-6."""
+    from word2bits_tpu_torch.kernels.score_pallas import (
+        quantized_scores_pallas, quantized_scores_plain)
+    from word2bits_tpu_torch.ops.quantize import quantize
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    T, PK = SCORE_T, SCORE_PK
+    cavg3 = torch.randn((T, G, D), generator=gen, device=dev) * 0.1
+    v_rows = torch.rand((T, PK, D), generator=gen, device=dev) - 0.5
+    centers3 = torch.randint(0, 70_000, (T, G), generator=gen, device=dev)
+    negs = torch.randint(0, 70_000, (T, PK), generator=gen, device=dev)
+    negs[:, :4] = centers3[:, :4]                # skipped negatives
+    af3 = (torch.rand((T, G), generator=gen, device=dev) < 0.95).float()
+    alpha = torch.full((1, 1), 0.05, device=dev)
+    worst = 0.0
+    for bl in (1, 2):
+        for reg in (0.0, 0.01):
+            args = (cavg3, v_rows, centers3, negs, af3, alpha, bl, reg, P)
+            got = quantized_scores_pallas(*args)
+            want = quantized_scores_plain(*args)
+            torch.cuda.synchronize()
+            f = torch.bmm(cavg3, quantize(v_rows, bl).transpose(1, 2))
+            edge = _edge_pairs(f)
+            keep_g = ~edge.any(dim=2)            # cavge rows [T, G]
+            keep_k = ~edge.any(dim=1)            # dv rows [T, PK]
+            errs = []
+            for name, gt, wt, keep in (("cavge", got[0], want[0], keep_g),
+                                       ("dv", got[1], want[1], keep_k)):
+                gt, wt = gt[keep], wt[keep]
+                if not torch.allclose(gt, wt, atol=1e-5, rtol=1e-4):
+                    _fail(f"score kernel {name} at bitlevel {bl}, reg {reg}:"
+                          f" max abs err {_max_err(gt, wt):.3e} > atol 1e-5"
+                          " + rtol 1e-4")
+                errs.append(_max_err(gt, wt))
+            worst = max(worst, *errs)
+            n6 = int((((f.abs() - 6.0).abs() < 2e-5)
+                      & (af3[:, :, None] > 0)).sum())
+            lg, lw = float(got[2]), float(want[2])
+            allow = 1e-5 * abs(lw) + max(_JUMP_LO, _JUMP_HI) * n6
+            if not math.isfinite(lg) or abs(lg - lw) > allow:
+                _fail(f"score kernel loss at bitlevel {bl}, reg {reg}: {lg} "
+                      f"vs {lw} (allowed {allow:.4g})")
+            print(f"[score] bitlevel {bl}, reg {reg}: max abs err "
+                  f"{max(errs):.3e} over {int(keep_g.sum())} of {T * G} "
+                  f"cavge rows and {int(keep_k.sum())} of {T * PK} dv rows "
+                  f"({int(edge.sum())} pairs at a score edge); loss "
+                  f"{lg:.6f} vs plain {lw:.6f}")
+    args = (cavg3, v_rows, centers3, negs, af3, alpha, 1, 0.0, P)
+    ms = _time_ms(lambda: quantized_scores_pallas(*args))
+    plain_ms = _time_ms(lambda: quantized_scores_plain(*args))
+    q = quantize(v_rows, 1)
+    gm = torch.randn((T, G, PK), generator=gen, device=dev)
+
+    def products():
+        torch.bmm(cavg3, q.transpose(1, 2))
+        torch.bmm(gm, q)
+        torch.bmm(gm.transpose(1, 2), cavg3)
+    bmm_ms = _time_ms(products)
+    # bytes: each input read once, each output written once; operations:
+    # the three [G x D x PK] products per tile, float32 multiply-adds
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (cavg3, v_rows, centers3, negs, af3, alpha))
+    nbytes += (T * G * D + T * PK * D + T) * 4
+    flops = 3 * 2 * T * G * PK * D
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[score] bitlevel 1 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"the three bmm products alone {bmm_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms for {nbytes} bytes, "
+          f"float32 operations {ops_ms:.4f} ms for {flops} flop)")
+    return dict(name="quantized_scores_pallas", route="cuda",
+                source="word2bits_tpu_torch/csrc/score.cu",
+                replaces="word2bits_tpu/kernels/score_pallas.py:110",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None, bmm_only_ms=bmm_ms,
+                shapes=f"T={T}, G={G}, P*K={PK}, D={D}, f32")
+
+
+# ---------------------------------------------------------------- kernel 3
+def check_rank1(dev) -> dict:
+    """scatter_add_span_rank1 against its plain version at the exact-mode
+    shape: a float32 [69,998, 200] table, 4,096 dense center rows and
+    4,096 * 24 rank-1 rows g[j] * cavg[j // 24], the ids drawn like one
+    step (subsampled Zipf(1.05) centers, unigram^0.75 negatives).  Both sum
+    each id's rows in float32 in another order: atol 1e-5 + rtol 1e-5.
+    Kernel 2 on the same rows materialized (the exact mode's float32 v
+    scatter) is held to the same tolerance against its plain version and
+    the rank-1 plain version, and timed beside it, with and without
+    forming the rows; so is index_add_ of the materialized rows."""
+    from word2bits_tpu_torch.kernels.span_scatter import (
+        scatter_add_span_plain, scatter_add_span_planned,
+        scatter_add_span_rank1, scatter_add_span_rank1_plain, span_plan)
+    rng = np.random.default_rng(SEED + 3)
+    V, nd = RANK1_V, RANK1_ND
+    nn = nd * K
+    ids = torch.from_numpy(_step_ids(rng, V, nd, nn, 0)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    dense = torch.randn((nd, D), generator=gen, device=dev) * 0.01
+    g = torch.randn((nn,), generator=gen, device=dev) * 0.01
+    cavg = torch.randn((nd, D), generator=gen, device=dev) * 0.1
+    table0 = torch.rand((V, D), generator=gen, device=dev) - 0.5
+    plan = span_plan(ids, V)
+    got = scatter_add_span_rank1(table0.clone(), plan, dense, g, cavg, K)
+    want = scatter_add_span_rank1_plain(table0.clone(), plan, dense, g,
+                                        cavg, K)
+    torch.cuda.synchronize()
+    err = _max_err(got, want)
+    if not torch.allclose(got, want, atol=1e-5, rtol=1e-5):
+        _fail(f"rank-1 span scatter: max abs err {err:.3e} > atol 1e-5 + "
+              "rtol 1e-5")
+    if torch.equal(got, table0):
+        _fail("rank-1 span scatter changed nothing")
+    src = torch.arange(nn, device=dev) // K
+
+    def materialize():
+        return torch.cat([dense, g[:, None] * cavg[src]])
+    rows = materialize()
+    mat = scatter_add_span_planned(table0.clone(), plan, rows)
+    mat_plain = scatter_add_span_plain(table0.clone(), ids, rows)
+    torch.cuda.synchronize()
+    # kernel 2 at the exact mode's float32 v scatter: against its own
+    # plain version and against the rank-1 plain version, same tolerance
+    mat_err = max(_max_err(mat, mat_plain), _max_err(mat, want))
+    if not (torch.allclose(mat, mat_plain, atol=1e-5, rtol=1e-5)
+            and torch.allclose(mat, want, atol=1e-5, rtol=1e-5)):
+        _fail(f"span scatter on the materialized rows (float32 table): max "
+              f"abs err {mat_err:.3e} > atol 1e-5 + rtol 1e-5")
+    n_unique = int(plan.n_runs)
+    print(f"[rank1] max abs err {err:.3e} against the plain version; "
+          f"kernel 2 on the materialized rows {mat_err:.3e} against the "
+          f"plain versions, {_max_err(got, mat):.3e} against kernel 3; "
+          f"{nd} + {nn} rows, {n_unique} distinct ids")
+    scratch = table0.clone()
+    ms = _time_ms(lambda: scatter_add_span_rank1(scratch, plan, dense, g,
+                                                 cavg, K))
+    plain_ms = _time_ms(lambda: scatter_add_span_rank1_plain(
+        scratch, plan, dense, g, cavg, K))
+    span_ms = _time_ms(lambda: scatter_add_span_planned(scratch, plan, rows))
+    span_plain_ms = _time_ms(lambda: scatter_add_span_plain(scratch, ids,
+                                                            rows))
+    span_form_ms = _time_ms(lambda: scatter_add_span_planned(
+        scratch, plan, materialize()))
+    library_ms = _time_ms(lambda: scratch.index_add_(0, ids, rows))
+    # bytes: dense rows, g, cavg and the plan read once; each touched
+    # table row read and written once
+    nbytes = ((dense.numel() + g.numel() + cavg.numel()) * 4
+              + sum(t.numel() * 4 for t in plan) + 2 * n_unique * D * 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # kernel 2's bound there: the materialized rows in place of the dense
+    # rows, g and cavg
+    span_bytes = (rows.numel() * 4 + sum(t.numel() * 4 for t in plan)
+                  + 2 * n_unique * D * 4)
+    span_bound_ms = span_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[rank1] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; kernel 2 on "
+          f"the materialized rows {span_ms:.4f} ms ({span_form_ms:.4f} ms "
+          f"with forming them; its plain version {span_plain_ms:.4f} ms, "
+          f"its bound {span_bound_ms:.4f} ms), index_add_ of them "
+          f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} bytes)")
+    return dict(name="scatter_add_span_rank1", route="cuda",
+                source="word2bits_tpu_torch/csrc/span_scatter.cu",
+                replaces="word2bits_tpu/kernels/span_scatter.py:268",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+                span_materialized_ms=span_ms,
+                span_materialized_with_forming_ms=span_form_ms,
+                span_at_exact=dict(
+                    max_abs_err=mat_err, ms=span_ms, plain_ms=span_plain_ms,
+                    bound_ms=span_bound_ms, library_ms=library_ms,
+                    shapes=f"table [{V}, {D}] f32, {nd + nn} f32 rows"),
+                shapes=f"table [{V}, {D}] f32, {nd} dense + {nn} rank-1 "
+                       f"rows")
 
 
 # ---------------------------------------------------------------- kernel 7
@@ -381,15 +612,19 @@ def check_grmw(dev) -> dict:
 
 # ------------------------------------------------------- step and chunk
 def check_step_and_chunk(dev) -> None:
-    """The fused step and a 3-step chunk on the card (kernels) against the
-    same calls on the CPU (plain versions), at a small shape with injected
-    draws, float32 table, with the span scatter and with the grmw scatter
-    under -loop-mode fori: atol 1e-4 + rtol 1e-4, loss rtol 1e-5."""
+    """One step and a 3-step chunk of each engine on the card (kernels)
+    against the same calls on the CPU (plain versions), at a small shape
+    with injected draws, float32 tables: atol 1e-4 + rtol 1e-4, loss rtol
+    1e-5.  Configurations: the fused table with the span scatter and with
+    grmw under -loop-mode fori (context kernel); the split tables at the
+    Quick start (per-center, shifted sums, add) and in the exact mode with
+    materialized and with rank-1 negative rows (span, banded, context
+    kernel); the score kernel on split and on fused tables."""
     from word2bits_tpu_torch.models import cbow_fused as cf
+    from word2bits_tpu_torch.models import cbow_slab as cs
     from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-    from word2bits_tpu_torch.models.cbow_slab import SlabInputs
     from word2bits_tpu_torch.sampling.unigram import build_alias_table
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(SEED + 1)
     v, d, b, w, k, g, p, s = 300, 16, 64, 3, 5, 8, 2, 3
     hyper = CBOWHyper(bitlevel=1, size=d, window=w, negative=k)
     n = s * b + 2 * w + 10
@@ -398,57 +633,79 @@ def check_step_and_chunk(dev) -> None:
     sents = torch.arange(n) // 23
     sents[:w] = -1
     shrinks = torch.from_numpy(rng.integers(0, w, (s, b)))
-    negs = torch.from_numpy(rng.integers(1, v, (s, b // g, p * k)))
-    table = torch.from_numpy(rng.uniform(-0.5, 0.5, (v, 2 * d))
-                             .astype(np.float32))
-    inputs = SlabInputs(tokens[:b + 2 * w], sents[:b + 2 * w], shrinks[0],
-                        negs[0])
-    for simpl, loop_mode in (("span", "scan"), ("grmw", "fori")):
+    u0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (v, d)).astype(np.float32))
+    v0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (v, d)).astype(np.float32))
+    sc = ChunkScalars(base0=w, alpha0=0.05, wca_start=100.0,
+                      wca_per_step=float(b), denom=1e4)
+    fused_kw = dict(banded=8, neg_pool=p, context_pallas=True)
+    configs = (
+        ("span (scan)", g, dict(fused_kw, scatter_impl="span")),
+        ("grmw (fori)", g, dict(fused_kw, scatter_impl="grmw")),
+        ("quickstart", 0, dict(banded=0)),
+        ("exact", 0, dict(banded=8, scatter_impl="span",
+                          context_pallas=True)),
+        ("exact rank-1", 0, dict(banded=8, scatter_impl="span",
+                                 context_pallas=True, span_rank1=True)),
+        ("pallas split", g, dict(banded=8, neg_pool=p, use_pallas=True,
+                                 context_pallas=True)),
+        ("pallas fused", g, dict(banded=8, neg_pool=p, use_pallas=True,
+                                 context_pallas=True)),
+    )
+    for name, gg, kw in configs:
+        negs = torch.from_numpy(rng.integers(
+            1, v, (s, b // gg, p * k) if gg else (s, b, k)))
+        fused = name in ("span (scan)", "grmw (fori)", "pallas fused")
+        loop = dict(loop_mode="fori") if name == "grmw (fori)" else {}
         outs = {}
         for where in ("cpu", dev):
-            args = [t.to(where) for t in inputs]
-            tab, loss = cf.fused_slab_step(
-                table.clone().to(where), SlabInputs(*args),
-                torch.tensor(0.05, device=where), hyper, b, g, neg_pool=p,
-                banded=8, scatter_impl=simpl, context_pallas=True)
-            chunk = cf.make_fused_train_chunk(hyper, v, b, s, neg_sharing=g,
-                                              neg_pool=p, banded=8,
-                                              scatter_impl=simpl,
-                                              context_pallas=True,
-                                              loop_mode=loop_mode)
-            sc = ChunkScalars(base0=w, alpha0=0.05, wca_start=100.0,
-                              wca_per_step=float(b), denom=1e4)
-            ctab, closs = chunk(table.clone().to(where), tokens.to(where),
-                                sents.to(where),
-                                build_alias_table(np.ones(v)).to(where), sc,
-                                shrinks=shrinks.to(where),
-                                negs=negs.to(where))
-            outs[str(where)] = (tab.cpu(), float(loss), ctab.cpu(),
-                                float(closs))
-        (t0, l0, c0, cl0), (t1, l1, c1, cl1) = outs["cpu"], outs[str(dev)]
-        for name, a, bb in (("step", t1, t0), ("chunk", c1, c0)):
-            if not torch.allclose(a, bb, atol=1e-4, rtol=1e-4):
-                _fail(f"{simpl} {name} on the card vs the CPU: max abs err "
-                      f"{_max_err(a, bb):.3e}")
-        for name, a, bb in (("step loss", l1, l0), ("chunk loss", cl1, cl0)):
+            st = cs.SlabInputs(
+                tokens[:b + 2 * w].to(where), sents[:b + 2 * w].to(where),
+                shrinks[0].to(where), negs[0].to(where))
+            alpha = torch.tensor(0.05, device=where)
+            atab = build_alias_table(np.ones(v)).to(where)
+            data = (tokens.to(where), sents.to(where), atab, sc)
+            draws = dict(shrinks=shrinks.to(where), negs=negs.to(where))
+            if fused:
+                t0 = torch.cat([u0, v0], dim=1).to(where)
+                tab, loss = cf.fused_slab_step(t0.clone(), st, alpha, hyper,
+                                               b, gg, **kw)
+                chunk = cf.make_fused_train_chunk(hyper, v, b, s, gg, **kw,
+                                                  **loop)
+                ctab, closs = chunk(t0.clone(), *data, **draws)
+                step, chunked = (tab,), (ctab,)
+            else:
+                su, sv, loss = cs.slab_step(u0.clone().to(where),
+                                            v0.clone().to(where), st, alpha,
+                                            hyper, b, gg, **kw)
+                chunk = cs.make_slab_train_chunk(hyper, v, b, s, gg, **kw)
+                cu, cv, closs = chunk(u0.clone().to(where),
+                                      v0.clone().to(where), *data, **draws)
+                step, chunked = (su, sv), (cu, cv)
+            outs[str(where)] = ([t.cpu() for t in step], float(loss),
+                                [t.cpu() for t in chunked], float(closs))
+        (t0_, l0, c0, cl0), (t1, l1, c1, cl1) = outs["cpu"], outs[str(dev)]
+        errs = []
+        for what, a, bb in (("step", t1, t0_), ("chunk", c1, c0)):
+            for x, y in zip(a, bb):
+                if not torch.allclose(x, y, atol=1e-4, rtol=1e-4):
+                    _fail(f"{name} {what} on the card vs the CPU: max abs "
+                          f"err {_max_err(x, y):.3e}")
+                errs.append(_max_err(x, y))
+        for what, a, bb in (("step loss", l1, l0), ("chunk loss", cl1, cl0)):
             if abs(a - bb) > 1e-5 * abs(bb) + 1e-6:
-                _fail(f"{simpl} {name} on the card {a} vs the CPU {bb}")
-        print(f"[step] {simpl} ({loop_mode}) card vs CPU: step max abs err "
-              f"{_max_err(t1, t0):.3e}, chunk {_max_err(c1, c0):.3e}, "
-              f"losses {l1:.6f}/{l0:.6f}, {cl1:.6f}/{cl0:.6f}")
+                _fail(f"{name} {what} on the card {a} vs the CPU {bb}")
+        print(f"[step] {name} card vs CPU: step and chunk max abs err "
+              f"{max(errs):.3e}, losses {l1:.6f}/{l0:.6f}, "
+              f"{cl1:.6f}/{cl0:.6f}")
 
 
 # ------------------------------------------------- [train]: shipped path
 def train_main_path(work: str):
     """`cli train` on a synthetic text8-like corpus at the shipped flags;
-    returns its launch counts and the vector file."""
+    returns its launch counts, the vector file and the corpus."""
     from word2bits_tpu_torch import cli
     from word2bits_tpu_torch.data.synthetic import zipf_corpus
     from word2bits_tpu_torch.io.vectors import read_vectors
-    from word2bits_tpu_torch.kernels.context_pallas import \
-        fused_context_pallas
-    from word2bits_tpu_torch.kernels.span_scatter import \
-        scatter_add_span_planned
 
     corpus = os.path.join(work, "corpus.txt")
     out = os.path.join(work, "vecs.bin")
@@ -471,12 +728,10 @@ def train_main_path(work: str):
                 st.flush()
 
     captured = io.StringIO()
-    fused_context_pallas.launches = 0
-    scatter_add_span_planned.launches = 0
+    _zero_launches()
     with contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
         rc = cli.train_main(["-train", corpus, "-output", out] + TRAIN_FLAGS)
-    launches = {"fused_context_pallas": fused_context_pallas.launches,
-                "scatter_add_span": scatter_add_span_planned.launches}
+    launches = _read_launches()
     if rc != 0:
         _fail(f"cli train returned {rc}")
     log = captured.getvalue()
@@ -488,8 +743,8 @@ def train_main_path(work: str):
     steps = int(m.group(1))
     if steps < S:
         _fail(f"trained {steps} steps, fewer than one {S}-step chunk")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("fused_context_pallas", "scatter_add_span"):
+        if launches[name] <= 0:
             _fail(f"{name} was not launched on the main path")
     if not all(math.isfinite(x) for x in losses):
         _fail(f"epoch loss not finite: {losses}")
@@ -504,7 +759,7 @@ def train_main_path(work: str):
     print(f"[train] {steps} steps, V={V}, epoch loss {losses[-1]:.4f}, "
           f"{float(m.group(3)):.1f} words/sec, {float(m.group(4)):.1f} "
           f"us/step; launches {launches}; vectors file {V} x {D} of +-1/3")
-    return launches, out
+    return launches, out, corpus
 
 
 # ------------------------------------------- [flagship]: capacity path
@@ -516,10 +771,6 @@ def train_flagship(work: str, dev) -> tuple:
     from word2bits_tpu_torch.config import config_from_argv
     from word2bits_tpu_torch.data.synthetic import zipf_vocab_corpus
     from word2bits_tpu_torch.io.packed import read_packed
-    from word2bits_tpu_torch.kernels.context_pallas import \
-        fused_context_pallas
-    from word2bits_tpu_torch.kernels.group_rmw import \
-        scatter_add_grmw_planned
     from word2bits_tpu_torch.ops.quantize import quantize
 
     # the runbook's flags; the output goes to the work directory, in the
@@ -540,20 +791,18 @@ def train_flagship(work: str, dev) -> tuple:
               f"built in {time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fused_context_pallas.launches = 0
-        scatter_add_grmw_planned.launches = 0
+        _zero_launches()
         res = T.train(cfg, vocab=vocab, encoded=encoded,
                       max_steps=FLAG_STEPS, device=dev)
-    launches = {"fused_context_pallas": fused_context_pallas.launches,
-                "scatter_add_grmw": scatter_add_grmw_planned.launches}
+    launches = _read_launches()
     peak = torch.cuda.max_memory_allocated()
     rss_life = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     if res.steps != FLAG_STEPS:
         _fail(f"flagship trained {res.steps} steps, not {FLAG_STEPS}")
-    for name, n in launches.items():
-        if n != res.steps:
-            _fail(f"flagship: {name} launched {n} times in {res.steps} "
-                  "steps (once per step expected)")
+    for name in ("fused_context_pallas", "scatter_add_grmw"):
+        if launches[name] != res.steps:
+            _fail(f"flagship: {name} launched {launches[name]} times in "
+                  f"{res.steps} steps (once per step expected)")
     if not all(math.isfinite(x) for x in res.epoch_losses):
         _fail(f"flagship epoch loss not finite: {res.epoch_losses}")
     if peak > 1.25 * table_bytes:
@@ -586,7 +835,7 @@ def train_flagship(work: str, dev) -> tuple:
     n_rows, step = 0, 1 << 18
     for r0 in range(0, FLAG_V, step):
         words, vecs, bl = read_packed(pack, max_words=step, first_row=r0)
-        blk = res.table[r0:r0 + step]
+        blk = res.tables[0][r0:r0 + step]
         q = quantize(blk[:, :FLAG_D].float() + blk[:, FLAG_D:].float(),
                      1).cpu().numpy()
         if (bl != 1 or words != vocab.words[r0:r0 + step]
@@ -602,6 +851,191 @@ def train_flagship(work: str, dev) -> tuple:
           f"{n_rows} x {FLAG_D} of +-1/3 equal to the trained table in "
           f"{time.perf_counter() - t0:.1f} s")
     return launches, pack
+
+
+# ------------------------------------- [quickstart]: reference default
+def _launch_counters():
+    """Every ported kernel's wrapper, by the name in the kernels line."""
+    from word2bits_tpu_torch.kernels.context_pallas import \
+        fused_context_pallas
+    from word2bits_tpu_torch.kernels.group_rmw import \
+        scatter_add_grmw_planned
+    from word2bits_tpu_torch.kernels.score_pallas import \
+        quantized_scores_pallas
+    from word2bits_tpu_torch.kernels.span_scatter import (
+        scatter_add_span_planned, scatter_add_span_rank1)
+    return {"fused_context_pallas": fused_context_pallas,
+            "scatter_add_span": scatter_add_span_planned,
+            "scatter_add_span_rank1": scatter_add_span_rank1,
+            "quantized_scores_pallas": quantized_scores_pallas,
+            "scatter_add_grmw": scatter_add_grmw_planned}
+
+
+def _zero_launches() -> None:
+    for fn in _launch_counters().values():
+        fn.launches = 0
+
+
+def _read_launches() -> dict:
+    return {n: fn.launches for n, fn in _launch_counters().items()}
+
+
+def _steady(res) -> tuple:
+    """(us/step, words/sec) over the chunks after the first (all of them
+    when there is one), on the card's clock."""
+    chunks = res.chunks[1:] or res.chunks
+    n = sum(c[0] for c in chunks)
+    words = sum(c[1] for c in chunks)
+    sec = sum(c[2] for c in chunks)
+    return sec / n * 1e6, words / sec
+
+
+def train_quickstart(work: str, corpus: str, dev) -> tuple:
+    """The README Quick start's flags through the CLI's config_from_argv
+    and train.train, cut to QS_STEPS steps; returns the launch counts and
+    the prepared (vocab, encoded) corpus for the later phases."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.config import config_from_argv
+    from word2bits_tpu_torch.io.vectors import read_vectors
+    out = os.path.join(work, "quickstart.bin")
+    cfg = config_from_argv(["-train", corpus, "-output", out]
+                           + QUICKSTART_FLAGS + ["-debug", "1"])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        vocab, encoded = T.prepare(cfg)
+    print(f"[quickstart] vocabulary of {vocab.size} words and "
+          f"{encoded.size} tokens read in {time.perf_counter() - t0:.1f} s")
+    _zero_launches()
+    res = T.train(cfg, vocab=vocab, encoded=encoded, max_steps=QS_STEPS,
+                  device=dev)
+    launches = _read_launches()
+    if res.steps != QS_STEPS or len(res.tables) != 2:
+        _fail(f"quickstart trained {res.steps} steps on {len(res.tables)} "
+              f"tables, not {QS_STEPS} on split tables")
+    if not all(math.isfinite(x) for x in res.epoch_losses):
+        _fail(f"quickstart epoch loss not finite: {res.epoch_losses}")
+    words, vecs = read_vectors(out)
+    third = np.float32(1.0) / np.float32(3.0)
+    if (vecs.shape != (vocab.size, D) or words != vocab.words
+            or not np.all(np.abs(vecs) == third)):
+        _fail(f"quickstart vectors file holds {vecs.shape}, not "
+              f"({vocab.size}, {D}) rows of +-1/3")
+    us, wps = _steady(res)
+    print(f"[quickstart] {res.steps} steps of B={cfg.batch_size} (the run "
+          f"is cut at {QS_STEPS} steps; one epoch of {encoded.size} tokens "
+          f"before subsampling is at most "
+          f"{math.ceil(encoded.size / cfg.batch_size)} steps), loss "
+          f"{res.epoch_losses[-1]:.4f}; steady {us:.1f} us/step, "
+          f"{wps:.1f} words/sec (chunks after the first; whole loop "
+          f"{res.words_per_sec:.1f} words/sec); launches {launches}; "
+          f"vectors file {vocab.size} x {D} of +-1/3")
+    return launches, (vocab, encoded)
+
+
+# ------------------------------------------ [exact]: rank-1 A/B on card
+def run_exact(dev, vocab, encoded) -> tuple:
+    """One EXACT_S-step chunk of make_slab_train_chunk with materialized
+    negative rows and one with the rank-1 span scatter, from the same state
+    and the same injected draws, twice in turns (materialized, rank-1,
+    materialized, rank-1; the second pair is timed); the two tables must
+    agree (atol 1e-5: the rows are the same float32 products summed in the
+    same order)."""
+    from word2bits_tpu_torch.config import config_from_argv
+    from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
+    from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
+    from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
+    from word2bits_tpu_torch.models.init import init_params
+    from word2bits_tpu_torch.sampling.unigram import (build_alias_table,
+                                                      draw_negatives)
+    from word2bits_tpu_torch.train import segment_capacity
+    cfg = config_from_argv(EXACT_FLAGS)
+    Bx, Sx = cfg.batch_size, cfg.steps_per_chunk
+    hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=D, window=W, negative=K)
+    ea = build_epoch_arrays(encoded, vocab.counts, cfg.sample,
+                            vocab.train_words, W, np.random.default_rng(SEED),
+                            capacity=segment_capacity(cfg, len(encoded))[1])
+    tokens = torch.from_numpy(ea.tokens).to(dev, torch.int64)
+    sents = torch.from_numpy(ea.sent_ids).to(dev, torch.int64)
+    atab = build_alias_table(vocab.unigram_weights()).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shrinks = torch.randint(0, W, (Sx, Bx), generator=gen, device=dev)
+    negs = draw_negatives(gen, atab, (Sx, Bx, K), vocab.size)
+    u0, v0 = init_params(vocab.size, D, device=dev)
+    sc = ChunkScalars(base0=W, alpha0=cfg.effective_alpha, wca_start=0.0,
+                      wca_per_step=float(Bx),
+                      denom=cfg.iter * float(vocab.train_words) + 1.0)
+    out, times = {}, {}
+    launches = {}
+    for rank1 in (False, True, False, True):
+        chunk = make_slab_train_chunk(
+            hyper, vocab.size, Bx, Sx, banded=cfg.banded_tile,
+            scatter_impl=cfg.scatter_impl, context_pallas=cfg.context_pallas,
+            span_rank1=rank1)
+        u, v = u0.clone(), v0.clone()
+        torch.cuda.synchronize()
+        _zero_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        u, v, loss = chunk(u, v, tokens, sents, atab, sc, shrinks=shrinks,
+                           negs=negs)
+        stop.record()
+        torch.cuda.synchronize()
+        tag = "rank-1" if rank1 else "materialized"
+        times[tag] = start.elapsed_time(stop) * 1e3 / Sx
+        out[tag] = (u, v, float(loss))
+        if rank1:
+            launches = _read_launches()
+    (um, vm, lm), (ur, vr, lr) = out["materialized"], out["rank-1"]
+    err = max(_max_err(um, ur), _max_err(vm, vr))
+    if not (torch.allclose(um, ur, atol=1e-5) and torch.allclose(vm, vr,
+                                                                atol=1e-5)):
+        _fail(f"exact: rank-1 and materialized tables differ by {err:.3e}")
+    if not (math.isfinite(lr) and abs(lr - lm) <= 1e-5 * abs(lm)):
+        _fail(f"exact: rank-1 loss {lr} vs materialized {lm}")
+    if launches["scatter_add_span_rank1"] != Sx:
+        _fail(f"exact: the rank-1 kernel launched "
+              f"{launches['scatter_add_span_rank1']} times in {Sx} steps")
+    print(f"[exact] B={Bx}, {Sx} steps per chunk, V={vocab.size}: "
+          f"materialized {times['materialized']:.1f} us/step, rank-1 "
+          f"{times['rank-1']:.1f} us/step (second of two turns each); "
+          f"tables agree to {err:.3e}, losses {lm:.6f}/{lr:.6f}; rank-1 "
+          f"chunk launches {launches}")
+    return launches, times
+
+
+# ---------------------------------------- [pallas]: score kernel paths
+def run_pallas(dev, vocab, encoded) -> dict:
+    """The shipped flags with -scatter-impl add -use-pallas 1, one
+    S-step chunk through train.train with -fused-tables 1 and with
+    -fused-tables 0; the score and context kernels launch once per step."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.config import config_from_argv
+    by_path = {}
+    for fused in ("1", "0"):
+        flags = list(PALLAS_FLAGS)
+        flags[flags.index("-fused-tables") + 1] = fused
+        cfg = config_from_argv(flags)
+        _zero_launches()
+        res = T.train(cfg, vocab=vocab, encoded=encoded, max_steps=S,
+                      device=dev)
+        launches = _read_launches()
+        tag = "pallas_fused" if fused == "1" else "pallas_split"
+        for name in ("quantized_scores_pallas", "fused_context_pallas"):
+            if launches[name] != res.steps or res.steps != S:
+                _fail(f"{tag}: {name} launched {launches[name]} times in "
+                      f"{res.steps} steps (once per step of {S} expected)")
+        if not all(math.isfinite(x) for x in res.epoch_losses):
+            _fail(f"{tag} epoch loss not finite: {res.epoch_losses}")
+        us, wps = _steady(res)
+        print(f"[pallas] -fused-tables {fused}: {res.steps} steps of "
+              f"B={cfg.batch_size}, "
+              f"loss {res.epoch_losses[-1]:.4f}, {us:.1f} us/step, "
+              f"{wps:.1f} words/sec (one chunk, its warm-up included); "
+              f"launches {launches}")
+        by_path[tag] = launches
+        del res
+    return by_path
 
 
 # --------------------------------------------------- [accuracy]: eval
@@ -719,31 +1153,40 @@ def main() -> int:
 
     ctx200 = check_context(dev, B, D, "context")
     span = check_span(dev)
+    score = check_score(dev)
+    rank1 = check_rank1(dev)
     check_step_and_chunk(dev)
     grmw = check_grmw(dev)
     ctx = check_context(dev, FLAG_B, FLAG_D, "context@800")
+    ctx_exact = check_context(dev, EXACT_B, D, "context@exact",
+                              torch.float32)
     work = os.path.join(repo, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    by_path = {}
     try:
-        by_path = {"train": train_main_path(work)}
-        launches, vec_path = by_path["train"]
-        by_path["flagship"] = train_flagship(work, dev)
-        check_accuracy(dev, by_path["flagship"][1], ACC_THRESHOLD,
-                       ACC_QUESTIONS, "flagship.pack")
+        by_path["train"], vec_path, corpus = train_main_path(work)
+        by_path["flagship"], pack = train_flagship(work, dev)
+        check_accuracy(dev, pack, ACC_THRESHOLD, ACC_QUESTIONS,
+                       "flagship.pack")
         check_accuracy(dev, vec_path, 0, 2000, "train.bin")
+        by_path["quickstart"], prepared = train_quickstart(work, corpus, dev)
+        by_path["exact"], _ = run_exact(dev, *prepared)
+        by_path.update(run_pallas(dev, *prepared))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    ctx["at_d200"] = {k: ctx200[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                             "bound_ms", "shapes")}
-    kernels = [ctx, span, grmw]
+    at = ("max_abs_err", "ms", "plain_ms", "bound_ms", "shapes")
+    ctx["at_d200"] = {k: ctx200[k] for k in at}
+    ctx["at_exact"] = {k: ctx_exact[k] for k in at}
+    span["at_exact"] = rank1.pop("span_at_exact")
+    kernels = [ctx, span, rank1, score, grmw]
     for k in kernels:
-        k["launches_by_path"] = {p: c[0].get(k["name"], 0)
-                                 for p, c in by_path.items()}
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes",
-            "launches_by_path", "at_d200")
+            "launches_by_path", "at_d200", "at_exact", "bmm_only_ms",
+            "span_materialized_ms", "span_materialized_with_forming_ms")
     print(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys if k in kd}
                                   for kd in kernels]}))

@@ -150,7 +150,7 @@ def test_export_matches_jax_bytes(tmp_path, monkeypatch, rng, dtype,
     cfg = config_from_argv(["-bitlevel", str(bitlevel), "-binary",
                             str(int(binary)), "-packed", "1"])
     tp, jp = str(tmp_path / "t.bin"), str(tmp_path / "j.bin")
-    ttrain.write_output(tp, vocab, table, cfg)
+    ttrain.write_output(tp, vocab, (table,), cfg)
     u, v = tf.deinterleave(tf.params_to_numpy(table))
     vecs = jvec.output_vectors(u, v, bitlevel)
     jvec.write_vectors(jp, vocab.words, vecs, binary=binary)

@@ -88,7 +88,10 @@ def test_fused_step_rejects_unported_paths(rng):
     with pytest.raises(ValueError, match="neg_sharing"):
         tf.fused_slab_step(*args, 0, banded=8)
     with pytest.raises(ValueError, match="banded"):
-        tf.fused_slab_step(*args, G)
+        tf.fused_slab_step(*args, G, context_pallas=True)
+    with pytest.raises(ValueError, match="use_pallas"):
+        tf.fused_slab_step(*args, G, banded=8, scatter_impl="span",
+                           use_pallas=True)
     with pytest.raises(ValueError, match="scatter_impl"):
         tf.fused_slab_step(*args, G, banded=8, scatter_impl="sweep")
     hyper_r = CBOWHyper(bitlevel=1, size=D, window=W, negative=K, reg=0.1)

@@ -42,6 +42,11 @@ FLAGSHIP = ["-output", "1b800d_full.pack", "-packed", "1", "-size", "800",
             "-context-pallas", "1"]
 
 
+# the README Quick start (the reference-default slab engine)
+QUICKSTART = ["-size", "200", "-window", "8", "-negative", "24", "-iter", "5",
+              "-min-count", "5", "-bitlevel", "1", "-binary", "1"]
+
+
 @pytest.mark.parametrize("argv", [
     [],
     SHIPPED,
@@ -53,6 +58,12 @@ FLAGSHIP = ["-output", "1b800d_full.pack", "-packed", "1", "-size", "800",
     FLAGSHIP,
     FUSED_ADD + ["-loop-mode", "unroll", "-scatter-impl", "grmw",
                  "-span-chunk", "64"],
+    QUICKSTART,
+    FUSED_ADD + ["-use-pallas", "1"],
+    ["-fused-tables", "0", "-neg-sharing", "8", "-neg-pool", "2",
+     "-use-pallas", "1", "-banded-tile", "0"],
+    ["-batch-size", "4096", "-steps-per-chunk", "128", "-banded-tile", "256",
+     "-scatter-impl", "span", "-context-pallas", "1"],
 ])
 def test_config_same_fields_as_jax(argv):
     t = tconfig.config_from_argv(argv)
@@ -79,7 +90,6 @@ def test_config_rejects_what_jax_rejects(argv):
 
 
 @pytest.mark.parametrize("flag,argv", [
-    ("-use-pallas", FUSED_ADD + ["-use-pallas", "1"]),
     ("-hot-rows", FUSED_ADD + ["-hot-rows", "100"]),
     ("-hot-pallas", FUSED_ADD + ["-hot-rows", "100", "-hot-pallas", "1"]),
     ("-neg-stratify", FUSED_ADD + ["-hot-rows", "100",
@@ -111,16 +121,40 @@ def test_unported_flags_rejected_by_name(flag, argv):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    ([], "-fused-tables"),
-    (["-fused-tables", "1", "-neg-sharing", "8"], "-banded-tile"),
+    (["-model", "skipgram"], "-model"),
+    (["-dedup-block", "64"], "-dedup-block"),
 ])
 def test_unported_engines_rejected_by_name(tmp_path, argv, flag):
+    """The engines still without code (skip-gram; the slab engine's
+    dedup scatter) are rejected by name before anything trains."""
     (tmp_path / "c.txt").write_text("a b c a b c\n" * 20)
+    with pytest.raises(ValueError, match=re.escape(flag)):
+        tconfig.config_from_argv(argv + ["-train", str(tmp_path / "c.txt"),
+                                         "-min-count", "1", "-debug", "0",
+                                         "-size", "8"])
+
+
+@pytest.mark.parametrize("argv", [
+    [],                                               # the slab engine
+    ["-fused-tables", "1", "-neg-sharing", "8"],      # banded 0
+    ["-fused-tables", "1", "-neg-sharing", "8", "-use-pallas", "1"],
+])
+def test_formerly_unported_engines_train_on_cpu(tmp_path, argv):
+    """The reference-default engine, the fused engine's shifted sums and
+    its score-kernel path each train a few steps and move the tables."""
+    (tmp_path / "c.txt").write_text("a b c d e f a b c d\n" * 40)
     cfg = tconfig.config_from_argv(argv + ["-train", str(tmp_path / "c.txt"),
                                            "-min-count", "1", "-debug", "0",
-                                           "-size", "8"])
-    with pytest.raises(ValueError, match=re.escape(flag)):
-        ttrain.train(cfg, device="cpu")
+                                           "-size", "8", "-batch-size", "32",
+                                           "-steps-per-chunk", "4"])
+    res = ttrain.train(cfg, device="cpu", max_steps=8)
+    assert res.steps == 8 and np.isfinite(res.epoch_losses).all()
+    assert len(res.tables) == (1 if cfg.fused_tables else 2)
+    u, v = ttrain.table_halves(res.tables)
+    assert u.shape == v.shape == (res.vocab.size, 8)
+    from word2bits_tpu_torch.models.init import init_params
+    u0, v0 = init_params(res.vocab.size, 8)
+    assert not torch.equal(u, u0) and not torch.equal(v, v0)
 
 
 def test_no_silent_cpu(monkeypatch):
@@ -171,6 +205,39 @@ def test_cli_train_slice_on_cpu(tmp_path, monkeypatch, capsys):
     assert losses[-1] > losses[0], losses        # less negative
     assert re.search(r"Trained \d+ steps", log)
     words, vecs = jread(str(out))                # the JAX package's reader
+    vocab = (tmp_path / "vocab.txt").read_text().split("\n")[:-1]
+    assert words == [line.split()[0] for line in vocab]
+    assert vecs.shape == (len(words), 32)
+    assert np.all(np.abs(vecs) == np.float32(1) / np.float32(3))
+
+
+@pytest.mark.parametrize("engine", [
+    [],
+    ["-fused-tables", "0", "-neg-sharing", "8", "-use-pallas", "1"],
+    ["-fused-tables", "1", "-neg-sharing", "8", "-use-pallas", "1"],
+    ["-fused-tables", "0", "-neg-sharing", "8", "-neg-pool", "2",
+     "-use-pallas", "1"],
+])
+def test_cli_train_quickstart_flags_on_cpu(tmp_path, monkeypatch, capsys,
+                                           engine):
+    """The README Quick start's flags at a small size (no engine flag: the
+    reference-default slab engine, per-center negatives), and the same
+    with the score kernel's path on both engines: epoch losses become less
+    negative, the JAX package's reader reads the vectors, the vocabulary
+    is the saved one and every value is +-1/3."""
+    corpus, out = tmp_path / "corpus.txt", tmp_path / "vecs.bin"
+    _verify_corpus(corpus)
+    monkeypatch.setenv("W2B_FORCE_CPU", "1")
+    assert cli.train_main([
+        "-train", str(corpus), "-output", str(out), "-size", "32",
+        "-window", "3", "-negative", "5", "-iter", "2", "-min-count", "2",
+        "-bitlevel", "1", "-binary", "1", "-save-vocab",
+        str(tmp_path / "vocab.txt"), "-debug", "1"] + engine) == 0
+    log = capsys.readouterr().out
+    losses = [float(x) for x in re.findall(r"Epoch Loss: (\S+)", log)]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert losses[-1] > losses[0], losses
+    words, vecs = jread(str(out))
     vocab = (tmp_path / "vocab.txt").read_text().split("\n")[:-1]
     assert words == [line.split()[0] for line in vocab]
     assert vecs.shape == (len(words), 32)
@@ -252,7 +319,8 @@ def test_port_imports_neither_jax_nor_jax_package():
                          timeout=120, check=True).stdout.split(" ", 1)
     mods = out[0].split(",")
     assert len(mods) >= 20 and out[1].strip() == "[]", out
-    for new in ("kernels.group_rmw", "eval.analogy", "io.packed"):
+    for new in ("kernels.group_rmw", "eval.analogy", "io.packed",
+                "kernels.score_pallas", "models.cbow_slab", "models.cbow"):
         assert f"word2bits_tpu_torch.{new}" in mods
     pattern = re.compile(r"import jax|from jax|word2bits_tpu(?!_torch)")
     sources = [p for p in (REPO / "word2bits_tpu_torch").rglob("*")

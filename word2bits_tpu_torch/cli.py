@@ -4,7 +4,7 @@ reference src/word2bits.cpp:591-621 and src/compute-accuracy.c:73-79):
 
     python -m word2bits_tpu_torch.cli train -train text8 -output vec.bin \\
         -size 200 -window 8 -negative 24 -iter 5 -min-count 5 -bitlevel 1 \\
-        -binary 1 -fused-tables 1 -neg-sharing 64 -banded-tile 256
+        -binary 1
     python -m word2bits_tpu_torch.cli accuracy vec.bin 0 30000 \\
         -questions questions-words.txt
 
@@ -35,10 +35,11 @@ def train_main(argv=None) -> int:
               "  -output -bitlevel -size -window -negative -alpha -sample\n"
               "  -min-count -iter -reg -binary -debug -save-every-epoch\n"
               "  -save-vocab -read-vocab -classes -threads\n"
-              "Engine: -fused-tables 1 -neg-sharing G -banded-tile N "
-              "[-neg-pool P -scatter-impl add|span|grmw -context-pallas 0|1 "
-              "-dtype float32|bfloat16 -batch-size -steps-per-chunk "
-              "-loop-mode scan|fori|unroll -packed 0|1 -seed]\n"
+              "Engine: [-fused-tables 0|1 -neg-sharing G -neg-pool P "
+              "-banded-tile N -scatter-impl add|span|grmw -context-pallas 0|1 "
+              "-use-pallas 0|1 -dtype float32|bfloat16 -batch-size "
+              "-steps-per-chunk -loop-mode scan|fori|unroll -packed 0|1 "
+              "-seed]\n"
               "Subcommands: train (default) | accuracy FILE [bitlevel "
               "threshold] [-questions FILE]")
         return 0

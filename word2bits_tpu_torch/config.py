@@ -7,12 +7,16 @@ defaults, validation, `auto_lr` and `config_from_argv`, so one argv
 resolves to equal fields in both packages.  What each extension does is
 documented there.
 
-The port implements one engine so far: the fused-table CBOW step with
-shared negatives and banded windowed sums (models/cbow_fused.py), with the
-`add`, `span` or `grmw` scatter, optionally the fused context kernel, any
-`-loop-mode` (all three run the same in-place loop), and the `-packed 1`
-export.  A flag that selects anything else is rejected by name with a
-ValueError, never ignored: see UNSUPPORTED below and train.build_engine.
+The port implements the two single-device CBOW engines: the split-table
+slab engine (the reference default: per-center negatives; or shared ones,
+models/cbow_slab.py) with the `add` or `span` scatter, and the fused-table
+engine (`-fused-tables 1 -neg-sharing G`, models/cbow_fused.py) with the
+`add`, `span` or `grmw` scatter; either with shifted-sum or banded windowed
+sums, optionally the fused context kernel (`-context-pallas`) and the
+fused score kernel (`-use-pallas`); any `-loop-mode` (all three run the
+same in-place loop); and the `-packed 1` export.  A flag that selects
+anything else is rejected by name with a ValueError, never ignored: see
+UNSUPPORTED below.
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ class Word2BitsConfig:
     seed: int = 1
     init: str = "reference"    # "reference" (exact LCG parity) or "uniform"
     auto_lr: bool = True       # batch-aware LR factor (see lr_scale)
-    dtype: str = "float32"     # backing-store dtype of the fused table
+    dtype: str = "float32"     # backing-store dtype of the tables
     profile_dir: Optional[str] = None
 
     # --- sharding ---
@@ -303,12 +307,11 @@ class Word2BitsConfig:
         return self.alpha * self.lr_scale
 
 
-# backing-store dtypes of the fused table (torch dtype names)
+# backing-store dtypes of the tables (torch dtype names)
 DTYPES = ("float32", "bfloat16")
 
 # (flag, field, selects-unported-code) — each rejected by name
 UNSUPPORTED = (
-    ("-use-pallas", "use_pallas", bool),
     # before -hot-rows, which each of the next three requires
     ("-hot-pallas", "hot_pallas", bool),
     ("-neg-stratify", "neg_stratify", bool),

@@ -1,7 +1,8 @@
 // Row access of the port's scatter kernels (csrc/span_scatter.cu,
 // csrc/group_rmw.cu): VEC adjacent columns per thread, loaded and stored
 // in one 16-byte float32 / 8-byte bfloat16 access when VEC == 4 (the
-// caller checks alignment), always widened to float32 in registers.
+// caller checks alignment), always widened to float32 in registers; and
+// the span scatter's two row sources (materialized rows, rank-1 rows).
 #pragma once
 
 #include <stdint.h>
@@ -69,12 +70,54 @@ __device__ __forceinline__ void add_row(const RowT* p, float (&acc)[VEC]) {
   for (int i = 0; i < VEC; ++i) acc[i] += to_f32(from_f32<TableT>(x[i]));
 }
 
+// Row sources of the span scatter: add(o, c, acc) adds columns c..c+VEC-1
+// of update row o (a source index of the unsorted row set), rounded to the
+// table dtype, to acc.
+//
+// DenseRows: the rows are materialized, [N, C].
+template <typename TableT, typename RowT, int VEC>
+struct DenseRows {
+  const RowT* rows;
+  int C;
+  __device__ __forceinline__ void add(int o, int c, float (&acc)[VEC]) const {
+    add_row<TableT, RowT, VEC>(rows + (size_t)o * C + c, acc);
+  }
+};
+
+// Rank1Rows: rows o < nd are dense[o]; row nd + j is g[j] * cavg[j /
+// per_src], formed in float32 and then rounded to the table dtype (the
+// per-center CBOW negative update at reg == 0), so the [N - nd, C] block is
+// never materialized.
+template <typename TableT, typename RowT, int VEC>
+struct Rank1Rows {
+  const RowT* dense;   // [nd, C]
+  const float* g;      // [N - nd]
+  const float* cavg;   // [(N - nd) / per_src, C]
+  int nd, per_src, C;
+  __device__ __forceinline__ void add(int o, int c, float (&acc)[VEC]) const {
+    if (o < nd) {
+      add_row<TableT, RowT, VEC>(dense + (size_t)o * C + c, acc);
+      return;
+    }
+    const int j = o - nd;
+    const float gj = g[j];
+    float x[VEC];
+    load_vec<VEC>(cavg + (size_t)(j / per_src) * C + c, x);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      acc[i] += to_f32(from_f32<TableT>(__fmul_rn(gj, x[i])));
+  }
+};
+
+inline bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 // true when every row start of both buffers allows one VEC = 4 access
 template <typename TableT, typename RowT>
 inline bool rows_vec4(const void* table, const void* rows, int C) {
-  return C % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(table) % (4 * sizeof(TableT)) == 0 &&
-         reinterpret_cast<uintptr_t>(rows) % (4 * sizeof(RowT)) == 0;
+  return C % 4 == 0 && aligned(table, 4 * sizeof(TableT)) &&
+         aligned(rows, 4 * sizeof(RowT));
 }
 
 }  // namespace w2b

@@ -20,11 +20,21 @@ table row read and written once (~10 us at the main path).  A Zipf-head run
 of hundreds of rows is still summed by one block, so the longest run sets
 a floor that the bytes do not show; the kernel's time is in PERF.md.
 
-`scatter_add_span_planned` / `scatter_add_span` run the plain version for
-CPU tensors (an f32 `index_add_` into a temporary holding the touched rows,
-then one cast-add) and launch the kernel for CUDA tensors, raising on what
-it does not take; there is no fallback.  `scatter_add_span_planned.launches`
-counts kernel launches.
+`scatter_add_span_rank1` is the same scatter whose trailing rows are
+rank-1, g[j] * cavg[j // per_src] (the per-center step's negative update at
+reg == 0), formed inside the kernel (replacing the JAX package's
+`scatter_add_span_rank1`, kernels/span_scatter.py:268): the [B*K, D] row
+block is never materialized.  The JAX package measured it slower than the
+materialized rows on the TPU, where XLA fused the broadcast multiply into
+its gather; PyTorch fuses nothing, so here it saves a write and a read of
+that block (PERF.md has both times).
+
+`scatter_add_span_planned` / `scatter_add_span` / `scatter_add_span_rank1`
+run the plain version for CPU tensors (an f32 `index_add_` into a temporary
+holding the touched rows, then one cast-add) and launch the kernel for
+CUDA tensors, raising on what it does not take; there is no fallback.
+`scatter_add_span_planned.launches` and `scatter_add_span_rank1.launches`
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -95,52 +105,70 @@ def scatter_add_span_plain(table: torch.Tensor, ids: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """w2b_span_scatter of csrc/span_scatter.cu, built on first use."""
-    fn = load_library("span_scatter").w2b_span_scatter
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _library() -> ctypes.CDLL:
+    """csrc/span_scatter.cu, built on first use, with its C signatures."""
+    lib = load_library("span_scatter")
+    lib.w2b_span_scatter.argtypes = ([ctypes.c_void_p] * 6
+                                     + [ctypes.c_int] * 5
+                                     + [ctypes.c_void_p])
+    lib.w2b_span_scatter.restype = ctypes.c_int
+    lib.w2b_span_scatter_rank1.argtypes = ([ctypes.c_void_p] * 8
+                                           + [ctypes.c_int] * 7
+                                           + [ctypes.c_void_p])
+    lib.w2b_span_scatter_rank1.restype = ctypes.c_int
+    return lib
+
+
+def _check(fn: str, table, plan: SpanPlan, rows, C: int, *others) -> None:
+    """Raise on anything the kernel does not take; `rows` is the
+    materialized (or dense) row block, `others` are (name, tensor) pairs
+    of further float32 inputs."""
+    dev = table.device
+    if table.dtype not in _DTYPES:
+        raise ValueError(f"{fn}: table dtype {table.dtype} is not float32 "
+                         "or bfloat16")
+    if rows.dtype not in (torch.float32, table.dtype):
+        raise ValueError(f"{fn}: rows must be float32 or {table.dtype}, got "
+                         f"{rows.dtype}")
+    if rows.dim() != 2 or rows.shape[1] != C:
+        raise ValueError(f"{fn}: rows {tuple(rows.shape)} do not have the "
+                         f"table's width {C}")
+    if plan.sids.dim() != 1:
+        raise ValueError(f"{fn}: pass one step's plan (SpanPlan.step)")
+    for name, t in (("table", table), ("rows", rows), ("order", plan.order),
+                    ("sids", plan.sids), ("run_start", plan.run_start),
+                    ("n_runs", plan.n_runs), *others):
+        if t.device != dev:
+            raise ValueError(f"{fn}: {name} is on {t.device}, table on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    for name, t in others:
+        if t.dtype != torch.float32:
+            raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
+    for name, t in (("order", plan.order), ("sids", plan.sids),
+                    ("run_start", plan.run_start), ("n_runs", plan.n_runs)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{fn}: plan.{name} must be int32")
+    if plan.run_start.shape[-1] != plan.sids.shape[-1] + 1:
+        raise ValueError(f"{fn}: plan.run_start must have N+1 entries")
+
+
+def _plan_ptrs(plan: SpanPlan):
+    return (plan.sids.data_ptr(), plan.order.data_ptr(),
+            plan.run_start.data_ptr(), plan.n_runs.data_ptr())
 
 
 def _launch(table, plan: SpanPlan, rows):
     V, C = table.shape
     N = plan.sids.shape[-1]
-    dev = table.device
-    if table.dtype not in _DTYPES:
-        raise ValueError(f"scatter_add_span: table dtype {table.dtype} is not "
-                         "float32 or bfloat16")
-    if rows.dtype not in (torch.float32, table.dtype):
-        raise ValueError(f"scatter_add_span: rows must be float32 or "
-                         f"{table.dtype}, got {rows.dtype}")
-    if rows.shape != (N, C):
-        raise ValueError(f"scatter_add_span: rows {tuple(rows.shape)} vs "
-                         f"plan of {N} ids into width {C}")
-    if plan.sids.dim() != 1:
-        raise ValueError("scatter_add_span: pass one step's plan "
-                         "(SpanPlan.step)")
-    for name, t in (("table", table), ("rows", rows), ("order", plan.order),
-                    ("sids", plan.sids), ("run_start", plan.run_start),
-                    ("n_runs", plan.n_runs)):
-        if t.device != dev:
-            raise ValueError(f"scatter_add_span: {name} is on {t.device}, "
-                             f"table on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"scatter_add_span: {name} must be contiguous")
-    for name, t in (("order", plan.order), ("sids", plan.sids),
-                    ("run_start", plan.run_start), ("n_runs", plan.n_runs)):
-        if t.dtype != torch.int32:
-            raise ValueError(f"scatter_add_span: plan.{name} must be int32")
-    if plan.run_start.shape[-1] != N + 1:
-        raise ValueError("scatter_add_span: plan.run_start must have N+1 "
-                         "entries")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(
-        table.data_ptr(), rows.data_ptr(), plan.sids.data_ptr(),
-        plan.order.data_ptr(), plan.run_start.data_ptr(),
-        plan.n_runs.data_ptr(), N, V, C, _DTYPES[table.dtype],
-        _DTYPES[rows.dtype], stream)
+    _check("scatter_add_span", table, plan, rows, C)
+    if rows.shape[0] != N:
+        raise ValueError(f"scatter_add_span: {rows.shape[0]} rows vs a plan "
+                         f"of {N} ids")
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = _library().w2b_span_scatter(
+        table.data_ptr(), rows.data_ptr(), *_plan_ptrs(plan), N, V, C,
+        _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
     check_launch("w2b_span_scatter", err)
     scatter_add_span_planned.launches += 1
     return table
@@ -168,3 +196,60 @@ def scatter_add_span(table: torch.Tensor, ids: torch.Tensor,
     and applies it."""
     return scatter_add_span_planned(table, span_plan(ids, table.shape[0]),
                                     rows)
+
+
+def scatter_add_span_rank1_plain(table: torch.Tensor, plan: SpanPlan,
+                                 dense_rows: torch.Tensor, g: torch.Tensor,
+                                 cavg: torch.Tensor,
+                                 per_src: int) -> torch.Tensor:
+    """The plain version of scatter_add_span_rank1: materializes the rows
+    (each rank-1 row formed in float32) and applies the plan."""
+    nn = g.shape[0]
+    src = torch.arange(nn, device=g.device) // per_src
+    rows = torch.cat([dense_rows.to(torch.float32),
+                      g.to(torch.float32)[:, None]
+                      * cavg.to(torch.float32)[src]])
+    return scatter_add_span_plain(table, plan.sids, rows[plan.order.long()])
+
+
+def _launch_rank1(table, plan: SpanPlan, dense_rows, g, cavg, per_src: int):
+    V, C = table.shape
+    N = plan.sids.shape[-1]
+    nd, nn = dense_rows.shape[0], g.shape[0]
+    fn = "scatter_add_span_rank1"
+    _check(fn, table, plan, dense_rows, C, ("g", g), ("cavg", cavg))
+    if nd + nn != N or per_src < 1 or nn % per_src:
+        raise ValueError(f"{fn}: {nd} dense + {nn} rank-1 rows vs a plan of "
+                         f"{N} ids with {per_src} rows per source")
+    if g.dim() != 1 or cavg.shape != (nn // per_src, C):
+        raise ValueError(f"{fn}: g must be [{nn}] and cavg "
+                         f"[{nn // per_src}, {C}], got {tuple(g.shape)} and "
+                         f"{tuple(cavg.shape)}")
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = _library().w2b_span_scatter_rank1(
+        table.data_ptr(), dense_rows.data_ptr(), g.data_ptr(),
+        cavg.data_ptr(), *_plan_ptrs(plan), N, nd, per_src, V, C,
+        _DTYPES[table.dtype], _DTYPES[dense_rows.dtype], stream)
+    check_launch("w2b_span_scatter_rank1", err)
+    scatter_add_span_rank1.launches += 1
+    return table
+
+
+def scatter_add_span_rank1(table: torch.Tensor, plan: SpanPlan,
+                           dense_rows: torch.Tensor, g: torch.Tensor,
+                           cavg: torch.Tensor,
+                           per_src: int) -> torch.Tensor:
+    """table[ids] += rows in place, where `plan` is the span_plan of the
+    ids [dense_ids; rank1_ids] and the rows are dense_rows [nd, C] (float32
+    or the table dtype) followed by nn rank-1 rows g[j] * cavg[j //
+    per_src] (g [nn] and cavg [nn / per_src, C] float32)."""
+    if table.device.type == "cpu":
+        return scatter_add_span_rank1_plain(table, plan, dense_rows, g, cavg,
+                                            per_src)
+    if table.device.type != "cuda":
+        raise ValueError("scatter_add_span_rank1 runs on cpu (plain version) "
+                         f"or cuda (kernel), not {table.device}")
+    return _launch_rank1(table, plan, dense_rows, g, cavg, per_src)
+
+
+scatter_add_span_rank1.launches = 0

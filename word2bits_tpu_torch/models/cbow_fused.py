@@ -5,10 +5,13 @@ position and the v rows updated for the centers carry the same word ids and
 go out in ONE scatter of B+2W double-width rows; the center v rows ride the
 slab gather.  Semantics are those of the JAX package's
 models/cbow_fused.py, restricted to what the ported configurations run:
-shared negatives (neg_sharing > 0) with pools, the banded windowed sums
-with or without the fused context kernel, and the `add` (index_add_),
-`span` (sorted kernel, the shipped throughput configuration) or `grmw`
-(sorted group-RMW kernel, the 3.7M x 800d capacity configuration) scatter.
+shared negatives (neg_sharing > 0) with pools, through the fused score
+kernel (`use_pallas`) or its plain version; the banded or shifted-sum
+windowed sums, with or without the fused context kernel; and the `add`
+(index_add_), `span` (sorted kernel, the shipped throughput configuration)
+or `grmw` (sorted group-RMW kernel, the 3.7M x 800d capacity
+configuration) scatter.  The context, positive, negative and u-sum phases
+are the slab step's (models/cbow_slab.py).
 
 PyTorch idiom: the table is updated IN PLACE (JAX donates it), the S steps
 of a chunk are a Python loop, and the chunk's randomness comes from an
@@ -23,18 +26,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from word2bits_tpu_torch.kernels.context_pallas import fused_context_pallas
 from word2bits_tpu_torch.kernels.group_rmw import (
     GroupPlan, group_plan, group_rows, scatter_add_grmw_planned)
 from word2bits_tpu_torch.kernels.span_scatter import (
     SpanPlan, scatter_add_span_planned, span_plan)
-from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
+from word2bits_tpu_torch.models.cbow import (
+    CBOWHyper, ChunkScalars, chunk_slabs, step_alphas)
 from word2bits_tpu_torch.models.cbow_slab import (
-    SlabInputs, from_tiles, pool_mask, to_tiles)
-from word2bits_tpu_torch.ops.quantize import quantize
-from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
-from word2bits_tpu_torch.ops.windowed import (
-    _tile_windows, banded_context, banded_usum, build_banded_masks, pick_tile)
+    SlabInputs, _numpy_to_torch, positive_phase, shared_negative_phase,
+    u_update_rows)
 from word2bits_tpu_torch.sampling.unigram import AliasTable, draw_negatives
 
 SCATTER_IMPLS = ("add", "span", "grmw")
@@ -49,15 +49,6 @@ def interleave(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def deinterleave(table: torch.Tensor):
     D = table.shape[1] // 2
     return table[:, :D], table[:, D:]
-
-
-def _numpy_to_torch(a: np.ndarray) -> torch.Tensor:
-    """numpy -> CPU tensor; JAX's bf16 arrays (ml_dtypes.bfloat16, which
-    torch.from_numpy refuses) go through their 16-bit pattern."""
-    a = np.array(a, copy=True)  # writable: JAX hands out read-only views
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
 
 
 def params_from_jax(u, v=None, *, dtype: torch.dtype, device,
@@ -95,106 +86,53 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
                     neg_pool: int = 1, banded: int = 0,
                     scatter_impl: str = "add",
                     span_plan: Optional[SpanPlan | GroupPlan] = None,
-                    context_pallas: bool = False, span_chunk: int = 128):
+                    context_pallas: bool = False, span_chunk: int = 128,
+                    use_pallas: bool = False):
     """One synchronous step on the fused (V, 2D) table, IN PLACE.
     Returns (table, loss) with loss a float32 0-d tensor on the device.
     `span_plan` is the step's hoisted plan for the `span` (SpanPlan) or
-    `grmw` (GroupPlan) scatter; `span_chunk` is grmw's `chunk`."""
+    `grmw` (GroupPlan) scatter; `span_chunk` is grmw's `chunk`.
+    `use_pallas` runs the shared-negative phase through the fused score
+    kernel (kernels/score_pallas.py; the `add` scatter only, as the
+    configuration requires)."""
     if not neg_sharing:
         raise ValueError("fused table step requires neg_sharing > 0")
-    if not banded:
-        raise ValueError("the fused step runs the banded windowed sums "
-                         "only: pass banded > 0 (-banded-tile)")
     if scatter_impl not in SCATTER_IMPLS:
         raise ValueError(f"unknown scatter_impl {scatter_impl!r} "
                          f"(supported: {', '.join(SCATTER_IMPLS)})")
+    if use_pallas and scatter_impl != "add":
+        raise ValueError("use_pallas runs with scatter_impl='add' only")
     B, W = batch_size, hyper.window
     D = table.shape[1] // 2
-    bl, reg = hyper.bitlevel, hyper.reg
     dt = torch.float32
     dev = table.device
     G = neg_sharing
     if B % G:
         raise ValueError(f"batch {B} not divisible by neg tile {G}")
-    T = B // G
     alpha = torch.as_tensor(alpha, dtype=dt, device=dev)
 
     slab_ids = inputs.slab_tokens.clamp_min(0)             # [B+2W]
     centers = slab_ids[W:W + B]
     # ONE gather: u rows for all positions + v rows for the centers
     slab_raw = table[slab_ids]                             # [B+2W, 2D]
-    two_ar = 2.0 * alpha * reg
-    btile = pick_tile(B, W, banded)
-    Nt = B // btile
-    Mb, _, valid = build_banded_masks(inputs.slab_sents, inputs.shrink, B,
-                                      W, btile)
-    if context_pallas:
-        # fused context + positive forward (kernels/context_pallas.py)
-        if reg:
-            raise ValueError("context_pallas supports reg == 0 only")
-        uwin3 = _tile_windows(slab_raw[:, :D], Nt, btile, W).contiguous()
-        cavg, cavge, dv_center, af, loss = fused_context_pallas(
-            uwin3, slab_raw[W:W + B, D:].contiguous(), Mb,
-            valid.to(dt)[:, None], alpha.reshape(1, 1), bl)
-        u_slab = None   # unused at reg == 0
-    else:
-        slab_rows = slab_raw.to(dt)
-        u_slab = slab_rows[:, :D]
-        v_c = slab_rows[W:W + B, D:]                       # centers' v rows
-        q_slab = quantize(u_slab, bl)
-        q_sq = (q_slab * q_slab).sum(dim=-1) if reg else None
-        csum, sq_sum, cw = banded_context(q_slab, q_sq, Mb, B)
-        af = (valid & (cw > 0)).to(dt)
-        cavg = csum / torch.clamp_min(cw, 1.0)[:, None]
-        loss = (-reg * (sq_sum * af).sum()) if reg else torch.zeros(
-            (), dtype=dt, device=dev)
-        q_vc = quantize(v_c, bl)
-        f_pos = (cavg * q_vc).sum(dim=-1)
-        g_pos = (1.0 - sigmoid_lut(f_pos)) * alpha * af
-        pos_reg = (reg * (q_vc * q_vc).sum(dim=-1)) if reg else 0.0
-        loss = loss + ((torch.log(sigmoid_exact(f_pos)) - pos_reg) * af).sum()
-        cavge = g_pos[:, None] * q_vc
-        dv_center = g_pos[:, None] * cavg
-        if reg:
-            dv_center = dv_center - two_ar * v_c * af[:, None]
-
+    pos = positive_phase(slab_raw[:, :D], slab_raw[W:W + B, D:], inputs,
+                         alpha, hyper, B, banded, context_pallas)
     # shared negatives (strided tiles); v-half gathered from the fused table
     P = neg_pool if neg_pool and neg_pool > 1 else 1
     negs = inputs.neg_ids                                  # [T, P*K]
-    K = negs.shape[1] // P
     v_n = table[negs][..., D:].to(dt)                      # [T, P*K, D]
-    cavg3 = to_tiles(cavg, T, G)
-    af3 = to_tiles(af, T, G)
-    centers3 = to_tiles(centers, T, G)
-    q_vn = quantize(v_n, bl)
-    f_neg = torch.bmm(cavg3, q_vn.transpose(1, 2))         # [T, G, P*K]
-    skip = negs[:, None, :] != centers3[:, :, None]
-    m3 = skip.to(dt) * af3[:, :, None]
-    if P > 1:
-        m3 = m3 * pool_mask(G, K, P, dt, dev)[None]
-    g_neg = (0.0 - sigmoid_lut(f_neg)) * alpha * m3
-    neg_reg = ((reg * (q_vn * q_vn).sum(dim=-1))[:, None, :]
-               if reg else 0.0)
-    loss = loss + ((torch.log(sigmoid_exact(-f_neg)) - neg_reg) * m3).sum()
-    cavge = cavge + from_tiles(torch.bmm(g_neg, q_vn), B)
-    dv_neg = torch.bmm(g_neg.transpose(1, 2), cavg3)       # [T, P*K, D]
-    if reg:
-        visits = m3.sum(dim=1)
-        dv_neg = dv_neg - two_ar * v_n * visits[:, :, None]
-
-    # u updates grouped by position (banded windowed sums)
-    M_af = Mb * af.reshape(Nt, btile)[:, :, None]
-    du_slab, cnt = banded_usum(M_af, cavge, B, W)
-    if reg:
-        du_slab = du_slab - two_ar * u_slab * cnt[:, None]
+    cavge_neg, dv_neg, nloss = shared_negative_phase(
+        pos.cavg, pos.af, centers, negs, v_n, alpha, hyper, B, G, P,
+        use_pallas)
+    loss = pos.loss + nloss
+    du_slab = u_update_rows(pos, pos.cavge + cavge_neg, alpha, hyper, B)
 
     # ONE fused row set for u-positions + center v-rows, then the
     # negative rows (u-half zero)
     dv_slab = torch.zeros((B + 2 * W, D), dtype=dt, device=dev)
-    dv_slab[W:W + B] = dv_center
+    dv_slab[W:W + B] = pos.dv_center
     fused_rows = torch.cat([du_slab, dv_slab], dim=1)      # [B+2W, 2D]
-    nd = dv_neg.reshape(-1, D)
-    neg_rows = torch.cat([torch.zeros_like(nd), nd], dim=1)
+    neg_rows = torch.cat([torch.zeros_like(dv_neg), dv_neg], dim=1)
     if scatter_impl in ("span", "grmw"):
         # one sorted call for slab + negative rows (kernels/span_scatter.py,
         # kernels/group_rmw.py); float32 rows round to the table dtype
@@ -220,7 +158,8 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
                            neg_pool: int = 1, banded: int = 0,
                            scatter_impl: str = "add",
                            context_pallas: bool = False,
-                           loop_mode: str = "scan", span_chunk: int = 128):
+                           loop_mode: str = "scan", span_chunk: int = 128,
+                           use_pallas: bool = False):
     """chunk(table, tokens, sent_ids, atab, scalars, gen, n_steps=None,
     shrinks=None, negs=None) -> (table, loss_sum).
 
@@ -243,13 +182,14 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
     if loop_mode not in LOOP_MODES:
         raise ValueError(f"unknown loop_mode {loop_mode!r} "
                          f"(supported: {', '.join(LOOP_MODES)})")
+    if use_pallas and scatter_impl != "add":
+        raise ValueError("use_pallas runs with scatter_impl='add' only")
     B, W, K = batch_size, hyper.window, hyper.negative
     P = neg_pool if (neg_pool and neg_pool > 1) else 1
     if not neg_sharing or B % neg_sharing:
         raise ValueError(f"neg_sharing ({neg_sharing}) must be > 0 and "
                          f"divide batch_size ({B})")
     T = B // neg_sharing
-    f32 = torch.float32
 
     def chunk(table: torch.Tensor, tokens: torch.Tensor,
               sent_ids: torch.Tensor, atab: AliasTable,
@@ -259,33 +199,20 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
               negs: Optional[torch.Tensor] = None):
         dev = table.device
         S = steps if n_steps is None else n_steps
-        lo = scalars.base0 - W
-        hi = lo + S * B + 2 * W
-        if lo < 0 or hi > tokens.shape[0]:
-            raise ValueError(f"chunk slab range [{lo}, {hi}) outside the "
-                             f"epoch arrays of length {tokens.shape[0]}")
+        slab_tokens, slab_sents = chunk_slabs(tokens, sent_ids,
+                                              scalars.base0, S, B, W)
         if shrinks is None:
             shrinks = torch.randint(0, W, (S, B), generator=gen, device=dev)
         if negs is None:
             negs = draw_negatives(gen, atab, (S, T, P * K), vocab_size)
-        # per-step LR, float32 like the JAX chunk's traced scalars
-        s_f = torch.arange(S, dtype=f32, device=dev)
-        alpha0 = torch.tensor(scalars.alpha0, dtype=f32, device=dev)
-        wca = (torch.tensor(scalars.wca_start, dtype=f32, device=dev)
-               + s_f * torch.tensor(scalars.wca_per_step, dtype=f32,
-                                    device=dev))
-        alphas = alpha0 * (1.0 - wca / torch.tensor(scalars.denom, dtype=f32,
-                                                    device=dev))
-        alphas = torch.maximum(alphas, alpha0 * 1e-4)
-        slab_tokens = tokens[lo:hi].unfold(0, B + 2 * W, B)   # [S, B+2W]
-        slab_sents = sent_ids[lo:hi].unfold(0, B + 2 * W, B)
+        alphas = step_alphas(scalars, S, dev)
         plans = None
         if scatter_impl in ("span", "grmw"):
             # hoisted: every step's scatter ids are known at chunk entry
             ids_all = torch.cat([slab_tokens.clamp_min(0),
                                  negs.reshape(S, -1)], dim=1)
             plans = scatter_plan(scatter_impl, ids_all, table, span_chunk)
-        loss = torch.zeros((), dtype=f32, device=dev)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
         for s in range(S):
             inputs = SlabInputs(slab_tokens=slab_tokens[s],
                                 slab_sents=slab_sents[s],
@@ -294,7 +221,8 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
                 table, inputs, alphas[s], hyper, B, neg_sharing,
                 neg_pool=P, banded=banded, scatter_impl=scatter_impl,
                 span_plan=None if plans is None else plans.step(s),
-                context_pallas=context_pallas, span_chunk=span_chunk)
+                context_pallas=context_pallas, span_chunk=span_chunk,
+                use_pallas=use_pallas)
             loss = loss + step_loss
         return table, loss
 

@@ -1,17 +1,24 @@
 """Where a training step's time goes on the card.
 
-    python3 -m word2bits_tpu_torch.tools.profile_step [--config shipped|flagship]
+    python3 -m word2bits_tpu_torch.tools.profile_step
+        [--config shipped|flagship|quickstart|exact|pallas]
         [--tokens N] [--steps S]
 
 `--config shipped` (the default) is the shipped throughput configuration
-(size 200, span scatter) on a synthetic text8-like corpus (written inside
-the checkout, removed afterwards); `--config flagship` is the
-full-Wikipedia capacity configuration of docs/large_vocab.md:19-25
-(3,699,941 types, size 800, B = 16384, grmw scatter) on the in-memory
-synthetic vocabulary of that shape (data/synthetic.zipf_vocab_corpus).
-Builds the port's kernels, warms the fused-table chunk up for one full
-chunk, then times `--steps` steps with the host clock and profiles the
-same number of steps with torch.profiler.  Prints the step time, the
+(size 200, span scatter, fused tables); `quickstart` the README Quick
+start's flags (the reference-default split-table engine: per-center
+negatives, B = 256, shifted sums, `add` scatter); `exact` the per-center
+mode at the JAX package's exact-mode throughput flags (B = 4096, banded
+256, span scatter, context kernel); `pallas` the shipped flags with
+`-scatter-impl add -use-pallas 1` (the score kernel).  These four run on a
+synthetic text8-like corpus (written inside the checkout, removed
+afterwards).  `--config flagship` is the full-Wikipedia capacity
+configuration of docs/large_vocab.md:19-25 (3,699,941 types, size 800,
+B = 16384, grmw scatter) on the in-memory synthetic vocabulary of that
+shape (data/synthetic.zipf_vocab_corpus).  Builds the port's kernels,
+warms the engine's chunk up for one full chunk, then times `--steps` steps
+with the host clock and profiles the same number of steps with
+torch.profiler.  Prints the step time, the
 device's busy and idle share of the profiled window (kernel time summed
 over the window's wall time; the port runs on one stream), and device time
 by kernel name.  Needs a CUDA card; numbers are the card's named on the
@@ -49,6 +56,18 @@ FLAGSHIP = ["-size", "800", "-window", "8", "-negative", "24", "-iter", "5",
             "-loop-mode", "fori", "-scatter-impl", "grmw",
             "-banded-tile", "256", "-context-pallas", "1"]
 FLAGSHIP_TYPES = 3_699_941
+QUICKSTART = ["-size", "200", "-window", "8", "-negative", "24",
+              "-min-count", "5", "-bitlevel", "1"]
+CONFIGS = {
+    "shipped": SHIPPED,
+    "quickstart": QUICKSTART,
+    # tools/step_bench.py:200-218 of the JAX package
+    "exact": QUICKSTART + ["-batch-size", "4096", "-steps-per-chunk", "128",
+                           "-banded-tile", "256", "-scatter-impl", "span",
+                           "-context-pallas", "1"],
+    "pallas": [("add" if f == "span" else f) for f in SHIPPED]
+    + ["-use-pallas", "1"],
+}
 
 
 def _prepare(config: str, tokens: int):
@@ -65,7 +84,8 @@ def _prepare(config: str, tokens: int):
     try:
         corpus = os.path.join(work, "corpus.txt")
         zipf_corpus(corpus, n_tokens=tokens, vocab=70_000, seed=0)
-        cfg = config_from_argv(["-train", corpus, "-debug", "0"] + SHIPPED)
+        cfg = config_from_argv(["-train", corpus, "-debug", "0"]
+                               + CONFIGS[config])
         vocab, encoded = prepare(cfg)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -74,10 +94,10 @@ def _prepare(config: str, tokens: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", choices=("shipped", "flagship"),
+    ap.add_argument("--config", choices=tuple(CONFIGS) + ("flagship",),
                     default="shipped")
     ap.add_argument("--tokens", type=int, default=17_000_000,
-                    help="corpus tokens of the shipped configuration")
+                    help="corpus tokens of the synthetic text8-like corpus")
     ap.add_argument("--steps", type=int, default=32)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -86,8 +106,8 @@ def main(argv=None) -> int:
     from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
     from word2bits_tpu_torch.kernels._build import build_all
     from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-    from word2bits_tpu_torch.models.init import init_fused_table
-    from word2bits_tpu_torch.train import build_engine, segment_capacity
+    from word2bits_tpu_torch.train import (build_engine, init_tables,
+                                           segment_capacity)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -96,14 +116,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_all()
-    dev = torch.device("cuda", 0)
     cfg, vocab, encoded = _prepare(args.config, args.tokens)
     B, S, W = cfg.batch_size, cfg.steps_per_chunk, cfg.window
     hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=cfg.size, window=W,
                       negative=cfg.negative, reg=cfg.reg)
-    eng = build_engine(cfg, vocab, init_fused_table(
-        vocab.size, cfg.size, dtype=getattr(torch, cfg.dtype), device=dev),
-        hyper)
+    dev = torch.device("cuda", 0)
+    eng = build_engine(cfg, vocab, init_tables(cfg, vocab.size, dev), hyper)
     _, capacity = segment_capacity(cfg, len(encoded))
     ea = build_epoch_arrays(encoded, vocab.counts, cfg.sample,
                             vocab.train_words, W, np.random.default_rng(0),
@@ -115,18 +133,17 @@ def main(argv=None) -> int:
         raise SystemExit(f"corpus gives {n_steps} steps; need "
                          f"{S + 2 * args.steps} (raise --tokens)")
     gen = torch.Generator(device=dev).manual_seed(1)
-    table = eng.table
 
     def run(first_step: int, steps: int):
         sc = ChunkScalars(base0=W + first_step * B,
                           alpha0=cfg.effective_alpha, wca_start=0.0,
                           wca_per_step=float(B),
                           denom=float(vocab.train_words) + 1.0)
-        return eng.chunk_fn(table, tokens, sents, eng.alias, sc, gen,
+        return eng.chunk_fn(*eng.tables, tokens, sents, eng.alias, sc, gen,
                             n_steps=steps)
 
-    print(f"V={vocab.size}, {n_steps} steps in the epoch; warm-up chunk of "
-          f"{S} steps")
+    print(f"--config {args.config}: V={vocab.size}, B={B}, {n_steps} steps in "
+          f"the epoch; warm-up chunk of {S} steps")
     run(0, S)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

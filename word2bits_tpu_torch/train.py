@@ -3,14 +3,18 @@
 
 Per run: vocab build (or cached read), reference LCG init, alias table;
 per epoch a host-built subsampled epoch array (fresh randomness each epoch),
-then chunks of S synchronous steps on the fused (V, 2D) table, with the
-JAX package's words-consumed accounting for the LR schedule and words/sec.
+then chunks of S synchronous steps, with the JAX package's words-consumed
+accounting for the LR schedule and words/sec.  Two engines, chosen as the
+JAX package's train.build_engine chooses them: the fused (V, 2D) table
+(`-fused-tables 1 -neg-sharing G`, models/cbow_fused.py) and the split
+(u, v) slab engine (every other CBOW configuration, the reference default
+among them: per-center negatives, models/cbow_slab.py).
 
-The table is stored unpadded (the JAX package pads rows and columns only
+The tables are stored unpadded (the JAX package pads rows and columns only
 for its TPU DMA tiles), allocated once on the training device and filled
-there in row blocks (models/init.init_fused_table), and exported in row
-blocks (`write_output`): at the 3.7M x 800d capacity configuration the
-host never holds a copy of it.  The loss accumulates on the device and is
+there in row blocks (models/init.py), and exported in row blocks
+(`write_output`): at the 3.7M x 800d capacity configuration the host never
+holds a copy of them.  The loss accumulates on the device and is
 fetched once per epoch (and for progress lines at -debug > 1).
 """
 
@@ -32,8 +36,10 @@ from word2bits_tpu_torch.data.vocab import Vocab
 from word2bits_tpu_torch.io.packed import PackedWriter, pack_codes
 from word2bits_tpu_torch.io.vectors import VectorWriter
 from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-from word2bits_tpu_torch.models.cbow_fused import make_fused_train_chunk
-from word2bits_tpu_torch.models.init import init_fused_table
+from word2bits_tpu_torch.models.cbow_fused import (deinterleave,
+                                                   make_fused_train_chunk)
+from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
+from word2bits_tpu_torch.models.init import init_fused_table, init_params
 from word2bits_tpu_torch.ops.quantize import quantize
 from word2bits_tpu_torch.sampling.unigram import AliasTable, build_alias_table
 
@@ -41,10 +47,13 @@ from word2bits_tpu_torch.sampling.unigram import AliasTable, build_alias_table
 _EXPORT_VALUES = 1 << 24
 
 
+Tables = Tuple[torch.Tensor, ...]   # (fused (V, 2D) table,) or (u, v)
+
+
 @dataclass
 class TrainResult:
     vocab: Vocab
-    table: torch.Tensor      # the trained fused (V, 2D) table, on its device
+    tables: Tables           # the trained tables, on their device
     epoch_losses: List[float]
     words_per_sec: float     # words consumed per wall-second of the loop
     steps: int               # steps executed
@@ -96,37 +105,48 @@ def segment_capacity(cfg: Word2BitsConfig, n_tokens: int) -> Tuple[int, int]:
 
 @dataclass
 class Engine:
-    """The chunk callable and its state: the fused table and the alias
-    table, both on the training device."""
+    """The chunk callable and its state: the tables and the alias table,
+    all on the training device.  chunk_fn(*tables, tokens, sents, alias,
+    scalars, gen, n_steps=...) returns (*tables, loss)."""
 
     chunk_fn: Callable
-    table: torch.Tensor
+    tables: Tables
     alias: AliasTable
 
 
-def build_engine(cfg: Word2BitsConfig, vocab: Vocab, table: torch.Tensor,
+def init_tables(cfg: Word2BitsConfig, vocab_size: int, device) -> Tables:
+    """The engine's tables, filled on `device`: (the fused (V, 2D) table,)
+    with -fused-tables 1, else (u, v)."""
+    kw = dict(init=cfg.init, seed=cfg.seed, dtype=getattr(torch, cfg.dtype),
+              device=device)
+    if cfg.fused_tables:
+        return (init_fused_table(vocab_size, cfg.size, **kw),)
+    return init_params(vocab_size, cfg.size, **kw)
+
+
+def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
                  hyper: CBOWHyper) -> Engine:
-    """The fused-table engine (the JAX package's train.build_engine fused
-    branch) around `table`, the fused (V, 2D) table on the training device:
-    shared negatives, banded sums, the `add`, `span` or `grmw` scatter,
-    optional context kernel."""
-    if not (cfg.fused_tables and cfg.neg_sharing):
-        raise ValueError("-fused-tables 0 / -neg-sharing 0 (the split-table "
-                         "slab engine) is not implemented by "
-                         "word2bits_tpu_torch yet; pass -fused-tables 1 "
-                         "-neg-sharing G")
-    if not cfg.banded_tile:
-        raise ValueError("-banded-tile 0 (the shifted-sum windowed path) is "
-                         "not implemented by word2bits_tpu_torch yet; pass "
-                         "-banded-tile N")
-    chunk_fn = make_fused_train_chunk(
-        hyper, vocab.size, cfg.batch_size, cfg.steps_per_chunk,
-        neg_sharing=cfg.neg_sharing, neg_pool=cfg.neg_pool,
-        banded=cfg.banded_tile, scatter_impl=cfg.scatter_impl,
-        context_pallas=cfg.context_pallas, loop_mode=cfg.loop_mode,
-        span_chunk=cfg.span_chunk)
-    alias = build_alias_table(vocab.unigram_weights()).to(table.device)
-    return Engine(chunk_fn=chunk_fn, table=table, alias=alias)
+    """The JAX package's train.build_engine for CBOW on one device: the
+    fused-table engine with -fused-tables 1 (shared negatives; the `add`,
+    `span` or `grmw` scatter; optional context and score kernels), else the
+    split-table slab engine (per-center or shared negatives; the `add` or
+    `span` scatter; optional context and score kernels)."""
+    B, S = cfg.batch_size, cfg.steps_per_chunk
+    if cfg.fused_tables:
+        chunk_fn = make_fused_train_chunk(
+            hyper, vocab.size, B, S, neg_sharing=cfg.neg_sharing,
+            neg_pool=cfg.neg_pool, banded=cfg.banded_tile,
+            scatter_impl=cfg.scatter_impl,
+            context_pallas=cfg.context_pallas, loop_mode=cfg.loop_mode,
+            span_chunk=cfg.span_chunk, use_pallas=cfg.use_pallas)
+    else:
+        chunk_fn = make_slab_train_chunk(
+            hyper, vocab.size, B, S, neg_sharing=cfg.neg_sharing,
+            use_pallas=cfg.use_pallas, neg_pool=cfg.neg_pool,
+            banded=cfg.banded_tile, scatter_impl=cfg.scatter_impl,
+            context_pallas=cfg.context_pallas)
+    alias = build_alias_table(vocab.unigram_weights()).to(tables[0].device)
+    return Engine(chunk_fn=chunk_fn, tables=tuple(tables), alias=alias)
 
 
 def _sync(dev: torch.device) -> None:
@@ -182,14 +202,15 @@ def train(cfg: Word2BitsConfig,
                       negative=cfg.negative, reg=cfg.reg)
     seconds: Dict[str, float] = {"epoch_build": 0.0, "upload": 0.0}
     t0 = time.perf_counter()
-    table = init_fused_table(V, D, init=cfg.init, seed=cfg.seed,
-                             dtype=getattr(torch, cfg.dtype), device=dev)
+    tables = init_tables(cfg, V, dev)
     _sync(dev)
     seconds["init"] = time.perf_counter() - t0
-    _log(cfg, f"Init: {V} x {2 * D} {cfg.dtype} table ({2 * V * D} draws) "
-              f"in {seconds['init']:.2f} s")
+    shape = " x ".join(str(n) for n in tables[0].shape)
+    _log(cfg, f"Init: {shape} {cfg.dtype} "
+              f"{'table' if len(tables) == 1 else 'tables u, v'} "
+              f"({2 * V * D} draws) in {seconds['init']:.2f} s")
     t0 = time.perf_counter()
-    engine = build_engine(cfg, vocab, table, hyper)
+    engine = build_engine(cfg, vocab, tables, hyper)
     seconds["alias"] = time.perf_counter() - t0
     _log(cfg, f"Alias table: {seconds['alias']:.2f} s")
     chunk_fn = engine.chunk_fn
@@ -239,9 +260,9 @@ def train(cfg: Word2BitsConfig,
                     wca_start=words_done, wca_per_step=wca_per_step,
                     denom=denom)
                 start = clock.start()
-                table, loss = chunk_fn(table, tokens, sents, engine.alias,
-                                       scalars, gen,
-                                       n_steps=max(chunk_steps, 1))
+                *tables, loss = chunk_fn(*tables, tokens, sents,
+                                         engine.alias, scalars, gen,
+                                         n_steps=max(chunk_steps, 1))
                 clock.stop(start, max(chunk_steps, 1),
                            chunk_steps * wca_per_step)
                 words_done += chunk_steps * wca_per_step
@@ -271,7 +292,8 @@ def train(cfg: Word2BitsConfig,
         _log(cfg, f"Epoch Loss: {epoch_loss:.6f}")
         epoch_losses.append(epoch_loss)
         if cfg.save_every_epoch and cfg.output_file and cfg.classes == 0:
-            write_output(f"{cfg.output_file}_epoch{epoch}", vocab, table, cfg)
+            write_output(f"{cfg.output_file}_epoch{epoch}", vocab, tables,
+                         cfg)
         if stop:
             break
     _sync(dev)
@@ -286,7 +308,7 @@ def train(cfg: Word2BitsConfig,
     if cfg.output_file:
         t0 = time.perf_counter()
         if cfg.classes == 0:
-            write_output(cfg.output_file, vocab, table, cfg)
+            write_output(cfg.output_file, vocab, tables, cfg)
         else:
             # reference quirk: -classes != 0 creates an empty output file
             _log(cfg, "WARNING: -classes is parsed but unimplemented in the "
@@ -295,20 +317,32 @@ def train(cfg: Word2BitsConfig,
         seconds["export"] = time.perf_counter() - t0
         _log(cfg, f"Export: {seconds['export']:.2f} s")
 
-    return TrainResult(vocab=vocab, table=table, epoch_losses=epoch_losses,
+    return TrainResult(vocab=vocab, tables=tuple(tables),
+                       epoch_losses=epoch_losses,
                        words_per_sec=wps, steps=total_steps,
                        chunks=clock.chunks(), seconds=seconds)
 
 
-def write_output(path: str, vocab: Vocab, table: torch.Tensor,
+def table_halves(tables: Tables) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u, v) of either engine's tables: the 1-tuple of a fused (V, 2D)
+    table gives its two column halves, as views."""
+    if len(tables) == 1:
+        return deinterleave(tables[0])
+    u, v = tables
+    return u, v
+
+
+def write_output(path: str, vocab: Vocab, tables: Tables,
                  cfg: Word2BitsConfig) -> None:
     """The vectors file quantize(u + v) (reference :548-552) and, with
     -packed 1 at bitlevel 1 or 2, `<path>.pack` (as the JAX package's
-    train._write_output), built in row blocks on the table's device: each
+    train._write_output), built in row blocks on the tables' device: each
     block is summed in float32, quantized and packed there and only the
-    block comes to the host.  Byte-identical to the JAX package's
+    block comes to the host.  `tables`: the fused (V, 2D) table or the
+    engine's tables.  Byte-identical to the JAX package's
     train._write_output (output_vectors + write_vectors + write_packed)."""
-    V, D = table.shape[0], table.shape[1] // 2
+    u, v = table_halves(tables)
+    V, D = u.shape
     bl = cfg.bitlevel
     packed = cfg.packed and bl in (1, 2)
     rows = max(1, _EXPORT_VALUES // max(D, 1))
@@ -317,9 +351,8 @@ def write_output(path: str, vocab: Vocab, table: torch.Tensor,
              else nullcontext()) as pw:
         for r0 in range(0, V, rows):
             r1 = min(V, r0 + rows)
-            blk = table[r0:r1]
-            q = quantize(blk[:, :D].to(torch.float32)
-                         + blk[:, D:].to(torch.float32), bl)
+            q = quantize(u[r0:r1].to(torch.float32)
+                         + v[r0:r1].to(torch.float32), bl)
             vw.write_rows(vocab.words[r0:r1], q.cpu().numpy())
             if packed:
                 pw.write_payload(pack_codes(q, bl).cpu().numpy())
