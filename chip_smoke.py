@@ -6,9 +6,11 @@ from the root of a checkout.  It builds the port's CUDA kernels from
 word2bits_tpu_torch/csrc/ (one nvcc per source, all at once), holds each
 against its plain PyTorch version at the shapes of the paths that run it
 ([context], [span], [score], [rank1] with kernel 2 on its float32 table,
-[grmw], [context@800], [context@exact] on float32 rows), checks the steps
+[hotk], [grmw], [rmwk], [context@800], [context@exact] on float32 rows),
+checks the steps
 and chunks of both engines on the card against the same code on the
-CPU ([step]), and then drives the port's training paths through their
+CPU ([step]), with kernels 6 and 8 ([hotk], [rmwk]) held against theirs
+too, and then drives the port's training paths through their
 entry points, each with the kernels' launch counts set to 0 just before
 and read just after:
 
@@ -32,7 +34,17 @@ and read just after:
                 context kernel): one chunk with materialized negative rows
                 and one with the rank-1 span scatter, same state and draws;
   [pallas]      the shipped flags with `-scatter-impl add -use-pallas 1`,
-                one 256-step chunk on the fused and one on the split tables.
+                one 256-step chunk on the fused and one on the split tables;
+  [hot]         the shipped flags with `-scatter-impl add -hot-rows 2048
+                -hot-pallas 1` (the hot/cold split through kernel 6), two
+                256-step chunks through train.train, its vectors read back;
+                then one chunk each with `-neg-stratify 1`, with
+                `-neg-dense-hot 1 -device-epoch 0`, and with `-neg-dense-hot
+                1` under the auto -device-epoch (kernel 6 launched 0 times,
+                as in the JAX package: no cold map there);
+  [rmw]         the capacity configuration with `-rmw-scatter 1
+                -steps-per-chunk 1` (docs/large_vocab.md:34), 16 steps,
+                kernel 8 twice a step, peak device memory against the table.
 
 Any failed check raises, so the exit code is nonzero; without a CUDA card
 (or outside a checkout) it exits nonzero before printing any result.
@@ -107,7 +119,24 @@ EXACT_B, EXACT_S = 4096, 128
 # the `add` scatter), on the fused and the split tables
 PALLAS_FLAGS = list(TRAIN_FLAGS)
 PALLAS_FLAGS[PALLAS_FLAGS.index("-scatter-impl") + 1] = "add"
+ADD_FLAGS = list(PALLAS_FLAGS)
 PALLAS_FLAGS += ["-use-pallas", "1"]
+# the hot/cold split at the shipped flags: H = cli tune's own choice at
+# V ~ 70k, max(256, min(2048, V // 8)) (the JAX package's tune.py:80-81)
+HOT = 2048
+HOT_FLAGS = ADD_FLAGS + ["-hot-rows", str(HOT), "-hot-pallas", "1"]
+HOT_STEPS = 2 * S                # two 256-step chunks
+# the earlier capacity path (docs/large_vocab.md:34): the capacity flags
+# with -rmw-scatter 1 -steps-per-chunk 1 in place of -scatter-impl grmw
+# -loop-mode fori -steps-per-chunk 32 (no export: [flagship] writes it)
+RMW_FLAGS = [f for f in FLAGSHIP_FLAGS[4:]
+             if f not in ("-scatter-impl", "grmw", "-loop-mode", "fori")]
+RMW_FLAGS[RMW_FLAGS.index("-steps-per-chunk") + 1] = "1"
+RMW_FLAGS += ["-rmw-scatter", "1"]
+RMW_STEPS = 16
+# kernel 8's two calls a step at the capacity shape: the B+2W slab rows,
+# then the (B/64) * 24 negative rows (one pool)
+RMW_N = (FLAG_B + 2 * W, (FLAG_B // 64) * 24)
 # kernel 5 at the shipped shape: T = B/G tiles of G centers, P*K negatives
 SCORE_T, SCORE_PK = B // G, P * K
 # kernel 3 at the exact-mode shape: 4,096 center rows, 4,096 * 24 rank-1
@@ -610,6 +639,189 @@ def check_grmw(dev) -> dict:
                 shapes=f"table [{V}, {C}] bf16, {N} f32 rows")
 
 
+# ---------------------------------------------------------------- kernel 6
+def check_hot(dev) -> dict:
+    """Kernel 6 against its plain version at the [hot] path: a bf16
+    [70,000, 400] table, H = 2048, one step's 8,208 float32 slab rows
+    (subsampled Zipf(1.05) ids; no extra), and the -neg-stratify step's
+    (the slab rows plus T*P*kh hot lanes, with the dense float32 `extra`).
+    Both round the rows to bf16, sum each head row's rows in float32 in
+    another order and round once, after the same head + extra rounding:
+    atol 1e-5 + rtol 2^-7 (one bf16 rounding); every row past the head
+    must be untouched."""
+    from word2bits_tpu_torch.kernels.hot_pallas import (
+        hot_plan, hot_slice_add_pallas, hot_slice_add_plain)
+    rng = np.random.default_rng(SEED + 6)
+    V, C, H = SCATTER_V, 2 * D, HOT
+    n_slab = B + 2 * W
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    table0 = (torch.rand((V, C), generator=gen, device=dev) - 0.5).to(
+        torch.bfloat16)
+    slab = torch.from_numpy(_step_ids(rng, V, n_slab, 0, 0)).to(dev)
+    # hot lanes of -neg-stratify: kh of K per pool (the sampler's
+    # lane_split of unigram^0.75) drawn from the hot stratum
+    p_neg = np.arange(1, V + 1, dtype=np.float64) ** (-1.05 * 0.75)
+    kh = min(K - 1, max(1, round(K * p_neg[:H].sum() / p_neg.sum())))
+    lanes = torch.from_numpy(1 + rng.choice(
+        H - 1, (B // G) * P * kh, p=p_neg[1:H] / p_neg[1:H].sum())).to(dev)
+    cases = {}
+    worst = 0.0
+    for tag, ids, extra in (
+            ("hot", slab, None),
+            ("stratified, extra", torch.cat([slab, lanes]),
+             torch.randn((H, C), generator=gen, device=dev) * 0.01)):
+        rows = torch.randn((ids.numel(), C), generator=gen, device=dev) * 0.01
+        got = hot_slice_add_pallas(table0.clone(), ids, rows, H, extra)
+        want = hot_slice_add_plain(table0.clone(), ids, rows, H, extra)
+        torch.cuda.synchronize()
+        err = _max_err(got[:H], want[:H])
+        if not torch.allclose(got[:H].float(), want[:H].float(), atol=1e-5,
+                              rtol=2 ** -7):
+            _fail(f"hot kernel ({tag}): max abs err {err:.3e} > atol 1e-5 + "
+                  "rtol 2^-7")
+        if not torch.equal(got[H:], table0[H:]):
+            _fail(f"hot kernel ({tag}) wrote rows past the head")
+        n_hot = int(((ids >= 0) & (ids < H)).sum())
+        print(f"[hotk] {tag}: max abs err {err:.3e}; {ids.numel()} rows, "
+              f"{n_hot} of them hot, into a [{H}, {C}] head")
+        worst = max(worst, err)
+        cases[tag] = (ids, rows, extra, n_hot)
+    # timed as the chunk calls it: the plan hoisted (its time apart)
+    ids, rows, _, n_hot = cases["hot"]
+    plan = hot_plan(ids, H)
+    scratch = table0.clone()
+    ms = _time_ms(lambda: hot_slice_add_pallas(scratch, ids, rows, H,
+                                               plan=plan))
+    plan_ms = _time_ms(lambda: hot_plan(ids, H))
+    plain_ms = _time_ms(lambda: hot_slice_add_plain(scratch, ids, rows, H))
+    keep = ids < H
+    ids_in, rows_in = ids[keep], rows[keep].to(torch.bfloat16)
+    library_ms = _time_ms(lambda: scratch.index_add_(0, ids_in, rows_in))
+    # bytes: the ids and the hot rows read once, the head read and
+    # written once
+    nbytes = ids.numel() * 8 + n_hot * C * 4 + 2 * H * C * 2
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ids_s, rows_s, extra_s, n_hot_s = cases["stratified, extra"]
+    plan_s = hot_plan(ids_s, H)
+    strat_ms = _time_ms(lambda: hot_slice_add_pallas(scratch, ids_s, rows_s,
+                                                     H, extra_s, plan=plan_s))
+    strat_bytes = (ids_s.numel() * 8 + n_hot_s * C * 4 + 2 * H * C * 2
+                   + H * C * 4)
+    print(f"[hotk] kernel {ms:.4f} ms (one step's plan, hoisted to the "
+          f"chunk's entry, {plan_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, index_add_ of the hot rows "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes); "
+          f"stratified with extra {strat_ms:.4f} ms (bound "
+          f"{strat_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    return dict(name="hot_slice_add_pallas", route="cuda",
+                source="word2bits_tpu_torch/csrc/hot_slice.cu",
+                replaces="word2bits_tpu/kernels/hot_pallas.py:84",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+                plan_ms=plan_ms, stratified_extra_ms=strat_ms,
+                shapes=f"table [{V}, {C}] bf16, H={H}, {ids.numel()} f32 "
+                       f"rows ({n_hot} hot)")
+
+
+# ---------------------------------------------------------------- kernel 8
+def check_rmw(dev) -> dict:
+    """Kernel 8 against its plain version at the capacity shape: two
+    copies of one random bf16 [3,699,941, 1,600] table, one step's two
+    calls (16,400 float32 slab rows of subsampled Zipf(1.05) ids, then
+    6,144 negative rows of unigram^0.75 ids, 64 drop sentinels each).
+    Both sum each id's bf16-rounded rows in float32 in another order,
+    round the sum, and add it with one rounding, twice: a touched value may
+    differ by two bf16 roundings of itself and of the sums that entered it
+    (|got - want| <= 2^-6 (|want| + A) + 1e-6, A the per-id sum of |rows|);
+    every other row must be untouched in both."""
+    from word2bits_tpu_torch.kernels.group_rmw import group_plan
+    from word2bits_tpu_torch.kernels.scatter_pallas import (
+        group_rows, scatter_add_rmw, scatter_add_rmw_plain,
+        scatter_add_rmw_planned)
+    from word2bits_tpu_torch.kernels.span_scatter import SENTINEL
+    rng = np.random.default_rng(SEED + 8)
+    V, C = FLAG_V, 2 * FLAG_D
+    n_slab, n_neg = RMW_N
+    both = _step_ids(rng, V, n_slab, n_neg, 0)
+    calls = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for ids in (both[:n_slab].copy(), both[n_slab:].copy()):
+        ids[rng.choice(ids.size, 64, replace=False)] = SENTINEL
+        ids = torch.from_numpy(ids).to(dev)
+        rows = torch.randn((ids.numel(), C), generator=gen, device=dev) * 0.01
+        calls.append((ids, rows))
+    got = torch.empty((V, C), dtype=torch.bfloat16, device=dev)
+    got.uniform_(-0.5, 0.5, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 9))
+    want = got.clone()
+    for ids, rows in calls:
+        scatter_add_rmw(got, ids, rows)
+        scatter_add_rmw_plain(want, ids, rows)
+    torch.cuda.synchronize()
+    all_ids = torch.cat([c[0] for c in calls])
+    keep = all_ids < V
+    touched, slot = torch.unique(all_ids[keep], return_inverse=True)
+    mags = torch.zeros((touched.numel(), C), device=dev)
+    mags.index_add_(0, slot, torch.cat([c[1] for c in calls])[keep].abs())
+    g, w = got[touched].float(), want[touched].float()
+    err = _max_err(g, w)
+    allowed = 2 ** -6 * (w.abs() + mags) + 1e-6
+    if not bool(((g - w).abs() <= allowed).all()):
+        _fail(f"rmw: max abs err {err:.3e} on the touched rows beyond two "
+              "bf16 roundings")
+    untouched = torch.ones(V, dtype=torch.bool, device=dev)
+    untouched[touched] = False
+    step = 1 << 18
+    for r0 in range(0, V, step):
+        m = untouched[r0:r0 + step]
+        if not torch.equal(got[r0:r0 + step][m], want[r0:r0 + step][m]):
+            _fail(f"rmw wrote rows it was not given (rows {r0}..)")
+    grp = group_rows(got.dtype)
+    plans = [group_plan(ids, grp) for ids, _ in calls]
+    n_touch = [int(torch.unique(ids[ids < V]).numel()) for ids, _ in calls]
+    print(f"[rmwk] max abs err {err:.3e}; calls of {n_slab} and {n_neg} "
+          f"rows, {n_touch[0]} and {n_touch[1]} distinct ids "
+          f"({touched.numel()} over both), visits "
+          f"{[int(pl.n_vis) for pl in plans]}")
+
+    def kernel():
+        for (ids, rows), pl in zip(calls, plans):
+            scatter_add_rmw_planned(got, pl, rows)
+
+    def plain():
+        for ids, rows in calls:
+            scatter_add_rmw_plain(want, ids, rows)
+    inside = [(ids[ids < V], rows[ids < V].to(torch.bfloat16))
+              for ids, rows in calls]
+
+    def library():
+        for ids, rows in inside:
+            got.index_add_(0, ids, rows)
+    ms = _time_ms(kernel)
+    plan_ms = _time_ms(lambda: [group_plan(ids, grp) for ids, _ in calls])
+    plain_ms = _time_ms(plain)
+    library_ms = _time_ms(library)
+    # bytes, both calls: rows and plan read once; each touched row read
+    # and written once per call
+    nbytes = sum(rows.numel() * 4 + sum(t.numel() * 4 for t in pl)
+                 + 2 * nt * C * 2
+                 for (_, rows), pl, nt in zip(calls, plans, n_touch))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[rmwk] one step's two calls: kernel {ms:.4f} ms (the two plans "
+          f"{plan_ms:.4f} ms), plain {plain_ms:.4f} ms, index_add_ "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes)")
+    del got, want
+    torch.cuda.empty_cache()
+    return dict(name="scatter_add_rmw", route="cuda",
+                source="word2bits_tpu_torch/csrc/group_rmw.cu",
+                replaces="word2bits_tpu/kernels/scatter_pallas.py:178",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+                plan_ms=plan_ms,
+                shapes=f"table [{V}, {C}] bf16, {n_slab} + {n_neg} f32 "
+                       "rows (one step's two calls)")
+
+
 # ------------------------------------------------------- step and chunk
 def check_step_and_chunk(dev) -> None:
     """One step and a 3-step chunk of each engine on the card (kernels)
@@ -619,16 +831,23 @@ def check_step_and_chunk(dev) -> None:
     grmw under -loop-mode fori (context kernel); the split tables at the
     Quick start (per-center, shifted sums, add) and in the exact mode with
     materialized and with rank-1 negative rows (span, banded, context
-    kernel); the score kernel on split and on fused tables."""
+    kernel); the score kernel on split and on fused tables; the hot/cold
+    split (with and without kernel 6, and with the score kernel), the
+    stratified lanes, the dense hot stratum with and without a cold map;
+    the RMW scatter (kernel 8); the block dedup on both engines."""
+    from word2bits_tpu_torch.data.pipeline import cold_positions
     from word2bits_tpu_torch.models import cbow_fused as cf
     from word2bits_tpu_torch.models import cbow_slab as cs
     from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-    from word2bits_tpu_torch.sampling.unigram import build_alias_table
+    from word2bits_tpu_torch.sampling.unigram import (build_alias_table,
+                                                      build_stratified_tables)
     rng = np.random.default_rng(SEED + 1)
-    v, d, b, w, k, g, p, s = 300, 16, 64, 3, 5, 8, 2, 3
+    v, d, b, w, k, g, p, s, h = 300, 16, 64, 3, 5, 8, 2, 3, 32
     hyper = CBOWHyper(bitlevel=1, size=d, window=w, negative=k)
     n = s * b + 2 * w + 10
     tokens = torch.from_numpy(rng.integers(0, v, n))
+    tokens[rng.integers(0, n, n // 3)] = torch.from_numpy(
+        rng.integers(0, h, n // 3))                  # hot ids in every slab
     tokens[:w] = -1
     sents = torch.arange(n) // 23
     sents[:w] = -1
@@ -637,46 +856,91 @@ def check_step_and_chunk(dev) -> None:
     v0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (v, d)).astype(np.float32))
     sc = ChunkScalars(base0=w, alpha0=0.05, wca_start=100.0,
                       wca_per_step=float(b), denom=1e4)
+    st = build_stratified_tables(np.arange(v, 0, -1.0) ** 0.75, h)
+    strat = st.lane_split(k)
+    dense = st.dense_split(k)
+    cold = torch.from_numpy(cold_positions(tokens.numpy(), b, w, s, h)).long()
     fused_kw = dict(banded=8, neg_pool=p, context_pallas=True)
+    hot_kw = dict(banded=8, neg_pool=p, hot_rows=h)
+    # (name, fused, neg_sharing, negatives, cold map, kwargs)
     configs = (
-        ("span (scan)", g, dict(fused_kw, scatter_impl="span")),
-        ("grmw (fori)", g, dict(fused_kw, scatter_impl="grmw")),
-        ("quickstart", 0, dict(banded=0)),
-        ("exact", 0, dict(banded=8, scatter_impl="span",
-                          context_pallas=True)),
-        ("exact rank-1", 0, dict(banded=8, scatter_impl="span",
-                                 context_pallas=True, span_rank1=True)),
-        ("pallas split", g, dict(banded=8, neg_pool=p, use_pallas=True,
-                                 context_pallas=True)),
-        ("pallas fused", g, dict(banded=8, neg_pool=p, use_pallas=True,
-                                 context_pallas=True)),
+        ("span (scan)", True, g, "plain", False,
+         dict(fused_kw, scatter_impl="span")),
+        ("grmw (fori)", True, g, "plain", False,
+         dict(fused_kw, scatter_impl="grmw", loop_mode="fori")),
+        ("quickstart", False, 0, "plain", False, dict(banded=0)),
+        ("exact", False, 0, "plain", False,
+         dict(banded=8, scatter_impl="span", context_pallas=True)),
+        ("exact rank-1", False, 0, "plain", False,
+         dict(banded=8, scatter_impl="span", context_pallas=True,
+              span_rank1=True)),
+        ("pallas split", False, g, "plain", False,
+         dict(banded=8, neg_pool=p, use_pallas=True, context_pallas=True)),
+        ("pallas fused", True, g, "plain", False,
+         dict(banded=8, neg_pool=p, use_pallas=True, context_pallas=True)),
+        ("hot", True, g, "plain", True, dict(hot_kw)),
+        ("hot, hot_pallas", True, g, "plain", True,
+         dict(hot_kw, hot_pallas=True, context_pallas=True)),
+        ("hot, use_pallas", True, g, "plain", True,
+         dict(hot_kw, hot_pallas=True, use_pallas=True)),
+        ("stratified", True, g, "strat", True,
+         dict(hot_kw, hot_pallas=True, strat_lanes=strat)),
+        ("dense-hot", True, g, "dense", True,
+         dict(hot_kw, hot_pallas=True, dense_hot=dense)),
+        ("dense-hot, no cold map", True, g, "dense", False,
+         dict(hot_kw, hot_pallas=True, dense_hot=dense)),
+        ("rmw", True, g, "plain", False,
+         dict(fused_kw, rmw_scatter=True)),
+        ("dedup fused", True, g, "plain", False,
+         dict(banded=8, neg_pool=p, dedup_block=64)),
+        ("dedup split", False, 0, "plain", False,
+         dict(banded=0, dedup_block=64)),
     )
-    for name, gg, kw in configs:
-        negs = torch.from_numpy(rng.integers(
-            1, v, (s, b // gg, p * k) if gg else (s, b, k)))
-        fused = name in ("span (scan)", "grmw (fori)", "pallas fused")
-        loop = dict(loop_mode="fori") if name == "grmw (fori)" else {}
+    for name, fused, gg, kind, with_map, kw in configs:
+        T = b // gg if gg else b
+        if kind == "strat":
+            kh = strat[0]
+            negs = torch.from_numpy(np.concatenate(
+                [rng.integers(1, h, (s, T, p, kh)),
+                 rng.integers(h, v, (s, T, p, k - kh))], axis=3)
+                .reshape(s, T, p * k))
+        elif kind == "dense":
+            negs = torch.from_numpy(rng.integers(h, v, (s, T, p * dense[0])))
+        else:
+            negs = torch.from_numpy(rng.integers(
+                1, v, (s, T, p * k) if gg else (s, b, k)))
         outs = {}
         for where in ("cpu", dev):
-            st = cs.SlabInputs(
+            st_in = cs.SlabInputs(
                 tokens[:b + 2 * w].to(where), sents[:b + 2 * w].to(where),
                 shrinks[0].to(where), negs[0].to(where))
             alpha = torch.tensor(0.05, device=where)
-            atab = build_alias_table(np.ones(v)).to(where)
+            if kind == "strat":
+                atab = (st.hot.to(where), st.cold.to(where))
+            elif kind == "dense":
+                atab = st.cold.to(where)
+            else:
+                atab = build_alias_table(np.ones(v)).to(where)
             data = (tokens.to(where), sents.to(where), atab, sc)
             draws = dict(shrinks=shrinks.to(where), negs=negs.to(where))
+            step_kw = {x: y for x, y in kw.items() if x != "loop_mode"}
+            if with_map:
+                step_kw["cold_pos"] = cold[0].to(where)
+                draws["cold_pos"] = cold.to(where)
+            if kind == "dense":
+                step_kw["dense_hot"] = (dense[1], torch.from_numpy(
+                    dense[2]).to(where))
             if fused:
                 t0 = torch.cat([u0, v0], dim=1).to(where)
-                tab, loss = cf.fused_slab_step(t0.clone(), st, alpha, hyper,
-                                               b, gg, **kw)
-                chunk = cf.make_fused_train_chunk(hyper, v, b, s, gg, **kw,
-                                                  **loop)
+                tab, loss = cf.fused_slab_step(t0.clone(), st_in, alpha,
+                                               hyper, b, gg, **step_kw)
+                chunk = cf.make_fused_train_chunk(hyper, v, b, s, gg, **kw)
                 ctab, closs = chunk(t0.clone(), *data, **draws)
                 step, chunked = (tab,), (ctab,)
             else:
                 su, sv, loss = cs.slab_step(u0.clone().to(where),
-                                            v0.clone().to(where), st, alpha,
-                                            hyper, b, gg, **kw)
+                                            v0.clone().to(where), st_in,
+                                            alpha, hyper, b, gg, **step_kw)
                 chunk = cs.make_slab_train_chunk(hyper, v, b, s, gg, **kw)
                 cu, cv, closs = chunk(u0.clone().to(where),
                                       v0.clone().to(where), *data, **draws)
@@ -766,7 +1030,7 @@ def train_main_path(work: str):
 def train_flagship(work: str, dev) -> tuple:
     """The capacity configuration through train.train for FLAG_STEPS
     steps, its vectors and .pack written in row blocks; returns the
-    launch counts and the .pack path."""
+    launch counts, the .pack path and the (vocab, encoded) corpus."""
     from word2bits_tpu_torch import train as T
     from word2bits_tpu_torch.config import config_from_argv
     from word2bits_tpu_torch.data.synthetic import zipf_vocab_corpus
@@ -850,7 +1114,46 @@ def train_flagship(work: str, dev) -> tuple:
           f" bytes, export {res.seconds['export']:.1f} s; read back as "
           f"{n_rows} x {FLAG_D} of +-1/3 equal to the trained table in "
           f"{time.perf_counter() - t0:.1f} s")
-    return launches, pack
+    return launches, pack, (vocab, encoded)
+
+
+# ------------------------------- [rmw]: the earlier capacity path
+def run_rmw(dev, vocab, encoded) -> dict:
+    """The capacity configuration with -rmw-scatter 1 -steps-per-chunk 1
+    through train.train for RMW_STEPS steps on [flagship]'s corpus:
+    kernel 8 twice a step (the slab rows, then the negative rows) and the
+    context kernel once; peak device memory <= 1.25 x the table."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.config import config_from_argv
+    cfg = config_from_argv(RMW_FLAGS + ["-debug", "1"])
+    table_bytes = FLAG_V * 2 * FLAG_D * 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    res = T.train(cfg, vocab=vocab, encoded=encoded, max_steps=RMW_STEPS,
+                  device=dev)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if res.steps != RMW_STEPS:
+        _fail(f"rmw trained {res.steps} steps, not {RMW_STEPS}")
+    if (launches["scatter_add_rmw"] != 2 * res.steps
+            or launches["fused_context_pallas"] != res.steps):
+        _fail(f"rmw: launches {launches} in {res.steps} steps (kernel 8 "
+              "twice and kernel 1 once per step expected)")
+    if not all(math.isfinite(x) for x in res.epoch_losses):
+        _fail(f"rmw epoch loss not finite: {res.epoch_losses}")
+    if peak > 1.25 * table_bytes:
+        _fail(f"rmw peak device memory {peak} > 1.25 x the table's "
+              f"{table_bytes} bytes")
+    us, wps = _steady(res)
+    print(f"[rmw] V={vocab.size}, {res.steps} steps of B={cfg.batch_size}, "
+          f"loss {res.epoch_losses[-1]:.4f}; steady {us:.1f} us/step, "
+          f"{wps:.1f} words/sec (one-step chunks after the first); peak "
+          f"device memory {peak} bytes = {peak / table_bytes:.4f} x the "
+          f"table; launches {launches}")
+    del res
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------- [quickstart]: reference default
@@ -860,6 +1163,8 @@ def _launch_counters():
         fused_context_pallas
     from word2bits_tpu_torch.kernels.group_rmw import \
         scatter_add_grmw_planned
+    from word2bits_tpu_torch.kernels.hot_pallas import hot_slice_add_pallas
+    from word2bits_tpu_torch.kernels.scatter_pallas import scatter_add_rmw
     from word2bits_tpu_torch.kernels.score_pallas import \
         quantized_scores_pallas
     from word2bits_tpu_torch.kernels.span_scatter import (
@@ -868,7 +1173,9 @@ def _launch_counters():
             "scatter_add_span": scatter_add_span_planned,
             "scatter_add_span_rank1": scatter_add_span_rank1,
             "quantized_scores_pallas": quantized_scores_pallas,
-            "scatter_add_grmw": scatter_add_grmw_planned}
+            "hot_slice_add_pallas": hot_slice_add_pallas,
+            "scatter_add_grmw": scatter_add_grmw_planned,
+            "scatter_add_rmw": scatter_add_rmw}
 
 
 def _zero_launches() -> None:
@@ -1038,6 +1345,55 @@ def run_pallas(dev, vocab, encoded) -> dict:
     return by_path
 
 
+# ------------------------------------------ [hot]: the hot/cold split
+def run_hot(work: str, dev, vocab, encoded) -> dict:
+    """HOT_FLAGS through train.train on [train]'s corpus, HOT_STEPS steps,
+    its vectors read back; then one S-step chunk each with -neg-stratify
+    1, with -neg-dense-hot 1 -device-epoch 0, and with -neg-dense-hot 1
+    under the auto -device-epoch, whose step has no cold map and launches
+    kernel 6 no time (as in the JAX package)."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.config import config_from_argv
+    from word2bits_tpu_torch.io.vectors import read_vectors
+    out = os.path.join(work, "hot.bin")
+    runs = (("hot", ["-output", out], HOT_STEPS, 1),
+            ("hot_stratify", ["-neg-stratify", "1"], S, 1),
+            ("hot_dense", ["-neg-dense-hot", "1", "-device-epoch", "0"], S,
+             1),
+            ("hot_dense_auto", ["-neg-dense-hot", "1"], S, 0))
+    by_path = {}
+    for tag, extra, steps, per_step in runs:
+        cfg = config_from_argv(HOT_FLAGS + extra)
+        _zero_launches()
+        res = T.train(cfg, vocab=vocab, encoded=encoded, max_steps=steps,
+                      device=dev)
+        launches = _read_launches()
+        if res.steps != steps:
+            _fail(f"{tag} trained {res.steps} steps, not {steps}")
+        if (launches["hot_slice_add_pallas"] != per_step * steps
+                or launches["fused_context_pallas"] != steps):
+            _fail(f"{tag}: launches {launches} in {steps} steps (kernel 6 "
+                  f"{per_step} and kernel 1 once per step expected)")
+        if not all(math.isfinite(x) for x in res.epoch_losses):
+            _fail(f"{tag} epoch loss not finite: {res.epoch_losses}")
+        us, wps = _steady(res)
+        print(f"[hot] {' '.join(extra) or 'the hot flags'}: {res.steps} "
+              f"steps of B={cfg.batch_size}, H={cfg.hot_rows}, loss "
+              f"{res.epoch_losses[-1]:.4f}, {us:.1f} us/step, {wps:.1f} "
+              f"words/sec (chunks after the first, or the one chunk); cold "
+              f"maps {res.seconds['cold_map']:.2f} s; launches {launches}")
+        by_path[tag] = launches
+        del res
+    words, vecs = read_vectors(out)
+    third = np.float32(1.0) / np.float32(3.0)
+    if (vecs.shape != (vocab.size, D) or words != vocab.words
+            or not np.all(np.abs(vecs) == third)):
+        _fail(f"hot vectors file holds {vecs.shape}, not ({vocab.size}, "
+              f"{D}) rows of +-1/3")
+    print(f"[hot] vectors file {vocab.size} x {D} of +-1/3")
+    return by_path
+
+
 # --------------------------------------------------- [accuracy]: eval
 def check_accuracy(dev, path: str, threshold: int, n_q: int,
                    tag: str) -> None:
@@ -1155,8 +1511,10 @@ def main() -> int:
     span = check_span(dev)
     score = check_score(dev)
     rank1 = check_rank1(dev)
+    hot = check_hot(dev)
     check_step_and_chunk(dev)
     grmw = check_grmw(dev)
+    rmw = check_rmw(dev)
     ctx = check_context(dev, FLAG_B, FLAG_D, "context@800")
     ctx_exact = check_context(dev, EXACT_B, D, "context@exact",
                               torch.float32)
@@ -1166,27 +1524,31 @@ def main() -> int:
     by_path = {}
     try:
         by_path["train"], vec_path, corpus = train_main_path(work)
-        by_path["flagship"], pack = train_flagship(work, dev)
+        by_path["flagship"], pack, flag_corpus = train_flagship(work, dev)
         check_accuracy(dev, pack, ACC_THRESHOLD, ACC_QUESTIONS,
                        "flagship.pack")
+        by_path["rmw"] = run_rmw(dev, *flag_corpus)
+        del flag_corpus
         check_accuracy(dev, vec_path, 0, 2000, "train.bin")
         by_path["quickstart"], prepared = train_quickstart(work, corpus, dev)
         by_path["exact"], _ = run_exact(dev, *prepared)
         by_path.update(run_pallas(dev, *prepared))
+        by_path.update(run_hot(work, dev, *prepared))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     at = ("max_abs_err", "ms", "plain_ms", "bound_ms", "shapes")
     ctx["at_d200"] = {k: ctx200[k] for k in at}
     ctx["at_exact"] = {k: ctx_exact[k] for k in at}
     span["at_exact"] = rank1.pop("span_at_exact")
-    kernels = [ctx, span, rank1, score, grmw]
+    kernels = [ctx, span, rank1, score, hot, grmw, rmw]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes",
             "launches_by_path", "at_d200", "at_exact", "bmm_only_ms",
-            "span_materialized_ms", "span_materialized_with_forming_ms")
+            "span_materialized_ms", "span_materialized_with_forming_ms",
+            "plan_ms", "stratified_extra_ms")
     print(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys if k in kd}
                                   for kd in kernels]}))

@@ -116,8 +116,9 @@ def test_init_fused_table_bit_equal(monkeypatch, dtype):
     import word2bits_tpu_torch.models.init as tinit
     monkeypatch.setattr(tinit, "_BLOCK", 7 * 24)
     Vs, Ds = 1001, 24
-    got = init_fused_table(Vs, Ds, dtype=getattr(torch, dtype))
-    u, v = init_params(Vs, Ds, dtype=getattr(torch, dtype))
+    got = init_fused_table(Vs, Ds, dtype=getattr(torch, dtype),
+                           device="cpu")
+    u, v = init_params(Vs, Ds, dtype=getattr(torch, dtype), device="cpu")
     assert torch.equal(got, torch.cat([u, v], dim=1))
     ju, jv = jinit(Vs, Ds, init="reference", dtype=jnp.dtype(dtype))
     want = np.concatenate([np.asarray(ju), np.asarray(jv)], axis=1)

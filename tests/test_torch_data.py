@@ -94,7 +94,8 @@ def test_reference_init_bit_equal(dtype):
     V, D = 301, 24
     ju, jv = jinit(V, D, init="reference", dtype=jnp.dtype(dtype),
                    as_numpy=True)
-    tu, tv = tinit(V, D, init="reference", dtype=getattr(torch, dtype))
+    tu, tv = tinit(V, D, init="reference", dtype=getattr(torch, dtype),
+                   device="cpu")
     bits = np.uint16 if dtype == "bfloat16" else np.uint32
     ibits = torch.int16 if dtype == "bfloat16" else torch.int32
     for t, j in ((tu, ju), (tv, jv)):
@@ -104,11 +105,11 @@ def test_reference_init_bit_equal(dtype):
 
 
 def test_uniform_init_range():
-    u, v = tinit(50, 8, init="uniform", seed=3)
+    u, v = tinit(50, 8, init="uniform", seed=3, device="cpu")
     assert u.shape == v.shape == (50, 8)
     assert float(u.abs().max()) <= 0.5 and not torch.equal(u, v)
     with pytest.raises(ValueError, match="init"):
-        tinit(5, 2, init="xavier")
+        tinit(5, 2, init="xavier", device="cpu")
 
 
 def _write_corpus(path, rng):

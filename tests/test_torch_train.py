@@ -1,14 +1,18 @@
 """The port's config, CLI and training slice on the CPU, and its import rule.
 
-The same argv resolves to equal fields in both packages; every flag the
-port has no code for is rejected by name; `cli train` with W2B_FORCE_CPU=1
-trains the fused engine on the verify corpus (epoch losses trend less
-negative, the JAX reader reads the output, bitlevel-1 rows are +-1/3); and
-importing every port module pulls in neither JAX nor the JAX package.
+The same argv resolves to equal fields in both packages (and the same
+warnings); every flag the port has no code for is rejected by name; `cli
+train` with W2B_FORCE_CPU=1 trains the fused engine on the verify corpus
+(epoch losses trend less negative, the JAX reader reads the output,
+bitlevel-1 rows are +-1/3), and so does `train.train` with each update
+route (-hot-rows, -neg-stratify, -neg-dense-hot, -rmw-scatter,
+-dedup-block); the public functions default to the card; and importing
+every port module pulls in neither JAX nor the JAX package.
 """
 
 import dataclasses
 import os
+import warnings
 import re
 import subprocess
 import sys
@@ -64,12 +68,69 @@ QUICKSTART = ["-size", "200", "-window", "8", "-negative", "24", "-iter", "5",
      "-use-pallas", "1", "-banded-tile", "0"],
     ["-batch-size", "4096", "-steps-per-chunk", "128", "-banded-tile", "256",
      "-scatter-impl", "span", "-context-pallas", "1"],
+    # the update routes (rejected by name before they were ported)
+    FUSED_ADD + ["-hot-rows", "100"],
+    FUSED_ADD + ["-hot-rows", "100", "-hot-pallas", "1"],
+    FUSED_ADD + ["-hot-rows", "100", "-neg-stratify", "1"],
+    FUSED_ADD + ["-hot-rows", "100", "-neg-dense-hot", "1"],
+    FUSED_ADD + ["-rmw-scatter", "1", "-steps-per-chunk", "1"],
+    FUSED_ADD + ["-dedup-block", "64"],
+    FUSED_ADD + ["-rmw-scatter", "1", "-loop-mode", "fori"],
+    FUSED_ADD + ["-dedup-block", "64", "-loop-mode", "unroll"],
+    ["-dedup-block", "64"],
+    FUSED_ADD + ["-hot-rows", "2048", "-neg-dense-hot", "1",
+                 "-device-epoch", "0"],
 ])
 def test_config_same_fields_as_jax(argv):
-    t = tconfig.config_from_argv(argv)
-    j = jconfig.config_from_argv(argv)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")       # none of these warns
+        t = tconfig.config_from_argv(argv)
+        j = jconfig.config_from_argv(argv)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert (t.lr_scale, t.effective_alpha) == (j.lr_scale, j.effective_alpha)
+    assert t.device_epoch_on == j.device_epoch_on
+
+
+@pytest.mark.parametrize("argv,match", [
+    (FUSED_ADD + ["-hot-rows", "100", "-neg-dense-hot", "1", "-bitlevel",
+                  "4"], "neg-dense-hot"),
+    (FUSED_ADD + ["-rmw-scatter", "1"], "rmw_scatter"),
+])
+def test_config_warns_as_jax(argv, match):
+    """The JAX package's two configuration warnings: -neg-dense-hot at
+    bitlevel >= 4, and -rmw-scatter with the scan loop over several steps
+    (the default -steps-per-chunk 256)."""
+    with pytest.warns(UserWarning, match=match):
+        j = jconfig.config_from_argv(argv)
+    with pytest.warns(UserWarning, match=match):
+        t = tconfig.config_from_argv(argv)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+@pytest.mark.parametrize("argv,on", [
+    (FUSED_ADD, True),
+    (FUSED_ADD + ["-hot-rows", "100"], False),
+    (FUSED_ADD + ["-hot-rows", "100", "-neg-stratify", "1"], False),
+    (FUSED_ADD + ["-hot-rows", "100", "-neg-dense-hot", "1"], True),
+    (FUSED_ADD + ["-hot-rows", "100", "-neg-dense-hot", "1",
+                  "-device-epoch", "0"], False),
+])
+def test_device_epoch_on_decides_the_cold_map(argv, on):
+    """device_epoch_on resolves as the JAX package's, and the engine builds
+    the cold map iff -hot-rows and not device_epoch_on: under the auto
+    -device-epoch, -neg-dense-hot keeps the plain slab scatter."""
+    cfg = tconfig.config_from_argv(argv)
+    assert cfg.device_epoch_on == jconfig.config_from_argv(
+        argv).device_epoch_on == on
+    from word2bits_tpu_torch.data.vocab import Vocab
+    from word2bits_tpu_torch.models.cbow import CBOWHyper
+    vocab = Vocab(words=[f"w{i}" for i in range(300)],
+                  counts=np.arange(300, 0, -1, dtype=np.int64))
+    tables = ttrain.init_tables(cfg, vocab.size, "cpu")
+    eng = ttrain.build_engine(cfg, vocab, tables, CBOWHyper(
+        bitlevel=1, size=cfg.size, window=cfg.window,
+        negative=cfg.negative))
+    assert eng.cold_split == bool(cfg.hot_rows and not on)
 
 
 @pytest.mark.parametrize("argv", [
@@ -90,21 +151,9 @@ def test_config_rejects_what_jax_rejects(argv):
 
 
 @pytest.mark.parametrize("flag,argv", [
-    ("-hot-rows", FUSED_ADD + ["-hot-rows", "100"]),
-    ("-hot-pallas", FUSED_ADD + ["-hot-rows", "100", "-hot-pallas", "1"]),
-    ("-neg-stratify", FUSED_ADD + ["-hot-rows", "100",
-                                   "-neg-stratify", "1"]),
-    ("-neg-dense-hot", FUSED_ADD + ["-hot-rows", "100",
-                                    "-neg-dense-hot", "1"]),
-    ("-rmw-scatter", FUSED_ADD + ["-rmw-scatter", "1"]),
-    ("-dedup-block", FUSED_ADD + ["-dedup-block", "64"]),
-    ("-rmw-scatter", FUSED_ADD + ["-rmw-scatter", "1", "-loop-mode",
-                                  "fori"]),
     ("-mesh-shape", FUSED_ADD + ["-mesh-shape", "data=2,vocab=4"]),
     ("-model", ["-model", "skipgram"]),
     ("-model", ["-cbow", "0"]),
-    ("-dedup-block", FUSED_ADD + ["-dedup-block", "64", "-loop-mode",
-                                  "unroll"]),
     ("-checkpoint-dir", FUSED_ADD + ["-scatter-impl", "grmw",
                                      "-checkpoint-dir", "ckpt"]),
     ("-device-epoch", ["-device-epoch", "1"]),
@@ -122,11 +171,10 @@ def test_unported_flags_rejected_by_name(flag, argv):
 
 @pytest.mark.parametrize("argv,flag", [
     (["-model", "skipgram"], "-model"),
-    (["-dedup-block", "64"], "-dedup-block"),
 ])
 def test_unported_engines_rejected_by_name(tmp_path, argv, flag):
-    """The engines still without code (skip-gram; the slab engine's
-    dedup scatter) are rejected by name before anything trains."""
+    """The engine still without code (skip-gram) is rejected by name
+    before anything trains."""
     (tmp_path / "c.txt").write_text("a b c a b c\n" * 20)
     with pytest.raises(ValueError, match=re.escape(flag)):
         tconfig.config_from_argv(argv + ["-train", str(tmp_path / "c.txt"),
@@ -153,8 +201,78 @@ def test_formerly_unported_engines_train_on_cpu(tmp_path, argv):
     u, v = ttrain.table_halves(res.tables)
     assert u.shape == v.shape == (res.vocab.size, 8)
     from word2bits_tpu_torch.models.init import init_params
-    u0, v0 = init_params(res.vocab.size, 8)
+    u0, v0 = init_params(res.vocab.size, 8, device="cpu")
     assert not torch.equal(u, u0) and not torch.equal(v, v0)
+
+
+ROUTES = {
+    "hot-rows": FUSED_ADD + ["-hot-rows", "6"],
+    "hot-rows, hot-pallas": FUSED_ADD + ["-hot-rows", "6", "-hot-pallas",
+                                         "1"],
+    "neg-stratify": FUSED_ADD + ["-hot-rows", "6", "-neg-stratify", "1"],
+    "neg-dense-hot": FUSED_ADD + ["-hot-rows", "6", "-neg-dense-hot", "1"],
+    "neg-dense-hot, device-epoch 0": FUSED_ADD + [
+        "-hot-rows", "6", "-neg-dense-hot", "1", "-device-epoch", "0"],
+    "rmw-scatter": FUSED_ADD + ["-rmw-scatter", "1", "-steps-per-chunk",
+                                "1", "-dtype", "bfloat16"],
+    "dedup-block, fused": FUSED_ADD + ["-dedup-block", "64"],
+    "dedup-block, slab": ["-dedup-block", "64"],
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_update_routes_train_on_cpu(tmp_path, route):
+    """train.train with each update route on the verify corpus: the epoch
+    loss moves up (less negative), and the vectors file holds the
+    vocabulary's rows of +-1/3, read by the JAX package's reader."""
+    corpus, out = tmp_path / "corpus.txt", tmp_path / "vecs.bin"
+    _verify_corpus(corpus)
+    argv = ROUTES[route]
+    if "-steps-per-chunk" not in argv:
+        argv = argv + ["-steps-per-chunk", "8"]
+    cfg = tconfig.config_from_argv(argv + [
+        "-train", str(corpus), "-output", str(out), "-size", "16",
+        "-window", "3", "-negative", "5", "-iter", "2", "-min-count", "2",
+        "-bitlevel", "1", "-binary", "1", "-batch-size", "128",
+        "-debug", "0"])
+    res = ttrain.train(cfg, device="cpu")
+    assert len(res.epoch_losses) == 2 and np.isfinite(res.epoch_losses).all()
+    assert res.epoch_losses[1] > res.epoch_losses[0], res.epoch_losses
+    words, vecs = jread(str(out))
+    assert words == res.vocab.words and vecs.shape == (res.vocab.size, 16)
+    assert np.all(np.abs(vecs) == np.float32(1) / np.float32(3))
+
+
+def test_dense_hot_needs_a_cold_stratum():
+    """As the JAX package's train.build_engine: -neg-dense-hot with
+    -hot-rows >= the vocabulary raises (no cold lanes to sample)."""
+    from word2bits_tpu_torch.data.vocab import Vocab
+    from word2bits_tpu_torch.models.cbow import CBOWHyper
+    cfg = tconfig.config_from_argv(FUSED_ADD + ["-hot-rows", "50",
+                                                "-neg-dense-hot", "1"])
+    vocab = Vocab(words=[f"w{i}" for i in range(50)],
+                  counts=np.arange(50, 0, -1, dtype=np.int64))
+    tables = ttrain.init_tables(cfg, vocab.size, "cpu")
+    with pytest.raises(ValueError, match="hot-rows < vocab"):
+        ttrain.build_engine(cfg, vocab, tables, CBOWHyper(size=cfg.size))
+
+
+def test_public_functions_default_to_the_card(monkeypatch):
+    """init_params, init_fused_table and analogy_predictions run on the
+    card unless asked for the CPU: without one they raise the
+    resolve_device error instead of dropping to the CPU."""
+    from word2bits_tpu_torch.eval import analogy as TA
+    from word2bits_tpu_torch.models.init import init_fused_table, init_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    qs = TA.AnalogyQuestions(sections=["s"], questions=[(0, "A", "B", "C",
+                                                         "D")])
+    calls = (lambda: init_params(10, 4), lambda: init_fused_table(10, 4),
+             lambda: TA.analogy_predictions(["a", "b", "c", "d"],
+                                            np.eye(4, dtype=np.float32), qs))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="W2B_FORCE_CPU"):
+            call()
+    assert init_params(10, 4, device="cpu")[0].device.type == "cpu"
 
 
 def test_no_silent_cpu(monkeypatch):
@@ -320,7 +438,9 @@ def test_port_imports_neither_jax_nor_jax_package():
     mods = out[0].split(",")
     assert len(mods) >= 20 and out[1].strip() == "[]", out
     for new in ("kernels.group_rmw", "eval.analogy", "io.packed",
-                "kernels.score_pallas", "models.cbow_slab", "models.cbow"):
+                "kernels.score_pallas", "models.cbow_slab", "models.cbow",
+                "kernels.hot_pallas", "kernels.scatter_pallas",
+                "ops.scatter"):
         assert f"word2bits_tpu_torch.{new}" in mods
     pattern = re.compile(r"import jax|from jax|word2bits_tpu(?!_torch)")
     sources = [p for p in (REPO / "word2bits_tpu_torch").rglob("*")

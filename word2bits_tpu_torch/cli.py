@@ -40,6 +40,9 @@ def train_main(argv=None) -> int:
               "-use-pallas 0|1 -dtype float32|bfloat16 -batch-size "
               "-steps-per-chunk -loop-mode scan|fori|unroll -packed 0|1 "
               "-seed]\n"
+              "Update routes: [-rmw-scatter 0|1 -dedup-block M -hot-rows H "
+              "-hot-pallas 0|1 -neg-stratify 0|1 -neg-dense-hot 0|1 "
+              "-device-epoch 0]\n"
               "Subcommands: train (default) | accuracy FILE [bitlevel "
               "threshold] [-questions FILE]")
         return 0

@@ -9,18 +9,24 @@ documented there.
 
 The port implements the two single-device CBOW engines: the split-table
 slab engine (the reference default: per-center negatives; or shared ones,
-models/cbow_slab.py) with the `add` or `span` scatter, and the fused-table
-engine (`-fused-tables 1 -neg-sharing G`, models/cbow_fused.py) with the
-`add`, `span` or `grmw` scatter; either with shifted-sum or banded windowed
-sums, optionally the fused context kernel (`-context-pallas`) and the
-fused score kernel (`-use-pallas`); any `-loop-mode` (all three run the
-same in-place loop); and the `-packed 1` export.  A flag that selects
-anything else is rejected by name with a ValueError, never ignored: see
-UNSUPPORTED below.
+models/cbow_slab.py) with the `add` or `span` scatter or the block dedup
+(`-dedup-block`), and the fused-table engine (`-fused-tables 1
+-neg-sharing G`, models/cbow_fused.py) with the `add`, `span`, `grmw` or
+in-place RMW (`-rmw-scatter`) scatter, the block dedup, and the hot/cold
+split (`-hot-rows`, `-hot-pallas`, `-neg-stratify`, `-neg-dense-hot`);
+either with shifted-sum or banded windowed sums, optionally the fused
+context kernel (`-context-pallas`) and the fused score kernel
+(`-use-pallas`); any `-loop-mode` (all three run the same in-place loop);
+and the `-packed 1` export.  Epochs are built on the host only
+(`-device-epoch 1` is rejected), but `device_epoch_on` resolves the flag as
+the JAX package does, because it decides whether the hot/cold split gets
+its cold-position map.  A flag that selects anything else is rejected by
+name with a ValueError, never ignored: see UNSUPPORTED below.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -171,7 +177,9 @@ class Word2BitsConfig:
                     raise ValueError(
                         "the hot/cold slab scatter split uses host-"
                         "precomputed cold positions, incompatible with "
-                        "-device-epoch 1")
+                        "-device-epoch 1 (with -neg-dense-hot 1 the hot "
+                        "boundary applies to negatives only and composes "
+                        "with -device-epoch; the slab split then stays off)")
         if self.neg_stratify or self.neg_dense_hot:
             which = "neg_stratify" if self.neg_stratify else "neg_dense_hot"
             if self.neg_stratify and self.neg_dense_hot:
@@ -182,6 +190,12 @@ class Word2BitsConfig:
             if self.use_pallas:
                 raise ValueError(f"{which} is not threaded into the Pallas "
                                  "score kernel; drop -use-pallas")
+            if self.neg_dense_hot and self.bitlevel >= 4:
+                warnings.warn(
+                    "-neg-dense-hot at -bitlevel >= 4 measured 7+ analogy "
+                    "points BELOW sampled negatives at reference-default "
+                    "shapes (ACCEPTANCE.md); verify quality on your corpus "
+                    "or drop -neg-dense-hot at fine grids", stacklevel=3)
             if self.neg_stratify and self.model != "cbow":
                 raise ValueError("neg_stratify is implemented for the "
                                  "fused-table CBOW path only")
@@ -261,6 +275,13 @@ class Word2BitsConfig:
                     "rmw_scatter is the plain-scatter capacity path; it "
                     "does not compose with use_pallas/dedup_block/"
                     "hot_rows/neg_stratify/neg_dense_hot")
+            if self.steps_per_chunk > 1 and self.loop_mode == "scan":
+                warnings.warn(
+                    "rmw_scatter with -steps-per-chunk > 1 runs the scan "
+                    "path, which double-buffers the carried table (~2x peak "
+                    "HBM) — the capacity benefit rmw_scatter exists for "
+                    "needs -steps-per-chunk 1 or -loop-mode fori "
+                    "(in-place while-loop carry)", stacklevel=3)
         if self.mesh_shape:
             if self.use_pallas:
                 raise ValueError("use_pallas is single-chip only")
@@ -289,6 +310,18 @@ class Word2BitsConfig:
                              f"(supported: {', '.join(DTYPES)})")
 
     @property
+    def device_epoch_on(self) -> bool:
+        """Resolved -device-epoch, as in the JAX package: AUTO (None) is on
+        unless the config needs host-precomputed cold positions (-hot-rows
+        without -neg-dense-hot).  The port builds every epoch on the host;
+        this decides only whether the hot/cold split gets its cold map
+        (train.build_engine): under AUTO, -hot-rows -neg-dense-hot 1 has
+        none, and its step keeps the plain slab scatter."""
+        if self.device_epoch is None:
+            return not (self.hot_rows and not self.neg_dense_hot)
+        return bool(self.device_epoch)
+
+    @property
     def lr_scale(self) -> float:
         """Measured synchronous-minibatch LR factor relative to the
         reference's per-example Hogwild LR: 3x at bitlevel 2, 1.2x at
@@ -312,13 +345,6 @@ DTYPES = ("float32", "bfloat16")
 
 # (flag, field, selects-unported-code) — each rejected by name
 UNSUPPORTED = (
-    # before -hot-rows, which each of the next three requires
-    ("-hot-pallas", "hot_pallas", bool),
-    ("-neg-stratify", "neg_stratify", bool),
-    ("-neg-dense-hot", "neg_dense_hot", bool),
-    ("-hot-rows", "hot_rows", bool),
-    ("-rmw-scatter", "rmw_scatter", bool),
-    ("-dedup-block", "dedup_block", bool),
     ("-mesh-shape", "mesh_shape", bool),
     ("-model", "model", lambda m: m == "skipgram"),
     ("-device-epoch", "device_epoch", lambda d: d is True),

@@ -1,5 +1,7 @@
-// Sorted group-RMW scatter-add of the capacity path's update rows, for
-// sm_90a: table[ids] += rows.
+// Sorted group-RMW scatter-adds of the capacity paths' update rows, for
+// sm_90a: table[ids] += rows.  Two entry points share one kernel template:
+// w2b_group_rmw (kernel 7, `-scatter-impl grmw`) and w2b_scatter_rmw
+// (kernel 8, `-rmw-scatter`), whose epilogue differs (ROUND_SUM below).
 //
 // Replaces the TPU kernel of the JAX package's kernels/group_rmw.py
 // (`_group_kernel`, called through `_group_call` by scatter_add_grmw and
@@ -32,6 +34,19 @@
 // registers; lane 0 adds the lane sums in lane order and does the one
 // read-modify-write of table[id].  The order of every sum is fixed.
 //
+// Kernel 8 replaces the TPU kernel of the JAX package's
+// kernels/scatter_pallas.py (`_rmw_kernel`, called through `_scatter_rmw`
+// by scatter_add_rmw): per `block` of rows a duplicate combine on 16-row
+// groups, then pipelined DMA read-add-write chains, the blocks in order.
+// Its numerics differ from kernel 7's in one rounding: the combined sum of
+// an id's rows is rounded to the table dtype BEFORE the one add into the
+// table (the TPU combine returns rows in the table dtype, and its kernel
+// adds them in that dtype).  ROUND_SUM = true keeps that rounding.  The
+// TPU kernel combines per block and visits an id once per block that holds
+// it; this one combines over the whole call and visits each id once, so
+// the two agree to a few roundings of the table dtype (the tests state the
+// tolerance).
+//
 // Bound on the H100 (3.35 TB/s): the bytes it must move.  At the flagship
 // (22,544 float32 rows of 1,600 columns into a 3,699,941 x 1,600 bf16
 // table) that is the rows (144 MB), the plan, and each touched row read
@@ -44,14 +59,16 @@
 namespace {
 
 using w2b::add_row;
+using w2b::from_f32;
 using w2b::load_vec;
 using w2b::store_vec;
+using w2b::to_f32;
 
 constexpr int ROWS = 4;     // row lanes per CTA
 constexpr int UNROLL = 4;   // row loads in flight per lane
 constexpr int MAX_CTAS = 8192;
 
-template <typename TableT, typename RowT, int VEC>
+template <typename TableT, typename RowT, int VEC, bool ROUND_SUM>
 __global__ void __launch_bounds__(1024)
 group_rmw_kernel(TableT* __restrict__ table, const RowT* __restrict__ rows,
                  const int* __restrict__ sids, const int* __restrict__ order,
@@ -102,7 +119,8 @@ group_rmw_kernel(TableT* __restrict__ table, const RowT* __restrict__ rows,
           float cur[VEC];
           load_vec<VEC>(p, cur);
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) cur[i] += sum[i];
+          for (int i = 0; i < VEC; ++i)
+            cur[i] += ROUND_SUM ? to_f32(from_f32<TableT>(sum[i])) : sum[i];
           store_vec<VEC>(p, cur);
         }
       }
@@ -111,7 +129,7 @@ group_rmw_kernel(TableT* __restrict__ table, const RowT* __restrict__ rows,
   }
 }
 
-template <typename TableT, typename RowT, int VEC>
+template <typename TableT, typename RowT, int VEC, bool ROUND_SUM>
 int launch(void* table, const void* rows, const int* sids, const int* order,
            const int* run_start, const int* vis_run, const int* n_vis, int N,
            int V, int C, cudaStream_t stream) {
@@ -123,25 +141,45 @@ int launch(void* table, const void* rows, const int* sids, const int* order,
   const int ctas = N < MAX_CTAS ? N : MAX_CTAS;
   const size_t smem = (size_t)ROWS * C * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      group_rmw_kernel<TableT, RowT, VEC>,
+      group_rmw_kernel<TableT, RowT, VEC, ROUND_SUM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  group_rmw_kernel<TableT, RowT, VEC><<<ctas, threads, smem, stream>>>(
+  group_rmw_kernel<TableT, RowT, VEC, ROUND_SUM>
+      <<<ctas, threads, smem, stream>>>(
       static_cast<TableT*>(table), static_cast<const RowT*>(rows), sids, order,
       run_start, vis_run, n_vis, V, C);
   return (int)cudaGetLastError();
 }
 
-template <typename TableT, typename RowT>
+template <typename TableT, typename RowT, bool ROUND_SUM>
 int launch_vec(void* table, const void* rows, const int* sids,
                const int* order, const int* run_start, const int* vis_run,
                const int* n_vis, int N, int V, int C, cudaStream_t stream) {
   if (N == 0) return 0;
   if (w2b::rows_vec4<TableT, RowT>(table, rows, C))
-    return launch<TableT, RowT, 4>(table, rows, sids, order, run_start,
-                                   vis_run, n_vis, N, V, C, stream);
-  return launch<TableT, RowT, 1>(table, rows, sids, order, run_start, vis_run,
-                                 n_vis, N, V, C, stream);
+    return launch<TableT, RowT, 4, ROUND_SUM>(
+        table, rows, sids, order, run_start, vis_run, n_vis, N, V, C, stream);
+  return launch<TableT, RowT, 1, ROUND_SUM>(
+      table, rows, sids, order, run_start, vis_run, n_vis, N, V, C, stream);
+}
+
+template <bool ROUND_SUM>
+int dispatch(void* table, const void* rows, const int* sids, const int* order,
+             const int* run_start, const int* vis_run, const int* n_vis,
+             int N, int V, int C, int table_dtype, int row_dtype,
+             void* stream) {
+  if (N < 0 || V < 0 || C < 1 || C > 12288) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (table_dtype == 1 && row_dtype == 0)
+    return launch_vec<__nv_bfloat16, float, ROUND_SUM>(
+        table, rows, sids, order, run_start, vis_run, n_vis, N, V, C, s);
+  if (table_dtype == 1 && row_dtype == 1)
+    return launch_vec<__nv_bfloat16, __nv_bfloat16, ROUND_SUM>(
+        table, rows, sids, order, run_start, vis_run, n_vis, N, V, C, s);
+  if (table_dtype == 0 && row_dtype == 0)
+    return launch_vec<float, float, ROUND_SUM>(
+        table, rows, sids, order, run_start, vis_run, n_vis, N, V, C, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -158,19 +196,18 @@ int w2b_group_rmw(void* table, const void* rows, const int* sids,
                   const int* order, const int* run_start, const int* vis_run,
                   const int* n_vis, int N, int V, int C, int table_dtype,
                   int row_dtype, void* stream) {
-  if (N < 0 || V < 0 || C < 1 || C > 12288) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (table_dtype == 1 && row_dtype == 0)
-    return launch_vec<__nv_bfloat16, float>(table, rows, sids, order,
-                                            run_start, vis_run, n_vis, N, V,
-                                            C, s);
-  if (table_dtype == 1 && row_dtype == 1)
-    return launch_vec<__nv_bfloat16, __nv_bfloat16>(
-        table, rows, sids, order, run_start, vis_run, n_vis, N, V, C, s);
-  if (table_dtype == 0 && row_dtype == 0)
-    return launch_vec<float, float>(table, rows, sids, order, run_start,
-                                    vis_run, n_vis, N, V, C, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(table, rows, sids, order, run_start, vis_run, n_vis,
+                         N, V, C, table_dtype, row_dtype, stream);
+}
+
+// Kernel 8: the same arguments and plan; each id's summed rows are rounded
+// to the table dtype before the add.
+int w2b_scatter_rmw(void* table, const void* rows, const int* sids,
+                    const int* order, const int* run_start,
+                    const int* vis_run, const int* n_vis, int N, int V, int C,
+                    int table_dtype, int row_dtype, void* stream) {
+  return dispatch<true>(table, rows, sids, order, run_start, vis_run, n_vis,
+                        N, V, C, table_dtype, row_dtype, stream);
 }
 
 }  // extern "C"

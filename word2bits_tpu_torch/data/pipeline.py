@@ -67,6 +67,42 @@ def iter_epoch_segments(encoded: np.ndarray, counts: np.ndarray, sample: float,
                                  rng, capacity=capacity)
 
 
+def cold_positions(tokens: np.ndarray, batch_size: int, window: int,
+                   n_rows: int, hot_rows: int, pad_mult: int = 256,
+                   min_width: int = 0) -> np.ndarray:
+    """Per-step compaction map of the slab scatter's cold rows (the
+    hot/cold split of models/cbow_fused.py, `-hot-rows`), bit for bit the
+    JAX package's.
+
+    Global step t scatters the slab window tokens[t*B : t*B + B+2W]; ids <
+    hot_rows go to the dense head accumulation, the rest scatter
+    compacted.  Returns int32 [n_rows, C]: the positions within each
+    step's window that hold an id >= hot_rows, then -1.  C is the largest
+    cold count over the rows, at least `min_width`, rounded up to
+    `pad_mult`; the training loop passes the previous width as min_width
+    so the width stays stable across segments."""
+    B, W = int(batch_size), int(window)
+    span = B + 2 * W
+    ids = np.maximum(np.asarray(tokens, np.int32), 0)
+    need = n_rows * B + 2 * W
+    if len(ids) < need:  # right margin for the final (padding-only) steps
+        ids = np.concatenate([ids, np.zeros(need - len(ids), np.int32)])
+    windows = np.lib.stride_tricks.sliding_window_view(ids, span)[::B][:n_rows]
+    cold = windows >= hot_rows                       # [n_rows, span] (a view)
+    counts = cold.sum(axis=1)
+    C = max(int(counts.max(initial=0)), min_width, 1)
+    C = ((C + pad_mult - 1) // pad_mult) * pad_mult
+    out = np.full((n_rows, C), -1, np.int32)
+    # a stable argsort per row puts the cold positions first, in order
+    w = min(C, span)  # C may exceed span when min_width demands it
+    for lo in range(0, n_rows, 1024):
+        hi = min(lo + 1024, n_rows)
+        order = np.argsort(~cold[lo:hi], axis=1, kind="stable")[:, :w]
+        ok = np.take_along_axis(cold[lo:hi], order, axis=1)
+        out[lo:hi, :w] = np.where(ok, order, -1).astype(np.int32)
+    return out
+
+
 def build_epoch_arrays(encoded: np.ndarray, counts: np.ndarray, sample: float,
                        train_words: int, window: int, rng: np.random.Generator,
                        capacity: int | None = None) -> EpochArrays:

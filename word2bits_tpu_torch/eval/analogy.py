@@ -200,9 +200,12 @@ def score_questions(Mn: torch.Tensor, abc: torch.Tensor,
 def analogy_predictions(words: List[str], vectors: np.ndarray,
                         questions: AnalogyQuestions, bitlevel: int = 0,
                         threshold: int = 0, batch_size: int = 4096,
-                        device="cpu", top2: bool = False
+                        device=None, top2: bool = False
                         ) -> AnalogyPredictions:
-    """Each covered question's predicted row (and score) on `device`."""
+    """Each covered question's predicted row (and score) on `device`
+    (default cuda; pass device='cpu' for the CPU)."""
+    from word2bits_tpu_torch.train import resolve_device
+    device = resolve_device(device)
     M = np.asarray(vectors, dtype=np.float32)
     if threshold and M.shape[0] > threshold:
         M = M[:threshold]
@@ -227,7 +230,6 @@ def analogy_predictions(words: List[str], vectors: np.ndarray,
     best_score = np.zeros(n, np.float32)
     second = np.zeros(n, np.float32) if top2 else None
     if n:
-        device = torch.device(device)
         if device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
         Mn = _device_table(M, bitlevel, device)
@@ -263,13 +265,9 @@ def evaluate_analogies(words: List[str], vectors: np.ndarray,
                        device=None) -> AnalogyResult:
     """The reference compute_accuracy on `device` (default cuda; pass
     device='cpu' for the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "(or set W2B_FORCE_CPU=1 at the CLI)")
     pred = analogy_predictions(words, vectors, questions, bitlevel=bitlevel,
                                threshold=threshold, batch_size=batch_size,
-                               device=dev)
+                               device=device)
     return result_of(pred, questions.sections)
 
 

@@ -136,9 +136,11 @@ def scatter_add_grmw_plain(table: torch.Tensor, ids: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """w2b_group_rmw of csrc/group_rmw.cu, built on first use."""
-    fn = load_library("group_rmw").w2b_group_rmw
+def _kernel(entry: str):
+    """`entry` of csrc/group_rmw.cu (w2b_group_rmw, kernel 7, or
+    w2b_scatter_rmw, kernel 8: one template, two epilogues), built on first
+    use."""
+    fn = getattr(load_library("group_rmw"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -153,44 +155,43 @@ def _check_slots(chunk: int, slots: int) -> None:
             "refuses the combination")
 
 
-def _launch(table, plan: GroupPlan, rows):
+def launch_group_kernel(entry: str, fn: str, table, plan: GroupPlan,
+                        rows) -> None:
+    """Check one step's plan and rows and launch `entry` (see _kernel) on
+    them; `fn` names the caller in errors."""
     V, C = table.shape
     N = plan.sids.shape[-1]
     dev = table.device
     if table.dtype not in _DTYPES:
-        raise ValueError(f"scatter_add_grmw: table dtype {table.dtype} is not "
-                         "float32 or bfloat16")
+        raise ValueError(f"{fn}: table dtype {table.dtype} is not float32 "
+                         "or bfloat16")
     if rows.dtype not in (torch.float32, table.dtype):
-        raise ValueError(f"scatter_add_grmw: rows must be float32 or "
-                         f"{table.dtype}, got {rows.dtype}")
+        raise ValueError(f"{fn}: rows must be float32 or {table.dtype}, got "
+                         f"{rows.dtype}")
     if rows.shape != (N, C):
-        raise ValueError(f"scatter_add_grmw: rows {tuple(rows.shape)} vs "
-                         f"plan of {N} ids into width {C}")
+        raise ValueError(f"{fn}: rows {tuple(rows.shape)} vs plan of {N} ids "
+                         f"into width {C}")
     if plan.sids.dim() != 1:
-        raise ValueError("scatter_add_grmw: pass one step's plan "
-                         "(GroupPlan.step)")
+        raise ValueError(f"{fn}: pass one step's plan (GroupPlan.step)")
     for name, t in (("table", table), ("rows", rows)) + tuple(
             zip(GroupPlan._fields, plan)):
         if t.device != dev:
-            raise ValueError(f"scatter_add_grmw: {name} is on {t.device}, "
-                             f"table on {dev}")
+            raise ValueError(f"{fn}: {name} is on {t.device}, table on {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"scatter_add_grmw: {name} must be contiguous")
+            raise ValueError(f"{fn}: {name} must be contiguous")
     for name, t in zip(GroupPlan._fields, plan):
         if t.dtype != torch.int32:
-            raise ValueError(f"scatter_add_grmw: plan.{name} must be int32")
+            raise ValueError(f"{fn}: plan.{name} must be int32")
     if plan.run_start.shape[-1] != N + 1 or plan.vis_run.shape[-1] != N + 1:
-        raise ValueError("scatter_add_grmw: plan.run_start and plan.vis_run "
-                         "must have N+1 entries")
+        raise ValueError(f"{fn}: plan.run_start and plan.vis_run must have "
+                         "N+1 entries")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(
+    err = _kernel(entry)(
         table.data_ptr(), rows.data_ptr(), plan.sids.data_ptr(),
         plan.order.data_ptr(), plan.run_start.data_ptr(),
         plan.vis_run.data_ptr(), plan.n_vis.data_ptr(), N, V, C,
         _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
-    check_launch("w2b_group_rmw", err)
-    scatter_add_grmw_planned.launches += 1
-    return table
+    check_launch(entry, err)
 
 
 def scatter_add_grmw_planned(table: torch.Tensor, plan: GroupPlan,
@@ -205,7 +206,9 @@ def scatter_add_grmw_planned(table: torch.Tensor, plan: GroupPlan,
     if table.device.type != "cuda":
         raise ValueError("scatter_add_grmw runs on cpu (plain version) or "
                          f"cuda (kernel), not {table.device}")
-    return _launch(table, plan, rows)
+    launch_group_kernel("w2b_group_rmw", "scatter_add_grmw", table, plan, rows)
+    scatter_add_grmw_planned.launches += 1
+    return table
 
 
 scatter_add_grmw_planned.launches = 0

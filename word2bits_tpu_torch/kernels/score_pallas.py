@@ -48,8 +48,12 @@ def pool_mask(G: int, K: int, P: int, dtype=torch.float32,
 
 
 def quantized_scores_plain(cavg3, v_rows, centers3, negs, af3, scalars,
-                           bitlevel: int, reg: float, neg_pool: int = 1):
-    """(cavge [T, G, D], dv [T, P*K, D], loss []) — the plain version."""
+                           bitlevel: int, reg: float, neg_pool: int = 1,
+                           lane_weight=None):
+    """(cavge [T, G, D], dv [T, P*K, D], loss []) — the plain version.
+    `lane_weight` ([P*K] float32, optional) scales each negative lane's
+    mask: the importance weights of the stratified and dense-hot samplers
+    (models/cbow_fused.py), which the kernel does not take."""
     G, PK = cavg3.shape[1], v_rows.shape[1]
     P = neg_pool if neg_pool > 1 else 1
     alpha = scalars.reshape(())
@@ -59,6 +63,8 @@ def quantized_scores_plain(cavg3, v_rows, centers3, negs, af3, scalars,
          * af3[:, :, None])
     if P > 1:
         m = m * pool_mask(G, PK // P, P, f.dtype, f.device)[None]
+    if lane_weight is not None:
+        m = m * lane_weight[None, None, :]
     g = (0.0 - sigmoid_lut(f)) * alpha * m
     neg_reg = ((reg * (q_vn * q_vn).sum(dim=-1))[:, None, :]
                if reg else 0.0)

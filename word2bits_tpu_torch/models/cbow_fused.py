@@ -4,14 +4,30 @@ table[:, :D] = u and table[:, D:] = v, so the u rows updated by slab
 position and the v rows updated for the centers carry the same word ids and
 go out in ONE scatter of B+2W double-width rows; the center v rows ride the
 slab gather.  Semantics are those of the JAX package's
-models/cbow_fused.py, restricted to what the ported configurations run:
-shared negatives (neg_sharing > 0) with pools, through the fused score
-kernel (`use_pallas`) or its plain version; the banded or shifted-sum
-windowed sums, with or without the fused context kernel; and the `add`
-(index_add_), `span` (sorted kernel, the shipped throughput configuration)
-or `grmw` (sorted group-RMW kernel, the 3.7M x 800d capacity
-configuration) scatter.  The context, positive, negative and u-sum phases
-are the slab step's (models/cbow_slab.py).
+models/cbow_fused.py: shared negatives (neg_sharing > 0) with pools,
+through the fused score kernel (`use_pallas`) or its plain version; the
+banded or shifted-sum windowed sums, with or without the fused context
+kernel; and every parameter-update route of its step:
+
+- the `add` (index_add_), `span` (sorted kernel, the shipped throughput
+  configuration) or `grmw` (sorted group-RMW kernel, the 3.7M x 800d
+  capacity configuration) scatter;
+- `rmw_scatter` (kernel 8, kernels/scatter_pallas.py, the earlier capacity
+  path) and `dedup_block` (ops/scatter.py), each called for the slab rows
+  and then for the negative rows, as the JAX step calls its `scat`;
+- the hot/cold split (`hot_rows`): with a cold-position map the rows of
+  ids < hot_rows go to the dense head accumulation (kernel 6,
+  kernels/hot_pallas.py, with `hot_pallas`; else ops/scatter.hot_slice_add)
+  and the slab's cold rows scatter compacted; without one (the JAX
+  package's device epoch, which the auto -device-epoch picks for
+  -neg-dense-hot) the slab keeps the plain scatter;
+- the stratified negatives (`strat_lanes`: importance-weighted lanes, the
+  hot ones joining the head accumulation) and the dense hot stratum
+  (`dense_hot`: every center scored against all H hot words, three
+  [B, H] products in float32, its v delta folded into the head).
+
+The context, positive, negative and u-sum phases are the slab step's
+(models/cbow_slab.py).
 
 PyTorch idiom: the table is updated IN PLACE (JAX donates it), the S steps
 of a chunk are a Python loop, and the chunk's randomness comes from an
@@ -28,6 +44,9 @@ import torch
 
 from word2bits_tpu_torch.kernels.group_rmw import (
     GroupPlan, group_plan, group_rows, scatter_add_grmw_planned)
+from word2bits_tpu_torch.kernels.hot_pallas import (HotPlan, hot_plan,
+                                                    hot_slice_add_pallas)
+from word2bits_tpu_torch.kernels.scatter_pallas import scatter_add_rmw
 from word2bits_tpu_torch.kernels.span_scatter import (
     SpanPlan, scatter_add_span_planned, span_plan)
 from word2bits_tpu_torch.models.cbow import (
@@ -35,7 +54,12 @@ from word2bits_tpu_torch.models.cbow import (
 from word2bits_tpu_torch.models.cbow_slab import (
     SlabInputs, _numpy_to_torch, positive_phase, shared_negative_phase,
     u_update_rows)
-from word2bits_tpu_torch.sampling.unigram import AliasTable, draw_negatives
+from word2bits_tpu_torch.ops.quantize import quantize
+from word2bits_tpu_torch.ops.scatter import (add_rows_where, hot_slice_add,
+                                             scatter_add_dedup)
+from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
+from word2bits_tpu_torch.sampling.unigram import (
+    AliasTable, draw_cold, draw_negatives, draw_negatives_stratified)
 
 SCATTER_IMPLS = ("add", "span", "grmw")
 LOOP_MODES = ("scan", "fori", "unroll")
@@ -81,20 +105,61 @@ def scatter_plan(scatter_impl: str, ids: torch.Tensor, table: torch.Tensor,
     return group_plan(ids, group_rows(table.dtype), chunk=span_chunk)
 
 
+def _dense_hot_phase(table, cavg, af, centers, hot_w, alpha,
+                     hyper: CBOWHyper, H: int):
+    """The dense hot stratum (the JAX step's `dense_hot` branch): every
+    center scores against all H hot words with per-word weight hot_w[h] =
+    K * P(draw h), the skip-center quirk an exact (b, h == center) mask.
+    Three [B, H] float32 products.  Returns (cavge_hot [B, D], dv_hot
+    [H, D], loss)."""
+    D, bl, reg = hyper.size, hyper.bitlevel, hyper.reg
+    v_h = table[:H, D:].to(torch.float32)                  # a slice
+    q_vh = quantize(v_h, bl)
+    f_h = cavg @ q_vh.T                                    # [B, H]
+    skip = (torch.arange(H, device=table.device)[None, :]
+            != centers[:, None])
+    mh = skip.to(torch.float32) * af[:, None] * hot_w[None, :]
+    g_h = (0.0 - sigmoid_lut(f_h)) * alpha * mh
+    hot_reg = (reg * (q_vh * q_vh).sum(dim=-1))[None, :] if reg else 0.0
+    loss = ((torch.log(sigmoid_exact(-f_h)) - hot_reg) * mh).sum()
+    cavge_hot = g_h @ q_vh                                 # [B, D]
+    dv_hot = g_h.T @ cavg                                  # [H, D]
+    if reg:
+        dv_hot = dv_hot - 2.0 * alpha * reg * v_h * mh.sum(dim=0)[:, None]
+    return cavge_hot, dv_hot, loss
+
+
+def _v_rows(dv: torch.Tensor) -> torch.Tensor:
+    """Fused-table rows of v updates: the u half zero."""
+    return torch.cat([torch.zeros_like(dv), dv], dim=1)
+
+
 def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
                     hyper: CBOWHyper, batch_size: int, neg_sharing: int,
                     neg_pool: int = 1, banded: int = 0,
                     scatter_impl: str = "add",
                     span_plan: Optional[SpanPlan | GroupPlan] = None,
                     context_pallas: bool = False, span_chunk: int = 128,
-                    use_pallas: bool = False):
+                    use_pallas: bool = False, dedup_block: int = 0,
+                    hot_rows: int = 0, cold_pos=None, strat_lanes=None,
+                    dense_hot=None, hot_pallas: bool = False,
+                    rmw_scatter: bool = False,
+                    hot_plan: Optional[HotPlan] = None):
     """One synchronous step on the fused (V, 2D) table, IN PLACE.
     Returns (table, loss) with loss a float32 0-d tensor on the device.
     `span_plan` is the step's hoisted plan for the `span` (SpanPlan) or
     `grmw` (GroupPlan) scatter; `span_chunk` is grmw's `chunk`.
     `use_pallas` runs the shared-negative phase through the fused score
-    kernel (kernels/score_pallas.py; the `add` scatter only, as the
-    configuration requires)."""
+    kernel (kernels/score_pallas.py).
+
+    Update routes (module docstring): `rmw_scatter`, `dedup_block`;
+    `hot_rows` with `cold_pos` (the step's row of the cold-position map,
+    [C] positions in the slab, -1 padded) or without it, `hot_pallas`
+    (with `hot_plan`, the step's hoisted kernel plan);
+    `strat_lanes` = (kh, w_hot, w_cold) marks inputs.neg_ids as stratified
+    draws (per pool of lanes the first kh hot); `dense_hot` = (w_cold,
+    hot_w [H]) computes the hot stratum exactly, inputs.neg_ids being the
+    cold draws."""
     if not neg_sharing:
         raise ValueError("fused table step requires neg_sharing > 0")
     if scatter_impl not in SCATTER_IMPLS:
@@ -102,6 +167,9 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
                          f"(supported: {', '.join(SCATTER_IMPLS)})")
     if use_pallas and scatter_impl != "add":
         raise ValueError("use_pallas runs with scatter_impl='add' only")
+    if dense_hot is not None and not hot_rows:
+        raise ValueError("dense_hot requires hot_rows (the hot-stratum "
+                         "boundary of the negative distribution)")
     B, W = batch_size, hyper.window
     D = table.shape[1] // 2
     dt = torch.float32
@@ -109,6 +177,7 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
     G = neg_sharing
     if B % G:
         raise ValueError(f"batch {B} not divisible by neg tile {G}")
+    T = B // G
     alpha = torch.as_tensor(alpha, dtype=dt, device=dev)
 
     slab_ids = inputs.slab_tokens.clamp_min(0)             # [B+2W]
@@ -119,37 +188,110 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
                          alpha, hyper, B, banded, context_pallas)
     # shared negatives (strided tiles); v-half gathered from the fused table
     P = neg_pool if neg_pool and neg_pool > 1 else 1
-    negs = inputs.neg_ids                                  # [T, P*K]
-    v_n = table[negs][..., D:].to(dt)                      # [T, P*K, D]
+    negs = inputs.neg_ids                                  # [T, P*Kl]
+    Kl = negs.shape[1] // P            # == K, or kc under dense_hot
+    lane_w = None
+    if strat_lanes is not None:
+        kh, w_hot, w_cold = strat_lanes
+        lane_w = torch.where(torch.arange(Kl, device=dev) < kh,
+                             float(w_hot), float(w_cold)).to(dt).repeat(P)
+    elif dense_hot is not None:
+        lane_w = torch.full((P * Kl,), dense_hot[0], dtype=dt, device=dev)
+    v_n = table[negs][..., D:].to(dt)                      # [T, P*Kl, D]
     cavge_neg, dv_neg, nloss = shared_negative_phase(
         pos.cavg, pos.af, centers, negs, v_n, alpha, hyper, B, G, P,
-        use_pallas)
+        use_pallas, lane_weight=lane_w)
     loss = pos.loss + nloss
-    du_slab = u_update_rows(pos, pos.cavge + cavge_neg, alpha, hyper, B)
+    cavge = pos.cavge + cavge_neg
+    dv_hot = None
+    if dense_hot is not None:
+        hot_w = torch.as_tensor(dense_hot[1], dtype=dt, device=dev)
+        cavge_hot, dv_hot, hloss = _dense_hot_phase(
+            table, pos.cavg, pos.af, centers, hot_w, alpha, hyper, hot_rows)
+        loss = loss + hloss
+        cavge = cavge + cavge_hot
+    du_slab = u_update_rows(pos, cavge, alpha, hyper, B)
 
     # ONE fused row set for u-positions + center v-rows, then the
     # negative rows (u-half zero)
     dv_slab = torch.zeros((B + 2 * W, D), dtype=dt, device=dev)
     dv_slab[W:W + B] = pos.dv_center
     fused_rows = torch.cat([du_slab, dv_slab], dim=1)      # [B+2W, 2D]
-    neg_rows = torch.cat([torch.zeros_like(dv_neg), dv_neg], dim=1)
+    neg_ids = negs.reshape(-1)
     if scatter_impl in ("span", "grmw"):
         # one sorted call for slab + negative rows (kernels/span_scatter.py,
         # kernels/group_rmw.py); float32 rows round to the table dtype
         # inside the kernels
-        all_rows = torch.cat([fused_rows, neg_rows])
+        all_rows = torch.cat([fused_rows, _v_rows(dv_neg)])
         plan = span_plan
         if plan is None:
-            plan = scatter_plan(scatter_impl,
-                                torch.cat([slab_ids, negs.reshape(-1)]),
+            plan = scatter_plan(scatter_impl, torch.cat([slab_ids, neg_ids]),
                                 table, span_chunk)
         if scatter_impl == "span":
             scatter_add_span_planned(table, plan, all_rows)
         else:
             scatter_add_grmw_planned(table, plan, all_rows, chunk=span_chunk)
+        return table, loss
+
+    if rmw_scatter:
+        # kernel 8 rounds the float32 rows to the table dtype in registers
+        def scat(ids, rows):
+            scatter_add_rmw(table, ids, rows)
+    elif dedup_block:
+        def scat(ids, rows):
+            scatter_add_dedup(table, ids, rows.to(table.dtype), dedup_block)
     else:
-        table.index_add_(0, slab_ids, fused_rows.to(table.dtype))
-        table.index_add_(0, negs.reshape(-1), neg_rows.to(table.dtype))
+        def scat(ids, rows):
+            table.index_add_(0, ids, rows.to(table.dtype))
+
+    if not hot_rows:
+        scat(slab_ids, fused_rows)
+        scat(neg_ids, _v_rows(dv_neg))
+        return table, loss
+
+    # the hot/cold split: ids < hot_rows (the vocabulary is count-sorted)
+    # accumulate densely into the head table[:hot_rows]
+    hot_ids, hot_mat = slab_ids, fused_rows
+    if strat_lanes is not None:
+        # stratified lanes: the first kh of each pool are hot by
+        # construction and join the head accumulation
+        negs4 = negs.reshape(T, P, Kl)
+        dv4 = dv_neg.reshape(T, P, Kl, D)
+        hot_ids = torch.cat([slab_ids, negs4[:, :, :kh].reshape(-1)])
+        hot_mat = torch.cat([fused_rows,
+                             _v_rows(dv4[:, :, :kh].reshape(-1, D))])
+    extra = None if dv_hot is None else _v_rows(dv_hot)    # [H, 2D]
+    if cold_pos is None:
+        # no cold-position map: the plain slab scatter, plus only the
+        # dense-hot head delta
+        if strat_lanes is not None:
+            raise ValueError("strat_lanes requires cold_pos (it exists only "
+                             "for the hot/cold scatter split)")
+        if extra is not None:
+            table[:hot_rows] = (table[:hot_rows].to(dt)
+                                + extra).to(table.dtype)
+        scat(slab_ids, fused_rows)
+    else:
+        if hot_pallas:
+            hot_slice_add_pallas(table, hot_ids, hot_mat, hot_rows,
+                                 extra=extra, plan=hot_plan)
+        else:
+            hot_slice_add(table, hot_ids, hot_mat, hot_rows, extra=extra)
+        # the cold rows, compacted by the epoch's precomputed positions
+        ok = cold_pos >= 0
+        posc = cold_pos.clamp_min(0)
+        add_rows_where(table, slab_ids[posc], fused_rows[posc], ok)
+    if strat_lanes is not None:
+        if Kl - kh:   # cold lanes: compact by construction
+            table.index_add_(0, negs4[:, :, kh:].reshape(-1),
+                             _v_rows(dv4[:, :, kh:].reshape(-1, D))
+                             .to(table.dtype))
+        return table, loss
+    if dense_hot is not None:
+        # the sampled lanes are all cold (ids >= hot_rows)
+        table.index_add_(0, neg_ids, _v_rows(dv_neg).to(table.dtype))
+        return table, loss
+    scat(neg_ids, _v_rows(dv_neg))
     return table, loss
 
 
@@ -159,9 +301,12 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
                            scatter_impl: str = "add",
                            context_pallas: bool = False,
                            loop_mode: str = "scan", span_chunk: int = 128,
-                           use_pallas: bool = False):
+                           use_pallas: bool = False, dedup_block: int = 0,
+                           hot_rows: int = 0, strat_lanes=None,
+                           dense_hot=None, hot_pallas: bool = False,
+                           rmw_scatter: bool = False):
     """chunk(table, tokens, sent_ids, atab, scalars, gen, n_steps=None,
-    shrinks=None, negs=None) -> (table, loss_sum).
+    shrinks=None, negs=None, cold_pos=None) -> (table, loss_sum).
 
     Runs n_steps (default `steps`) synchronous steps on the fused table IN
     PLACE.  tokens/sent_ids are the epoch arrays on the table's device;
@@ -170,6 +315,15 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
     float32.  The window shrinks [S, B] and negatives [S, B/G, P*K] of all
     steps are drawn from `gen` at chunk entry unless injected; with the
     span or grmw scatter the sort plan of all steps is built once here.
+
+    With hot_rows > 0, `cold_pos` is the segment's cold-position map
+    (data/pipeline.cold_positions, [n_rows, C]; global step t = (base0 -
+    W)//B + s takes row t) for the hot/cold split; without it the slab
+    keeps the plain scatter and hot_rows only bounds the negative strata.
+    With strat_lanes = (kh, w_hot, w_cold) (StratifiedSampler.lane_split)
+    `atab` is the (hot, cold) pair of alias tables; with dense_hot = (kc,
+    w_cold, hot_w [H]) (StratifiedSampler.dense_split) it is the cold
+    stratum's table and kc cold lanes are drawn per pool.
 
     `loop_mode` "scan", "fori" and "unroll" are accepted as in the JAX
     package and run the same in-place Python loop: the JAX modes differ in
@@ -184,6 +338,20 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
                          f"(supported: {', '.join(LOOP_MODES)})")
     if use_pallas and scatter_impl != "add":
         raise ValueError("use_pallas runs with scatter_impl='add' only")
+    hot_rows = min(int(hot_rows), vocab_size)
+    restructured = (dedup_block or hot_rows or strat_lanes is not None
+                    or dense_hot is not None)
+    if rmw_scatter and (use_pallas or restructured):
+        raise ValueError(
+            "rmw_scatter is the plain-scatter capacity path; it does not "
+            "compose with use_pallas/dedup_block/hot_rows/strat_lanes/"
+            "dense_hot (those restructure the scatter themselves)")
+    if scatter_impl != "add" and (rmw_scatter or restructured):
+        raise ValueError("scatter_impl='span'/'grmw' replaces the plain "
+                         "scatter; it does not compose with rmw_scatter/"
+                         "dedup_block/hot_rows/strat_lanes/dense_hot")
+    if (strat_lanes is not None or dense_hot is not None) and not hot_rows:
+        raise ValueError("strat_lanes/dense_hot require hot_rows")
     B, W, K = batch_size, hyper.window, hyper.negative
     P = neg_pool if (neg_pool and neg_pool > 1) else 1
     if not neg_sharing or B % neg_sharing:
@@ -192,11 +360,14 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
     T = B // neg_sharing
 
     def chunk(table: torch.Tensor, tokens: torch.Tensor,
-              sent_ids: torch.Tensor, atab: AliasTable,
-              scalars: ChunkScalars, gen: Optional[torch.Generator] = None,
+              sent_ids: torch.Tensor,
+              atab: AliasTable | Tuple[AliasTable, AliasTable],
+              scalars: ChunkScalars,
+              gen: Optional[torch.Generator] = None,
               n_steps: Optional[int] = None,
               shrinks: Optional[torch.Tensor] = None,
-              negs: Optional[torch.Tensor] = None):
+              negs: Optional[torch.Tensor] = None,
+              cold_pos: Optional[torch.Tensor] = None):
         dev = table.device
         S = steps if n_steps is None else n_steps
         slab_tokens, slab_sents = chunk_slabs(tokens, sent_ids,
@@ -204,7 +375,20 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
         if shrinks is None:
             shrinks = torch.randint(0, W, (S, B), generator=gen, device=dev)
         if negs is None:
-            negs = draw_negatives(gen, atab, (S, T, P * K), vocab_size)
+            if strat_lanes is not None:
+                hot_t, cold_t = atab
+                negs = draw_negatives_stratified(gen, hot_t, cold_t, (S, T),
+                                                 P, K, strat_lanes[0],
+                                                 hot_rows)
+            elif dense_hot is not None:
+                negs = draw_cold(gen, atab, (S, T, P * dense_hot[0]),
+                                 hot_rows)
+            else:
+                negs = draw_negatives(gen, atab, (S, T, P * K), vocab_size)
+        step_dense = None
+        if dense_hot is not None:
+            step_dense = (dense_hot[1], torch.as_tensor(
+                dense_hot[2], dtype=torch.float32, device=dev))
         alphas = step_alphas(scalars, S, dev)
         plans = None
         if scatter_impl in ("span", "grmw"):
@@ -212,17 +396,34 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
             ids_all = torch.cat([slab_tokens.clamp_min(0),
                                  negs.reshape(S, -1)], dim=1)
             plans = scatter_plan(scatter_impl, ids_all, table, span_chunk)
+        hot_plans = None
+        if hot_pallas and cold_pos is not None:
+            # hoisted: the rows of the head accumulation are the slab's
+            # and, stratified, each pool's first kh lanes
+            hot_ids = slab_tokens.clamp_min(0)
+            if strat_lanes is not None:
+                lanes = negs.reshape(S, T, P, K)[..., :strat_lanes[0]]
+                hot_ids = torch.cat([hot_ids, lanes.reshape(S, -1)], dim=1)
+            hot_plans = hot_plan(hot_ids, hot_rows)
+        t0 = (scalars.base0 - W) // B
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for s in range(S):
             inputs = SlabInputs(slab_tokens=slab_tokens[s],
                                 slab_sents=slab_sents[s],
                                 shrink=shrinks[s], neg_ids=negs[s])
+            cp = None
+            if hot_rows and cold_pos is not None:
+                cp = cold_pos[min(max(t0 + s, 0), cold_pos.shape[0] - 1)]
             table, step_loss = fused_slab_step(
                 table, inputs, alphas[s], hyper, B, neg_sharing,
                 neg_pool=P, banded=banded, scatter_impl=scatter_impl,
                 span_plan=None if plans is None else plans.step(s),
                 context_pallas=context_pallas, span_chunk=span_chunk,
-                use_pallas=use_pallas)
+                use_pallas=use_pallas, dedup_block=dedup_block,
+                hot_rows=hot_rows, cold_pos=cp, strat_lanes=strat_lanes,
+                dense_hot=step_dense, hot_pallas=hot_pallas,
+                rmw_scatter=rmw_scatter,
+                hot_plan=None if hot_plans is None else hot_plans.step(s))
             loss = loss + step_loss
         return table, loss
 

@@ -14,12 +14,15 @@ cbow_minibatch_update` modulo float order (tested equal).
 Every branch the configuration reaches is here: per-center and shared
 negatives; shifted-sum and banded windows; reg = 0 and > 0; the `add`
 (index_add_) and `span` (sorted kernel, csrc/span_scatter.cu) scatters on
-u and v; the fused context kernel on split tables (`context_pallas`); the
-fused score kernel (`use_pallas`, csrc/score.cu); and the rank-1 span
-scatter of the per-center v update (`span_rank1`).  The tables are stored
-unpadded and updated IN PLACE; `params_from_jax` trims the JAX package's
-span padding.  The fused-table step (models/cbow_fused.py) shares the
-context, positive and u-sum code below.
+u and v, and the JAX package's whole `scat` switch besides (the block
+dedup, `dedup_block`, ops/scatter.py; the hot/cold split `scatter_add_hot`,
+`hot_rows`, reachable through this API only: the configuration asks for
+fused tables with -hot-rows); the fused context kernel on split tables
+(`context_pallas`); the fused score kernel (`use_pallas`, csrc/score.cu);
+and the rank-1 span scatter of the per-center v update (`span_rank1`).
+The tables are stored unpadded and updated IN PLACE; `params_from_jax`
+trims the JAX package's span padding.  The fused-table step
+(models/cbow_fused.py) shares the context, positive and u-sum code below.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from word2bits_tpu_torch.kernels.span_scatter import (
 from word2bits_tpu_torch.models.cbow import (
     CBOWHyper, ChunkScalars, chunk_slabs, step_alphas)
 from word2bits_tpu_torch.ops.quantize import quantize
+from word2bits_tpu_torch.ops.scatter import (add_rows_where, hot_slice_add,
+                                             scatter_add_dedup)
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.ops.windowed import (
     _tile_windows, banded_context, banded_usum, build_banded_masks, pick_tile)
@@ -178,10 +183,15 @@ def u_update_rows(pos: Positive, cavge: torch.Tensor, alpha: torch.Tensor,
 
 def shared_negative_phase(cavg, af, centers, negs, v_n, alpha,
                           hyper: CBOWHyper, B: int, G: int, P: int,
-                          use_pallas: bool):
+                          use_pallas: bool, lane_weight=None):
     """(cavge_neg [B, D], dv_neg [T*P*K, D], loss) of the negatives shared
     by strided tiles of G centers: the fused score kernel
-    (kernels/score_pallas.py) with `use_pallas`, else its plain version."""
+    (kernels/score_pallas.py) with `use_pallas`, else its plain version,
+    whose mask `lane_weight` ([P*K], optional) scales per lane."""
+    if use_pallas and lane_weight is not None:
+        raise ValueError("the score kernel takes no lane weights (the "
+                         "stratified and dense-hot samplers exclude "
+                         "use_pallas)")
     T = B // G
     args = [to_tiles(cavg, T, G), v_n, to_tiles(centers, T, G), negs,
             to_tiles(af, T, G)]
@@ -189,23 +199,37 @@ def shared_negative_phase(cavg, af, centers, negs, v_n, alpha,
         # the kernel reads dense rows; the fused table's v_n is a strided
         # view of its columns
         args = [a.contiguous() for a in args]
-    score = quantized_scores_pallas if use_pallas else quantized_scores_plain
-    cavge_neg, dv_neg, nloss = score(
-        *args, alpha.reshape(1, 1), hyper.bitlevel, float(hyper.reg), P)
+    args += [alpha.reshape(1, 1), hyper.bitlevel, float(hyper.reg), P]
+    if use_pallas:
+        cavge_neg, dv_neg, nloss = quantized_scores_pallas(*args)
+    else:
+        cavge_neg, dv_neg, nloss = quantized_scores_plain(
+            *args, lane_weight=lane_weight)
     return from_tiles(cavge_neg, B), dv_neg.reshape(-1, hyper.size), nloss
+
+
+def scatter_add_hot(table: torch.Tensor, ids: torch.Tensor,
+                    rows: torch.Tensor, hot_rows: int) -> torch.Tensor:
+    """table[ids] += rows in place, the rows of the `hot_rows` most
+    frequent words (ids < hot_rows: the vocabulary is count-sorted) summed
+    in float32 into the head with one rounding, the rest added one by one
+    as the plain scatter does; the rows are first rounded to the table
+    dtype.  The JAX package's scatter_add_hot (a one-hot product there)."""
+    rows = rows.to(table.dtype)
+    if hot_rows <= 0:
+        return table.index_add_(0, ids, rows)
+    hot_slice_add(table, ids, rows, hot_rows)
+    return add_rows_where(table, ids, rows, ids >= hot_rows)
 
 
 def _check_slab_options(hot_rows: int, dedup_block: int,
                         scatter_impl: str) -> None:
-    if hot_rows:
-        raise ValueError("hot_rows (-hot-rows) is not implemented by "
-                         "word2bits_tpu_torch yet")
-    if dedup_block:
-        raise ValueError("dedup_block (-dedup-block) is not implemented by "
-                         "word2bits_tpu_torch yet")
     if scatter_impl not in SLAB_SCATTER_IMPLS:
         raise ValueError(f"unknown scatter_impl {scatter_impl!r} (slab path "
                          f"supports {', '.join(SLAB_SCATTER_IMPLS)})")
+    if scatter_impl == "span" and (hot_rows or dedup_block):
+        raise ValueError("scatter_impl='span' replaces the plain scatter; "
+                         "it does not compose with hot_rows/dedup_block")
 
 
 def slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs, alpha,
@@ -235,8 +259,10 @@ def slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs, alpha,
             if plan is None:
                 plan = span_plan(ids, tab.shape[0])
             scatter_add_span_planned(tab, plan, rows)
+        elif dedup_block:
+            scatter_add_dedup(tab, ids, rows.to(tab.dtype), dedup_block)
         else:
-            tab.index_add_(0, ids, rows.to(tab.dtype))
+            scatter_add_hot(tab, ids, rows, hot_rows)
 
     slab_ids = inputs.slab_tokens.clamp_min(0)                 # [B+2W]
     centers = slab_ids[W:W + B]
@@ -340,7 +366,8 @@ def make_slab_train_chunk(hyper: CBOWHyper, vocab_size: int, batch_size: int,
                      else (plans_u.step(s), plans_v.step(s)))
             u, v, step_loss = slab_step(
                 u, v, inputs, alphas[s], hyper, B, neg_sharing,
-                use_pallas=use_pallas, neg_pool=P, banded=banded,
+                use_pallas=use_pallas, hot_rows=hot_rows,
+                dedup_block=dedup_block, neg_pool=P, banded=banded,
                 scatter_impl=scatter_impl, span_plans=plans,
                 span_rank1=span_rank1, context_pallas=context_pallas)
             loss = loss + step_loss

@@ -47,11 +47,19 @@ def _fill(u: torch.Tensor, v: torch.Tensor, init: str, seed: int) -> None:
         u[r0:r1] = lcg_uniform_torch(V * D + r0 * D, n, u.device).view(-1, D)
 
 
+def _device(device) -> torch.device:
+    """train.resolve_device: cuda unless the caller asks for another."""
+    from word2bits_tpu_torch.train import resolve_device
+    return resolve_device(device)
+
+
 def init_params(vocab_size: int, size: int, init: str = "reference",
                 seed: int = 1, dtype=torch.float32,
-                device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (u, v), each [vocab_size, size] in `dtype` on `device`.
-    The float32 draws round to `dtype` (round-to-nearest-even)."""
+                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (u, v), each [vocab_size, size] in `dtype` on `device`
+    (default cuda; pass device='cpu' for the CPU).  The float32 draws
+    round to `dtype` (round-to-nearest-even)."""
+    device = _device(device)
     u = torch.empty((vocab_size, size), dtype=dtype, device=device)
     v = torch.empty((vocab_size, size), dtype=dtype, device=device)
     _fill(u, v, init, seed)
@@ -60,8 +68,10 @@ def init_params(vocab_size: int, size: int, init: str = "reference",
 
 def init_fused_table(vocab_size: int, size: int, init: str = "reference",
                      seed: int = 1, dtype=torch.float32,
-                     device="cpu") -> torch.Tensor:
-    """The fused (V, 2D) table [u | v], equal to init_params' halves."""
+                     device=None) -> torch.Tensor:
+    """The fused (V, 2D) table [u | v], equal to init_params' halves, on
+    `device` (default cuda; pass device='cpu' for the CPU)."""
+    device = _device(device)
     table = torch.empty((vocab_size, 2 * size), dtype=dtype, device=device)
     _fill(table[:, :size], table[:, size:], init, seed)
     return table

@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
     python3 -m word2bits_tpu_torch.tools.profile_step
-        [--config shipped|flagship|quickstart|exact|pallas]
+        [--config shipped|flagship|rmw|quickstart|exact|pallas|hot]
         [--tokens N] [--steps S]
 
 `--config shipped` (the default) is the shipped throughput configuration
@@ -10,12 +10,17 @@ start's flags (the reference-default split-table engine: per-center
 negatives, B = 256, shifted sums, `add` scatter); `exact` the per-center
 mode at the JAX package's exact-mode throughput flags (B = 4096, banded
 256, span scatter, context kernel); `pallas` the shipped flags with
-`-scatter-impl add -use-pallas 1` (the score kernel).  These four run on a
-synthetic text8-like corpus (written inside the checkout, removed
-afterwards).  `--config flagship` is the full-Wikipedia capacity
-configuration of docs/large_vocab.md:19-25 (3,699,941 types, size 800,
-B = 16384, grmw scatter) on the in-memory synthetic vocabulary of that
-shape (data/synthetic.zipf_vocab_corpus).  Builds the port's kernels,
+`-scatter-impl add -use-pallas 1` (the score kernel); `hot` the shipped
+flags with `-scatter-impl add -hot-rows 2048 -hot-pallas 1` (the hot/cold
+split through kernel 6; each segment's cold map is built as train.train
+builds it).  These five run on a synthetic text8-like corpus (written
+inside the checkout, removed afterwards).  `--config flagship` is the
+full-Wikipedia capacity configuration of docs/large_vocab.md:19-25
+(3,699,941 types, size 800, B = 16384, grmw scatter) on the in-memory
+synthetic vocabulary of that shape (data/synthetic.zipf_vocab_corpus);
+`rmw` the same with `-rmw-scatter 1 -steps-per-chunk 1` in place of
+`-scatter-impl grmw -loop-mode fori -steps-per-chunk 32`
+(docs/large_vocab.md:34, kernel 8).  Builds the port's kernels,
 warms the engine's chunk up for one full chunk, then times `--steps` steps
 with the host clock and profiles the same number of steps with
 torch.profiler.  Prints the step time, the
@@ -55,6 +60,12 @@ FLAGSHIP = ["-size", "800", "-window", "8", "-negative", "24", "-iter", "5",
             "-batch-size", "16384", "-steps-per-chunk", "32",
             "-loop-mode", "fori", "-scatter-impl", "grmw",
             "-banded-tile", "256", "-context-pallas", "1"]
+# docs/large_vocab.md:34-35: the earlier capacity path, kernel 8
+RMW = [f for f in FLAGSHIP if f not in ("-loop-mode", "fori",
+                                        "-scatter-impl", "grmw")]
+RMW[RMW.index("-steps-per-chunk") + 1] = "1"
+RMW += ["-rmw-scatter", "1"]
+CAPACITY = {"flagship": FLAGSHIP, "rmw": RMW}
 FLAGSHIP_TYPES = 3_699_941
 QUICKSTART = ["-size", "200", "-window", "8", "-negative", "24",
               "-min-count", "5", "-bitlevel", "1"]
@@ -67,6 +78,8 @@ CONFIGS = {
                            "-context-pallas", "1"],
     "pallas": [("add" if f == "span" else f) for f in SHIPPED]
     + ["-use-pallas", "1"],
+    "hot": [("add" if f == "span" else f) for f in SHIPPED]
+    + ["-hot-rows", "2048", "-hot-pallas", "1"],
 }
 
 
@@ -76,9 +89,10 @@ def _prepare(config: str, tokens: int):
     from word2bits_tpu_torch.data.synthetic import (zipf_corpus,
                                                     zipf_vocab_corpus)
     from word2bits_tpu_torch.train import prepare
-    if config == "flagship":
+    if config in CAPACITY:
         vocab, encoded = zipf_vocab_corpus(FLAGSHIP_TYPES, seed=0)
-        return config_from_argv(FLAGSHIP + ["-debug", "0"]), vocab, encoded
+        return (config_from_argv(CAPACITY[config] + ["-debug", "0"]), vocab,
+                encoded)
     work = os.path.join(REPO, ".smoke_work", "profile")
     os.makedirs(work, exist_ok=True)
     try:
@@ -94,7 +108,7 @@ def _prepare(config: str, tokens: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", choices=tuple(CONFIGS) + ("flagship",),
+    ap.add_argument("--config", choices=tuple(CONFIGS) + tuple(CAPACITY),
                     default="shipped")
     ap.add_argument("--tokens", type=int, default=17_000_000,
                     help="corpus tokens of the synthetic text8-like corpus")
@@ -106,8 +120,8 @@ def main(argv=None) -> int:
     from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
     from word2bits_tpu_torch.kernels._build import build_all
     from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-    from word2bits_tpu_torch.train import (build_engine, init_tables,
-                                           segment_capacity)
+    from word2bits_tpu_torch.train import (build_engine, cold_map,
+                                           init_tables, segment_capacity)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -128,6 +142,10 @@ def main(argv=None) -> int:
                             capacity=capacity)
     tokens = torch.from_numpy(ea.tokens).to(dev, torch.int64)
     sents = torch.from_numpy(ea.sent_ids).to(dev, torch.int64)
+    cold = {}
+    if eng.cold_split:
+        cold["cold_pos"] = torch.from_numpy(
+            cold_map(cfg, ea.tokens, capacity)).to(dev, torch.int64)
     n_steps = math.ceil(ea.n_tokens / B)
     if n_steps < S + 2 * args.steps:
         raise SystemExit(f"corpus gives {n_steps} steps; need "
@@ -140,7 +158,7 @@ def main(argv=None) -> int:
                           wca_per_step=float(B),
                           denom=float(vocab.train_words) + 1.0)
         return eng.chunk_fn(*eng.tables, tokens, sents, eng.alias, sc, gen,
-                            n_steps=steps)
+                            n_steps=steps, **cold)
 
     print(f"--config {args.config}: V={vocab.size}, B={B}, {n_steps} steps in "
           f"the epoch; warm-up chunk of {S} steps")

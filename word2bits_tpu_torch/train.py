@@ -8,7 +8,11 @@ accounting for the LR schedule and words/sec.  Two engines, chosen as the
 JAX package's train.build_engine chooses them: the fused (V, 2D) table
 (`-fused-tables 1 -neg-sharing G`, models/cbow_fused.py) and the split
 (u, v) slab engine (every other CBOW configuration, the reference default
-among them: per-center negatives, models/cbow_slab.py).
+among them: per-center negatives, models/cbow_slab.py).  With `-hot-rows`
+on the fused engine each segment also gets its cold-position map
+(data/pipeline.cold_positions), unless the config resolves to the JAX
+package's device epoch (`device_epoch_on`: -neg-dense-hot under the auto
+-device-epoch), whose step has none.
 
 The tables are stored unpadded (the JAX package pads rows and columns only
 for its TPU DMA tiles), allocated once on the training device and filled
@@ -31,7 +35,8 @@ import torch
 
 from word2bits_tpu_torch.config import Word2BitsConfig
 from word2bits_tpu_torch.data.corpus import build_vocab, encode_corpus
-from word2bits_tpu_torch.data.pipeline import iter_epoch_segments
+from word2bits_tpu_torch.data.pipeline import (cold_positions,
+                                               iter_epoch_segments)
 from word2bits_tpu_torch.data.vocab import Vocab
 from word2bits_tpu_torch.io.packed import PackedWriter, pack_codes
 from word2bits_tpu_torch.io.vectors import VectorWriter
@@ -41,7 +46,9 @@ from word2bits_tpu_torch.models.cbow_fused import (deinterleave,
 from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
 from word2bits_tpu_torch.models.init import init_fused_table, init_params
 from word2bits_tpu_torch.ops.quantize import quantize
-from word2bits_tpu_torch.sampling.unigram import AliasTable, build_alias_table
+from word2bits_tpu_torch.sampling.unigram import (AliasTable,
+                                                  build_alias_table,
+                                                  build_stratified_tables)
 
 # rows per export block: about 16M float32 values of quantized output
 _EXPORT_VALUES = 1 << 24
@@ -105,13 +112,17 @@ def segment_capacity(cfg: Word2BitsConfig, n_tokens: int) -> Tuple[int, int]:
 
 @dataclass
 class Engine:
-    """The chunk callable and its state: the tables and the alias table,
-    all on the training device.  chunk_fn(*tables, tokens, sents, alias,
-    scalars, gen, n_steps=...) returns (*tables, loss)."""
+    """The chunk callable and its state: the tables and the alias table
+    (the (hot, cold) pair with -neg-stratify, the cold stratum's with
+    -neg-dense-hot), all on the training device.  chunk_fn(*tables, tokens,
+    sents, alias, scalars, gen, n_steps=...[, cold_pos=...]) returns
+    (*tables, loss); `cold_split` says that it takes each segment's
+    cold-position map (cold_map)."""
 
     chunk_fn: Callable
     tables: Tables
-    alias: AliasTable
+    alias: AliasTable | Tuple[AliasTable, AliasTable]
+    cold_split: bool = False
 
 
 def init_tables(cfg: Word2BitsConfig, vocab_size: int, device) -> Tables:
@@ -128,25 +139,55 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
                  hyper: CBOWHyper) -> Engine:
     """The JAX package's train.build_engine for CBOW on one device: the
     fused-table engine with -fused-tables 1 (shared negatives; the `add`,
-    `span` or `grmw` scatter; optional context and score kernels), else the
-    split-table slab engine (per-center or shared negatives; the `add` or
-    `span` scatter; optional context and score kernels)."""
-    B, S = cfg.batch_size, cfg.steps_per_chunk
+    `span`, `grmw` or RMW scatter, the block dedup, the hot/cold split;
+    optional context and score kernels), else the split-table slab engine
+    (per-center or shared negatives; the `add` or `span` scatter or the
+    block dedup; optional context and score kernels)."""
+    B, S, V = cfg.batch_size, cfg.steps_per_chunk, vocab.size
+    dev = tables[0].device
+    strat_lanes = dense_hot = None
+    if cfg.neg_stratify:
+        st = build_stratified_tables(vocab.unigram_weights(), cfg.hot_rows)
+        strat_lanes = st.lane_split(cfg.negative)
+        alias = (st.hot.to(dev), st.cold.to(dev))
+    elif cfg.neg_dense_hot:
+        if cfg.hot_rows >= V:
+            raise ValueError("-neg-dense-hot needs -hot-rows < vocab size")
+        st = build_stratified_tables(vocab.unigram_weights(), cfg.hot_rows)
+        dense_hot = st.dense_split(cfg.negative)
+        alias = st.cold.to(dev)
+    else:
+        alias = build_alias_table(vocab.unigram_weights()).to(dev)
     if cfg.fused_tables:
         chunk_fn = make_fused_train_chunk(
-            hyper, vocab.size, B, S, neg_sharing=cfg.neg_sharing,
+            hyper, V, B, S, neg_sharing=cfg.neg_sharing,
             neg_pool=cfg.neg_pool, banded=cfg.banded_tile,
             scatter_impl=cfg.scatter_impl,
             context_pallas=cfg.context_pallas, loop_mode=cfg.loop_mode,
-            span_chunk=cfg.span_chunk, use_pallas=cfg.use_pallas)
+            span_chunk=cfg.span_chunk, use_pallas=cfg.use_pallas,
+            dedup_block=cfg.dedup_block, hot_rows=cfg.hot_rows,
+            strat_lanes=strat_lanes, dense_hot=dense_hot,
+            hot_pallas=cfg.hot_pallas, rmw_scatter=cfg.rmw_scatter)
     else:
         chunk_fn = make_slab_train_chunk(
-            hyper, vocab.size, B, S, neg_sharing=cfg.neg_sharing,
-            use_pallas=cfg.use_pallas, neg_pool=cfg.neg_pool,
-            banded=cfg.banded_tile, scatter_impl=cfg.scatter_impl,
+            hyper, V, B, S, neg_sharing=cfg.neg_sharing,
+            use_pallas=cfg.use_pallas, dedup_block=cfg.dedup_block,
+            neg_pool=cfg.neg_pool, banded=cfg.banded_tile,
+            scatter_impl=cfg.scatter_impl,
             context_pallas=cfg.context_pallas)
-    alias = build_alias_table(vocab.unigram_weights()).to(tables[0].device)
-    return Engine(chunk_fn=chunk_fn, tables=tuple(tables), alias=alias)
+    return Engine(chunk_fn=chunk_fn, tables=tuple(tables), alias=alias,
+                  cold_split=bool(cfg.fused_tables and cfg.hot_rows
+                                  and not cfg.device_epoch_on))
+
+
+def cold_map(cfg: Word2BitsConfig, tokens: np.ndarray, capacity: int,
+             min_width: int = 0) -> np.ndarray:
+    """A segment's cold-position map for the hot/cold split (int32
+    [capacity // B + S + 2, C]), as the JAX package's segment loop builds
+    it; pass the previous segment's width as min_width."""
+    B, S = cfg.batch_size, cfg.steps_per_chunk
+    return cold_positions(tokens, B, cfg.window, capacity // B + S + 2,
+                          cfg.hot_rows, min_width=min_width)
 
 
 def _sync(dev: torch.device) -> None:
@@ -200,7 +241,8 @@ def train(cfg: Word2BitsConfig,
     B, S, W = cfg.batch_size, cfg.steps_per_chunk, cfg.window
     hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=D, window=W,
                       negative=cfg.negative, reg=cfg.reg)
-    seconds: Dict[str, float] = {"epoch_build": 0.0, "upload": 0.0}
+    seconds: Dict[str, float] = {"epoch_build": 0.0, "upload": 0.0,
+                                 "cold_map": 0.0}
     t0 = time.perf_counter()
     tables = init_tables(cfg, V, dev)
     _sync(dev)
@@ -223,6 +265,7 @@ def train(cfg: Word2BitsConfig,
     total_len = max(len(encoded), 1)
 
     epoch_losses: List[float] = []
+    cold_width = 0     # grows monotonically: a stable map width
     total_steps = 0
     words_done = 0.0
     t_train0 = time.perf_counter()
@@ -246,6 +289,13 @@ def train(cfg: Word2BitsConfig,
             sents = torch.from_numpy(ea.sent_ids).to(dev, torch.int64)
             _sync(dev)
             seconds["upload"] += time.perf_counter() - t0
+            cold = {}
+            if engine.cold_split:
+                t0 = time.perf_counter()
+                cp = cold_map(cfg, ea.tokens, capacity, cold_width)
+                cold_width = cp.shape[1]
+                cold["cold_pos"] = torch.from_numpy(cp).to(dev, torch.int64)
+                seconds["cold_map"] += time.perf_counter() - t0
             n_centers = max(ea.n_tokens, 1)
             # this segment accounts for its share of the epoch's words
             seg_words = train_words * ea.source_len / total_len
@@ -262,7 +312,7 @@ def train(cfg: Word2BitsConfig,
                 start = clock.start()
                 *tables, loss = chunk_fn(*tables, tokens, sents,
                                          engine.alias, scalars, gen,
-                                         n_steps=max(chunk_steps, 1))
+                                         n_steps=max(chunk_steps, 1), **cold)
                 clock.stop(start, max(chunk_steps, 1),
                            chunk_steps * wca_per_step)
                 words_done += chunk_steps * wca_per_step
@@ -300,7 +350,8 @@ def train(cfg: Word2BitsConfig,
     wall = time.perf_counter() - t_train0
     wps = words_done / max(wall, 1e-9)
     _log(cfg, f"Epoch arrays: {seconds['epoch_build']:.2f} s, upload "
-              f"{seconds['upload']:.2f} s")
+              f"{seconds['upload']:.2f} s, cold maps "
+              f"{seconds['cold_map']:.2f} s")
     _log(cfg, f"Trained {total_steps} steps in {wall:.6f} s: "
               f"{wps:.1f} words/sec, "
               f"{wall / max(total_steps, 1) * 1e6:.1f} us/step")
