@@ -6,13 +6,13 @@ from the root of a checkout.  It builds the port's CUDA kernels from
 word2bits_tpu_torch/csrc/ (one nvcc per source, all at once), holds each
 against its plain PyTorch version at the shapes of the paths that run it
 ([context], [span], [score], [rank1] with kernel 2 on its float32 table,
-[hotk], [grmw], [rmwk], [context@800], [context@exact] on float32 rows),
-checks the steps
-and chunks of both engines on the card against the same code on the
-CPU ([step]), with kernels 6 and 8 ([hotk], [rmwk]) held against theirs
-too, and then drives the port's training paths through their
-entry points, each with the kernels' launch counts set to 0 just before
-and read just after:
+[hotk], [grmw], [rmwk], [context@800], [context@exact] on float32 rows,
+[quantk] kernel 4 at the capacity export's block, on a bf16 table and on
+the whole 3.7M x 800 sum, [sweepk] kernel 9 at kernel 2's shape), checks
+the steps and chunks of both engines on the card against the same code on
+the CPU ([step], the fused chunk's "sweep" scatter among them), and then
+drives the port's paths through their entry points, each with the
+kernels' launch counts set to 0 just before and read just after:
 
   [train]       the shipped throughput configuration (the JAX package's
                 bench.py CFG plus ctx_span_banded256_S256: size 200, span
@@ -21,8 +21,13 @@ and read just after:
   [flagship]    the full-Wikipedia capacity configuration of
                 docs/large_vocab.md:19-25 (V = 3,699,941, size 800,
                 B = 16384, grmw scatter, -loop-mode fori, -packed 1)
-                through `train.train`, 64 steps, then its `.pack` export
-                read back;
+                through `train.train`, 64 steps with -checkpoint-dir,
+                then its `.pack` export (kernel 4 once per 20,971-row
+                block, 177 times) and its checkpoint read back, and the
+                export timed again with the plain quantize;
+  [resume]      that checkpoint resumed with -resume 1 for 32 steps of
+                epoch 1 (no -output), peak device memory against the
+                table;
   [accuracy]    `cli accuracy` on that `.pack` and on [train]'s vector
                 file, each transcript checked against the CPU evaluator;
   [quickstart]  the README Quick start's flags (the reference-default
@@ -44,7 +49,19 @@ and read just after:
                 as in the JAX package: no cold map there);
   [rmw]         the capacity configuration with `-rmw-scatter 1
                 -steps-per-chunk 1` (docs/large_vocab.md:34), 16 steps,
-                kernel 8 twice a step, peak device memory against the table.
+                kernel 8 twice a step, peak device memory against the table;
+  [sweep]       one 256-step fused chunk at the shipped flags with
+                scatter_impl="sweep" (kernel 9; the config rejects the
+                flag, as the JAX package's does), against the same chunk
+                with "span";
+  [convert]     `cli convert` of a seeded 70,000 x 200 float32 file at
+                three flag sets, card against W2B_FORCE_CPU=1, the files
+                byte-identical; [nearest] `cli nearest` of 20 words at
+                bitlevels 1 and 0, the transcripts equal apart from ties.
+
+Peak disk is about 24 GB, in [flagship]: the 11.84 GB checkpoint, the
+11.9 GB vector file and the 0.4 GB `.pack` (all in .smoke_work/, removed
+at the end).
 
 Any failed check raises, so the exit code is nonzero; without a CUDA card
 (or outside a checkout) it exits nonzero before printing any result.
@@ -149,6 +166,18 @@ FLAG_N = FLAG_B + 2 * W + (FLAG_B // 64) * 24
 FLAG_ZIPF_C = 700_000
 ACC_THRESHOLD = 1_000_000        # rows of the .pack the evaluator reads
 ACC_QUESTIONS = 1200
+
+# kernel 4 at the export's block: 2^24 // 800 = 20,971 rows of the float32
+# u + v sum, 177 blocks over the capacity table; and a bf16 table
+EXPORT_ROWS = (1 << 24) // FLAG_D
+EXPORT_BLOCKS = -(-FLAG_V // EXPORT_ROWS)
+# [convert]/[nearest]: a seeded 70,000 x 200 float32 binary vector file
+CONVERT_V, CONVERT_D = 70_000, 200
+CONVERT_CASES = (["-bitlevel", "1", "-packed", "1"],
+                 ["-bitlevel", "4", "-binary", "1"],
+                 ["-bitlevel", "2"])
+NEAREST_QUERIES = 20
+RESUME_STEPS = 32                # [resume]: one 32-step chunk of epoch 1
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 SEED = 0
@@ -822,13 +851,172 @@ def check_rmw(dev) -> dict:
                        "rows (one step's two calls)")
 
 
+# ---------------------------------------------------------------- kernel 4
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a float32 or bfloat16 tensor (-0.0 is not +0.0)."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def check_quantize(dev) -> dict:
+    """quantize_pallas against quantize_pallas_plain on the card, bit for
+    bit (max abs err 0, -0.0 told from +0.0): one export block of the
+    capacity configuration (20,971 x 800 float32, the u + v sum the export
+    quantizes) at bitlevels 0, 1, 2, 4, 8; a 70,000 x 400 bfloat16 table
+    at bitlevels 1, 4, 8, 9 (every intermediate rounded to bfloat16); and
+    once the whole 3,699,941 x 800 float32 sum (23.7 GB of traffic),
+    compared block by block.  Timed: the export block, the bf16 table, the
+    whole sum, and the export's 177 blocks one after another through the
+    kernel and through the plain version."""
+    from word2bits_tpu_torch.kernels.quantize_pallas import (
+        quantize_pallas, quantize_pallas_plain)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    special = torch.tensor([0.0, -0.0, 0.5, -0.5, 0.25, -0.75, 1.0, -1.5,
+                            1 / 16, -1 / 16, 200.5, -127.5], device=dev)
+
+    def case(x, bl, tag) -> None:
+        got = quantize_pallas(x, bl)
+        want = quantize_pallas_plain(x, bl)
+        torch.cuda.synchronize()
+        if got.dtype != x.dtype or not torch.equal(_bits(got), _bits(want)):
+            _fail(f"quantize kernel ({tag}, bitlevel {bl}): max abs err "
+                  f"{_max_err(got, want):.3e}, {int((_bits(got) != _bits(want)).sum())} "
+                  "values differ from the plain version")
+        print(f"[quantk] {tag} bitlevel {bl}: bit-equal to the plain version "
+              f"({x.numel()} values)")
+
+    blk = torch.rand((EXPORT_ROWS, FLAG_D), generator=gen, device=dev) * 4 - 2
+    blk.view(-1)[:special.numel()] = special
+    for bl in (0, 1, 2, 4, 8):
+        case(blk, bl, f"[{EXPORT_ROWS}, {FLAG_D}] f32")
+    b16 = (torch.rand((SCATTER_V, 2 * D), generator=gen, device=dev) * 4
+           - 2).to(torch.bfloat16)
+    b16.view(-1)[:special.numel()] = special.to(torch.bfloat16)
+    for bl in (1, 4, 8, 9):
+        case(b16, bl, f"[{SCATTER_V}, {2 * D}] bf16")
+    ms = _time_ms(lambda: quantize_pallas(blk, 1))
+    plain_ms = _time_ms(lambda: quantize_pallas_plain(blk, 1))
+    bound_ms = 2 * blk.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    ms16 = _time_ms(lambda: quantize_pallas(b16, 9))
+    plain16 = _time_ms(lambda: quantize_pallas_plain(b16, 9))
+    bound16 = 2 * b16.numel() * 2 / HBM_BYTES_PER_S * 1e3
+
+    # the whole capacity sum: 11.84 GB in, 11.84 GB out
+    whole = torch.empty((FLAG_V, FLAG_D), device=dev)
+    whole.uniform_(-2.0, 2.0, generator=gen)
+    out = quantize_pallas(whole, 1)
+    torch.cuda.synchronize()
+    for r0 in range(0, FLAG_V, EXPORT_ROWS):
+        part = whole[r0:r0 + EXPORT_ROWS]
+        if not torch.equal(_bits(out[r0:r0 + EXPORT_ROWS]),
+                           _bits(quantize_pallas_plain(part, 1))):
+            _fail(f"quantize kernel on the whole sum: rows {r0}.. differ "
+                  "from the plain version")
+    del out
+    whole_ms = _time_ms(lambda: quantize_pallas(whole, 1), reps=3,
+                        warmup=1)
+    whole_bound = 2 * whole.numel() * 4 / HBM_BYTES_PER_S * 1e3
+
+    def blocks(fn):
+        for r0 in range(0, FLAG_V, EXPORT_ROWS):
+            fn(whole[r0:r0 + EXPORT_ROWS], 1)
+    blocks_ms = _time_ms(lambda: blocks(quantize_pallas), reps=2, warmup=1)
+    blocks_plain = _time_ms(lambda: blocks(quantize_pallas_plain), reps=2,
+                            warmup=1)
+    del whole
+    torch.cuda.empty_cache()
+    print(f"[quantk] export block: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms; bf16 [{SCATTER_V}, {2 * D}] at "
+          f"bitlevel 9: kernel {ms16:.4f} ms, plain {plain16:.4f} ms, bound "
+          f"{bound16:.4f} ms; the whole [{FLAG_V}, {FLAG_D}] sum: kernel "
+          f"{whole_ms:.3f} ms, bound {whole_bound:.3f} ms (bit-equal to the "
+          f"plain version); the export's {EXPORT_BLOCKS} blocks in turn: "
+          f"kernel {blocks_ms:.2f} ms, plain {blocks_plain:.2f} ms")
+    return dict(name="quantize_pallas", route="cuda",
+                source="word2bits_tpu_torch/csrc/quantize.cu",
+                replaces="word2bits_tpu/kernels/quantize_pallas.py:57",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None,
+                bf16=dict(ms=ms16, plain_ms=plain16, bound_ms=bound16,
+                          shapes=f"[{SCATTER_V}, {2 * D}] bf16, bitlevel 9"),
+                whole_ms=whole_ms, whole_bound_ms=whole_bound,
+                export_blocks_ms=blocks_ms,
+                export_blocks_plain_ms=blocks_plain,
+                shapes=f"[{EXPORT_ROWS}, {FLAG_D}] f32 (one export block), "
+                       "bitlevel 1")
+
+
+# ---------------------------------------------------------------- kernel 9
+def check_sweep(dev) -> dict:
+    """The sweep scatter against scatter_add_sweep_plain on the card at
+    kernel 2's shape ([span]: the same 14,352 float32 rows, Zipf ids with
+    drop sentinels, into the same bf16 [70,000, 400] table), window 512,
+    chunk 128.  Both sum each (block, id) run in float32 in slot order and
+    add it with one rounding, the blocks in order: bit-equal.  index_add_
+    of the same rows (in range, bf16) is the library yardstick."""
+    from word2bits_tpu_torch.kernels.sweep_scatter import (
+        scatter_add_sweep_plain, scatter_add_sweep_planned, sweep_plan)
+    rng = np.random.default_rng(SEED)
+    V, C, N = SCATTER_V, 2 * D, SCATTER_N
+    ids = torch.from_numpy(_step_ids(rng, V, B + 2 * W, N - B - 2 * W,
+                                     64)).to(dev)
+    rows = (torch.randn((N, C), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev) * 0.01)
+    table0 = (torch.rand((V, C), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 1), device=dev) - 0.5).to(
+        torch.bfloat16)
+    plan = sweep_plan(ids, V)
+    got = scatter_add_sweep_planned(table0.clone(), plan, rows)
+    want = scatter_add_sweep_plain(table0.clone(), ids, rows)
+    torch.cuda.synchronize()
+    err = _max_err(got, want)
+    if not torch.equal(_bits(got), _bits(want)):
+        _fail(f"sweep scatter: max abs err {err:.3e}, not bit-equal to the "
+              "plain version")
+    if torch.equal(got, table0):
+        _fail("sweep scatter changed nothing")
+    n_unique = int(torch.unique(ids[ids < V]).numel())
+    wc = plan.win_chunk.long()
+    per_win = wc[1:] - wc[:-1]
+    print(f"[sweepk] bit-equal to the plain version; {N} rows, {n_unique} "
+          f"distinct ids, {int((per_win > 0).sum())} windows touched, "
+          f"{int(wc[-1])} blocks of 128 slots, the busiest window "
+          f"{int(per_win.max())} blocks")
+    scratch = table0.clone()
+    ms = _time_ms(lambda: scatter_add_sweep_planned(scratch, plan, rows))
+    plan_ms = _time_ms(lambda: sweep_plan(ids, V))
+    plain_ms = _time_ms(lambda: scatter_add_sweep_plain(scratch, ids, rows),
+                        reps=5, warmup=1)
+    keep = ids < V
+    ids_in, rows_in = ids[keep], rows[keep].to(torch.bfloat16)
+    library_ms = _time_ms(lambda: scratch.index_add_(0, ids_in, rows_in))
+    # bytes: rows and the plan the kernel reads (slot rows, offsets, window
+    # starts) read once; each touched table row read and written once
+    nbytes = (rows.numel() * 4
+              + sum(t.numel() * 4 for t in (plan.order, plan.offs,
+                                            plan.win_chunk))
+              + 2 * n_unique * C * 2)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[sweepk] kernel {ms:.4f} ms (its plan, built per step, "
+          f"{plan_ms:.4f} ms), plain {plain_ms:.4f} ms, index_add_ "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes)")
+    return dict(name="scatter_add_sweep", route="cuda",
+                source="word2bits_tpu_torch/csrc/sweep_scatter.cu",
+                replaces="word2bits_tpu/kernels/sweep_scatter.py:111",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+                plan_ms=plan_ms,
+                shapes=f"table [{V}, {C}] bf16, {N} f32 rows, window 512, "
+                       "chunk 128")
+
+
 # ------------------------------------------------------- step and chunk
 def check_step_and_chunk(dev) -> None:
     """One step and a 3-step chunk of each engine on the card (kernels)
     against the same calls on the CPU (plain versions), at a small shape
     with injected draws, float32 tables: atol 1e-4 + rtol 1e-4, loss rtol
-    1e-5.  Configurations: the fused table with the span scatter and with
-    grmw under -loop-mode fori (context kernel); the split tables at the
+    1e-5.  Configurations: the fused table with the span scatter, with the
+    sweep scatter (kernel 9) and with grmw under -loop-mode fori (context
+    kernel); the split tables at the
     Quick start (per-center, shifted sums, add) and in the exact mode with
     materialized and with rank-1 negative rows (span, banded, context
     kernel); the score kernel on split and on fused tables; the hot/cold
@@ -866,6 +1054,8 @@ def check_step_and_chunk(dev) -> None:
     configs = (
         ("span (scan)", True, g, "plain", False,
          dict(fused_kw, scatter_impl="span")),
+        ("sweep (scan)", True, g, "plain", False,
+         dict(fused_kw, scatter_impl="sweep")),
         ("grmw (fori)", True, g, "plain", False,
          dict(fused_kw, scatter_impl="grmw", loop_mode="fori")),
         ("quickstart", False, 0, "plain", False, dict(banded=0)),
@@ -1027,10 +1217,41 @@ def train_main_path(work: str):
 
 
 # ------------------------------------------- [flagship]: capacity path
+def _check_checkpoint(path: str, table: torch.Tensor) -> None:
+    """Read state.npz's `u` and `v` members back in row blocks with numpy
+    alone (uint16 bits of the bf16 halves, as the JAX _ckpt_encode stores
+    them) and hold each block against the live fused table, bit for bit."""
+    import zipfile
+    D2 = table.shape[1] // 2
+    step = 1 << 18
+    with zipfile.ZipFile(path) as zf:
+        for name, half in (("u", table[:, :D2]), ("v", table[:, D2:])):
+            with zf.open(name + "_dtype.npy") as f:
+                if str(np.lib.format.read_array(f)) != "bfloat16":
+                    _fail(f"checkpoint {name} is not tagged bfloat16")
+            with zf.open(name + ".npy") as f:
+                np.lib.format.read_magic(f)
+                shape, fortran, dt = np.lib.format.read_array_header_1_0(f)
+                if (tuple(shape) != tuple(half.shape) or fortran
+                        or dt != np.uint16):
+                    _fail(f"checkpoint {name} is {shape} {dt}, not "
+                          f"{tuple(half.shape)} uint16")
+                for r0 in range(0, shape[0], step):
+                    n = min(step, shape[0] - r0)
+                    disk = np.frombuffer(f.read(n * D2 * 2), np.uint16)
+                    live = half[r0:r0 + n].contiguous().view(
+                        torch.int16).cpu().numpy().view(np.uint16)
+                    if not np.array_equal(disk, live.reshape(-1)):
+                        _fail(f"checkpoint {name} rows {r0}.. differ from "
+                              "the trained table")
+
+
 def train_flagship(work: str, dev) -> tuple:
     """The capacity configuration through train.train for FLAG_STEPS
-    steps, its vectors and .pack written in row blocks; returns the
-    launch counts, the .pack path and the (vocab, encoded) corpus."""
+    steps with -checkpoint-dir, its vectors and .pack written in row
+    blocks (kernel 4 once per block, EXPORT_BLOCKS times), its checkpoint
+    read back against the live table; returns the launch counts, the .pack
+    path, the (vocab, encoded) corpus and the checkpoint directory."""
     from word2bits_tpu_torch import train as T
     from word2bits_tpu_torch.config import config_from_argv
     from word2bits_tpu_torch.data.synthetic import zipf_vocab_corpus
@@ -1040,9 +1261,11 @@ def train_flagship(work: str, dev) -> tuple:
     # the runbook's flags; the output goes to the work directory, in the
     # binary format (its text format would format 2.96G values)
     out = os.path.join(work, "flagship.bin")
+    ckdir = os.path.join(work, "ckpt")
     flags = list(FLAGSHIP_FLAGS)
     flags[flags.index("-output") + 1] = out
-    cfg = config_from_argv(flags + ["-binary", "1", "-debug", "1"])
+    cfg = config_from_argv(flags + ["-binary", "1", "-debug", "1",
+                                    "-checkpoint-dir", ckdir])
     table_bytes = FLAG_V * 2 * FLAG_D * 2
     rss0 = _proc_status("VmRSS")
     with _RssPeak() as rss:
@@ -1067,6 +1290,9 @@ def train_flagship(work: str, dev) -> tuple:
         if launches[name] != res.steps:
             _fail(f"flagship: {name} launched {launches[name]} times in "
                   f"{res.steps} steps (once per step expected)")
+    if launches["quantize_pallas"] != EXPORT_BLOCKS:
+        _fail(f"flagship: the export launched kernel 4 "
+              f"{launches['quantize_pallas']} times, not {EXPORT_BLOCKS}")
     if not all(math.isfinite(x) for x in res.epoch_losses):
         _fail(f"flagship epoch loss not finite: {res.epoch_losses}")
     if peak > 1.25 * table_bytes:
@@ -1111,10 +1337,97 @@ def train_flagship(work: str, dev) -> tuple:
     if n_rows != FLAG_V:
         _fail(f"flagship .pack holds {n_rows} rows, not {FLAG_V}")
     print(f"[flagship] vectors file {got} bytes; .pack {os.path.getsize(pack)}"
-          f" bytes, export {res.seconds['export']:.1f} s; read back as "
+          f" bytes, export {res.seconds['export']:.1f} s ({EXPORT_BLOCKS} "
+          f"blocks through kernel 4); read back as "
           f"{n_rows} x {FLAG_D} of +-1/3 equal to the trained table in "
           f"{time.perf_counter() - t0:.1f} s")
-    return launches, pack, (vocab, encoded)
+    # the same export with the plain quantize in kernel 4's place: the
+    # export's seconds without the kernel, in this run
+    from word2bits_tpu_torch.kernels.quantize_pallas import \
+        quantize_pallas_plain
+    fused = T.quantize_pallas
+    T.quantize_pallas = lambda x, bl: quantize_pallas_plain(x, bl)
+    t0 = time.perf_counter()
+    try:
+        T.write_output(out, vocab, res.tables, cfg)
+    finally:
+        T.quantize_pallas = fused
+    plain_export = time.perf_counter() - t0
+    if os.path.getsize(out) != want:
+        _fail("flagship export with the plain quantize: wrong file size")
+    os.remove(out)
+    print(f"[flagship] the same export with the plain quantize in kernel "
+          f"4's place: {plain_export:.1f} s (through kernel 4: "
+          f"{res.seconds['export']:.1f} s)")
+    ckpt = os.path.join(ckdir, "state.npz")
+    t0 = time.perf_counter()
+    _check_checkpoint(ckpt, res.tables[0])
+    print(f"[flagship] checkpoint {os.path.getsize(ckpt)} bytes saved in "
+          f"{res.seconds['checkpoint']:.1f} s; read back in row blocks "
+          f"bit-equal to the trained table in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches, pack, (vocab, encoded), ckdir
+
+
+# ---------------------------------------- [resume]: checkpoint at capacity
+def run_resume(dev, vocab, encoded, ckdir: str) -> dict:
+    """[flagship]'s checkpoint (epoch 0, cut by max_steps) resumed with
+    -resume 1 through train.train for RESUME_STEPS steps of epoch 1, no
+    -output: the tables are allocated once and filled in row blocks (no
+    initialization first), the generator state and words_done restored;
+    peak device memory <= 1.25 x the table, the host's RSS beside it.  The
+    run saves its own checkpoint at its end, as the JAX package's does."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.config import config_from_argv
+    flags = FLAGSHIP_FLAGS[2:] + ["-debug", "1", "-checkpoint-dir", ckdir,
+                                  "-resume", "1"]
+    cfg = config_from_argv(flags)
+    state = os.path.join(ckdir, "state.npz")
+    with np.load(state) as z:
+        saved_words = float(z["words_done"])
+        saved_epoch = int(z["epoch"])
+    table_bytes = FLAG_V * 2 * FLAG_D * 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = _proc_status("VmRSS")
+    _zero_launches()
+    with _RssPeak() as rss:
+        res = T.train(cfg, vocab=vocab, encoded=encoded,
+                      max_steps=RESUME_STEPS, device=dev)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if saved_epoch != 0 or res.start_epoch != 1 or "load" not in res.seconds:
+        _fail(f"resume: checkpoint of epoch {saved_epoch}, run started at "
+              f"epoch {res.start_epoch}, seconds {res.seconds}")
+    if res.steps != RESUME_STEPS or len(res.epoch_losses) != 1:
+        _fail(f"resume trained {res.steps} steps over "
+              f"{len(res.epoch_losses)} epochs")
+    if not (saved_words < res.words_done
+            < saved_words + vocab.train_words):
+        _fail(f"resume: words_done {res.words_done} does not continue the "
+              f"checkpoint's {saved_words}")
+    if not all(math.isfinite(x) for x in res.epoch_losses):
+        _fail(f"resume epoch loss not finite: {res.epoch_losses}")
+    for name in ("fused_context_pallas", "scatter_add_grmw"):
+        if launches[name] != res.steps:
+            _fail(f"resume: {name} launched {launches[name]} times in "
+                  f"{res.steps} steps")
+    if peak > 1.25 * table_bytes:
+        _fail(f"resume peak device memory {peak} > 1.25 x the table's "
+              f"{table_bytes} bytes")
+    us, wps = _steady(res)
+    print(f"[resume] from epoch {saved_epoch} ({saved_words:.0f} words) to "
+          f"epoch {res.start_epoch}: {res.steps} steps, loss "
+          f"{res.epoch_losses[-1]:.4f}, {us:.1f} us/step, words_done "
+          f"{res.words_done:.0f}; load {res.seconds['load']:.1f} s, its own "
+          f"checkpoint saved in {res.seconds['checkpoint']:.1f} s; peak "
+          f"device memory {peak} bytes = {peak / table_bytes:.4f} x the "
+          f"table; peak host RSS {rss.peak} bytes = "
+          f"{rss.peak / table_bytes:.4f} x the table ({rss0} bytes at the "
+          f"start); launches {launches}")
+    del res
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------- [rmw]: the earlier capacity path
@@ -1164,18 +1477,23 @@ def _launch_counters():
     from word2bits_tpu_torch.kernels.group_rmw import \
         scatter_add_grmw_planned
     from word2bits_tpu_torch.kernels.hot_pallas import hot_slice_add_pallas
+    from word2bits_tpu_torch.kernels.quantize_pallas import quantize_pallas
     from word2bits_tpu_torch.kernels.scatter_pallas import scatter_add_rmw
     from word2bits_tpu_torch.kernels.score_pallas import \
         quantized_scores_pallas
     from word2bits_tpu_torch.kernels.span_scatter import (
         scatter_add_span_planned, scatter_add_span_rank1)
+    from word2bits_tpu_torch.kernels.sweep_scatter import \
+        scatter_add_sweep_planned
     return {"fused_context_pallas": fused_context_pallas,
             "scatter_add_span": scatter_add_span_planned,
             "scatter_add_span_rank1": scatter_add_span_rank1,
             "quantized_scores_pallas": quantized_scores_pallas,
             "hot_slice_add_pallas": hot_slice_add_pallas,
             "scatter_add_grmw": scatter_add_grmw_planned,
-            "scatter_add_rmw": scatter_add_rmw}
+            "scatter_add_rmw": scatter_add_rmw,
+            "quantize_pallas": quantize_pallas,
+            "scatter_add_sweep": scatter_add_sweep_planned}
 
 
 def _zero_launches() -> None:
@@ -1394,6 +1712,201 @@ def run_hot(work: str, dev, vocab, encoded) -> dict:
     return by_path
 
 
+# ----------------------------- [sweep]: the fused chunk's sweep scatter
+def run_sweep(dev, vocab, encoded) -> dict:
+    """One S-step chunk of make_fused_train_chunk at the shipped flags
+    (B = 8192, D = 200, bf16 fused table, banded 256, context kernel) with
+    scatter_impl="sweep" (kernel 9 once per step, its plan built per step
+    as in the JAX step) and the same chunk with "span" (kernel 2), from
+    one state and one set of injected draws, in turns (sweep, span,
+    sweep, span; the second pair timed).  The two round in other places
+    (per (block, id) against per id), so their tables are compared only
+    by their distance, and their losses to 1e-3."""
+    from word2bits_tpu_torch.config import config_from_argv
+    from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
+    from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
+    from word2bits_tpu_torch.models.cbow_fused import make_fused_train_chunk
+    from word2bits_tpu_torch.models.init import init_fused_table
+    from word2bits_tpu_torch.sampling.unigram import (build_alias_table,
+                                                      draw_negatives)
+    from word2bits_tpu_torch.train import segment_capacity
+    cfg = config_from_argv(TRAIN_FLAGS)
+    hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=D, window=W, negative=K)
+    ea = build_epoch_arrays(encoded, vocab.counts, cfg.sample,
+                            vocab.train_words, W,
+                            np.random.default_rng(SEED),
+                            capacity=segment_capacity(cfg, len(encoded))[1])
+    tokens = torch.from_numpy(ea.tokens).to(dev, torch.int64)
+    sents = torch.from_numpy(ea.sent_ids).to(dev, torch.int64)
+    atab = build_alias_table(vocab.unigram_weights()).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shrinks = torch.randint(0, W, (S, B), generator=gen, device=dev)
+    negs = draw_negatives(gen, atab, (S, B // G, P * K), vocab.size)
+    t0 = init_fused_table(vocab.size, D, dtype=torch.bfloat16, device=dev)
+    sc = ChunkScalars(base0=W, alpha0=cfg.effective_alpha, wca_start=0.0,
+                      wca_per_step=float(B),
+                      denom=cfg.iter * float(vocab.train_words) + 1.0)
+    out, times, launches = {}, {}, {}
+    for impl in ("sweep", "span", "sweep", "span"):
+        chunk = make_fused_train_chunk(
+            hyper, vocab.size, B, S, neg_sharing=G, neg_pool=P,
+            banded=TILE, scatter_impl=impl, context_pallas=True)
+        table = t0.clone()
+        torch.cuda.synchronize()
+        _zero_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        table, loss = chunk(table, tokens, sents, atab, sc, shrinks=shrinks,
+                            negs=negs)
+        stop.record()
+        torch.cuda.synchronize()
+        times[impl] = start.elapsed_time(stop) * 1e3 / S
+        out[impl] = (table, float(loss))
+        if impl == "sweep":
+            launches = _read_launches()
+    (ts, ls), (tp, lp) = out["sweep"], out["span"]
+    if launches["scatter_add_sweep"] != S or \
+            launches["fused_context_pallas"] != S:
+        _fail(f"sweep chunk: launches {launches} in {S} steps (kernel 9 "
+              "and kernel 1 once per step expected)")
+    if not (math.isfinite(ls) and abs(ls - lp) <= 1e-3 * abs(lp)):
+        _fail(f"sweep chunk loss {ls} vs span {lp}")
+    if torch.equal(ts, t0):
+        _fail("the sweep chunk changed nothing")
+    print(f"[sweep] {S} steps of B={B}, V={vocab.size}: sweep "
+          f"{times['sweep']:.1f} us/step, span {times['span']:.1f} us/step "
+          f"(second of two turns each); tables apart by "
+          f"{_max_err(ts, tp):.3e} (bf16, other rounding points, over "
+          f"{S} steps; the largest |value| {float(ts.float().abs().max()):.3e}"
+          f"), losses "
+          f"{ls:.6f}/{lp:.6f}; launches {launches}")
+    return launches
+
+
+# ------------------------------------- [convert], [nearest]: cli on card
+def _neighbours(transcript: str) -> list:
+    """[(query line, [(word, similarity)])] of a `cli nearest` transcript."""
+    out = []
+    for line in transcript.splitlines():
+        if line.startswith("  "):
+            w, sim = line.split()
+            out[-1][1].append((w, float(sim)))
+        else:
+            out.append((line, []))
+    return out
+
+
+def _same_neighbours(card: str, cpu: str, tie: float = 1e-6) -> int:
+    """Fails unless the two transcripts agree apart from the order of
+    neighbours whose similarities tie within `tie` (and the sixth decimal
+    of a similarity); returns how many positions differ in their word."""
+    a, b = _neighbours(card), _neighbours(cpu)
+    if [q for q, _ in a] != [q for q, _ in b]:
+        _fail("nearest: the card and the CPU answered other queries")
+    moved = 0
+    for (q, an), (_, bn) in zip(a, b):
+        if len(an) != len(bn):
+            _fail(f"nearest {q}: {len(an)} neighbours on the card, "
+                  f"{len(bn)} on the CPU")
+        for i, ((aw, asim), (bw, bsim)) in enumerate(zip(an, bn)):
+            if abs(asim - bsim) > 1.5e-6:
+                _fail(f"nearest {q} #{i}: {asim} on the card, {bsim} on "
+                      "the CPU")
+            if aw != bw:
+                tied = [w for w, sim in bn if abs(sim - asim) <= tie + 1.5e-6]
+                if aw not in tied and i < len(bn) - len(tied):
+                    _fail(f"nearest {q} #{i}: {aw} on the card, {bw} on the "
+                          "CPU, not a tie")
+                moved += 1
+    return moved
+
+
+def _cli(fn, argv, cpu: bool) -> tuple:
+    """(return code, stdout, seconds) of a cli entry point, on the card or
+    with W2B_FORCE_CPU=1."""
+    if cpu:
+        os.environ["W2B_FORCE_CPU"] = "1"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+    finally:
+        os.environ.pop("W2B_FORCE_CPU", None)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def run_convert_nearest(work: str) -> tuple:
+    """`cli convert` and `cli nearest` on a seeded 70,000 x 200 float32
+    binary vector file, each on the card and under W2B_FORCE_CPU=1:
+    convert with -bitlevel 1 -packed 1, -bitlevel 4 -binary 1 and
+    -bitlevel 2 (text), the outputs byte-identical, kernel 4 once per call
+    (one block); nearest of 20 words at -bitlevel 1 (kernel 4 once) and 0,
+    the transcripts equal apart from ties.  Returns the launch counts of
+    the card's convert and nearest calls."""
+    import filecmp
+    from word2bits_tpu_torch import cli
+    from word2bits_tpu_torch.io.vectors import write_vectors
+    rng = np.random.default_rng(SEED + 11)
+    src = os.path.join(work, "convert_in.bin")
+    words = [f"w{i}" for i in range(CONVERT_V)]
+    write_vectors(src, words, rng.standard_normal(
+        (CONVERT_V, CONVERT_D), dtype=np.float32) * 0.5, binary=True)
+    per_call = -(-CONVERT_V // ((1 << 24) // CONVERT_D))
+    by_path = {}
+    totals = {n: 0 for n in _launch_counters()}
+    for flags in CONVERT_CASES:
+        dst = {w: os.path.join(work, f"convert_{w}") for w in ("card", "cpu")}
+        _zero_launches()
+        rc, log, sec = _cli(cli.convert_main, [src, dst["card"], *flags],
+                            cpu=False)
+        launches = _read_launches()
+        rc_cpu, log_cpu, sec_cpu = _cli(cli.convert_main,
+                                        [src, dst["cpu"], *flags], cpu=True)
+        if rc != 0 or rc_cpu != 0:
+            _fail(f"convert {' '.join(flags)} returned {rc} on the card, "
+                  f"{rc_cpu} on the CPU")
+        if launches["quantize_pallas"] != per_call:
+            _fail(f"convert {' '.join(flags)}: kernel 4 launched "
+                  f"{launches['quantize_pallas']} times, not {per_call}")
+        if not filecmp.cmp(dst["card"], dst["cpu"], shallow=False):
+            _fail(f"convert {' '.join(flags)}: the card's file differs from "
+                  "the CPU's")
+        print(f"[convert] {' '.join(flags)}: {os.path.getsize(dst['card'])} "
+              f"bytes, byte-identical to the CPU's; card {sec:.2f} s, CPU "
+              f"{sec_cpu:.2f} s; launches {launches['quantize_pallas']} of "
+              "kernel 4")
+        for n in totals:
+            totals[n] += launches[n]
+        for path in dst.values():
+            os.remove(path)
+    by_path["convert"] = totals
+    queries = [words[i] for i in rng.integers(0, CONVERT_V, NEAREST_QUERIES)]
+    totals = {n: 0 for n in _launch_counters()}
+    for bl in ("1", "0"):
+        argv = [src, *queries, "-bitlevel", bl, "-topk", "10"]
+        _zero_launches()
+        rc, card, sec = _cli(cli.nearest_main, argv, cpu=False)
+        launches = _read_launches()
+        rc_cpu, cpu, sec_cpu = _cli(cli.nearest_main, argv, cpu=True)
+        if rc != 0 or rc_cpu != 0:
+            _fail(f"nearest -bitlevel {bl} returned {rc}/{rc_cpu}")
+        if launches["quantize_pallas"] != (bl != "0"):
+            _fail(f"nearest -bitlevel {bl}: kernel 4 launched "
+                  f"{launches['quantize_pallas']} times")
+        moved = _same_neighbours(card, cpu)
+        print(f"[nearest] -bitlevel {bl}: {NEAREST_QUERIES} queries x 10 "
+              f"neighbours, {moved} placed otherwise among ties, transcripts "
+              f"{'equal' if card == cpu else 'equal apart from ties'}; card "
+              f"{sec:.2f} s, CPU {sec_cpu:.2f} s (reading included)")
+        for n in totals:
+            totals[n] += launches[n]
+    by_path["nearest"] = totals
+    os.remove(src)
+    return by_path
+
+
 # --------------------------------------------------- [accuracy]: eval
 def check_accuracy(dev, path: str, threshold: int, n_q: int,
                    tag: str) -> None:
@@ -1518,29 +2031,36 @@ def main() -> int:
     ctx = check_context(dev, FLAG_B, FLAG_D, "context@800")
     ctx_exact = check_context(dev, EXACT_B, D, "context@exact",
                               torch.float32)
+    quant = check_quantize(dev)
+    sweep = check_sweep(dev)
     work = os.path.join(repo, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     by_path = {}
     try:
         by_path["train"], vec_path, corpus = train_main_path(work)
-        by_path["flagship"], pack, flag_corpus = train_flagship(work, dev)
+        by_path["flagship"], pack, flag_corpus, ckdir = train_flagship(
+            work, dev)
         check_accuracy(dev, pack, ACC_THRESHOLD, ACC_QUESTIONS,
                        "flagship.pack")
+        by_path["resume"] = run_resume(dev, *flag_corpus, ckdir)
+        shutil.rmtree(ckdir)
         by_path["rmw"] = run_rmw(dev, *flag_corpus)
         del flag_corpus
         check_accuracy(dev, vec_path, 0, 2000, "train.bin")
         by_path["quickstart"], prepared = train_quickstart(work, corpus, dev)
         by_path["exact"], _ = run_exact(dev, *prepared)
+        by_path["sweep"] = run_sweep(dev, *prepared)
         by_path.update(run_pallas(dev, *prepared))
         by_path.update(run_hot(work, dev, *prepared))
+        by_path.update(run_convert_nearest(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     at = ("max_abs_err", "ms", "plain_ms", "bound_ms", "shapes")
     ctx["at_d200"] = {k: ctx200[k] for k in at}
     ctx["at_exact"] = {k: ctx_exact[k] for k in at}
     span["at_exact"] = rank1.pop("span_at_exact")
-    kernels = [ctx, span, rank1, score, hot, grmw, rmw]
+    kernels = [ctx, span, rank1, score, hot, grmw, rmw, quant, sweep]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -1548,7 +2068,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes",
             "launches_by_path", "at_d200", "at_exact", "bmm_only_ms",
             "span_materialized_ms", "span_materialized_with_forming_ms",
-            "plan_ms", "stratified_extra_ms")
+            "plan_ms", "stratified_extra_ms", "bf16", "whole_ms",
+            "whole_bound_ms", "export_blocks_ms", "export_blocks_plain_ms")
     print(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys if k in kd}
                                   for kd in kernels]}))

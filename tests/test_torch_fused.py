@@ -92,8 +92,6 @@ def test_fused_step_rejects_unported_paths(rng):
     with pytest.raises(ValueError, match="use_pallas"):
         tf.fused_slab_step(*args, G, banded=8, scatter_impl="span",
                            use_pallas=True)
-    with pytest.raises(ValueError, match="scatter_impl"):
-        tf.fused_slab_step(*args, G, banded=8, scatter_impl="sweep")
     hyper_r = CBOWHyper(bitlevel=1, size=D, window=W, negative=K, reg=0.1)
     with pytest.raises(ValueError, match="reg"):
         tf.fused_slab_step(args[0], args[1], 0.05, hyper_r, B, G, banded=8,

@@ -154,12 +154,7 @@ def test_config_rejects_what_jax_rejects(argv):
     ("-mesh-shape", FUSED_ADD + ["-mesh-shape", "data=2,vocab=4"]),
     ("-model", ["-model", "skipgram"]),
     ("-model", ["-cbow", "0"]),
-    ("-checkpoint-dir", FUSED_ADD + ["-scatter-impl", "grmw",
-                                     "-checkpoint-dir", "ckpt"]),
     ("-device-epoch", ["-device-epoch", "1"]),
-    ("-checkpoint-dir", ["-checkpoint-dir", "ckpt"]),
-    ("-resume", ["-resume", "1"]),
-    ("-resume", FUSED_ADD + ["-packed", "1", "-resume", "1"]),
     ("-profile-dir", ["-profile-dir", "prof"]),
     ("-dtype", ["-dtype", "float16"]),
 ])
@@ -167,6 +162,39 @@ def test_unported_flags_rejected_by_name(flag, argv):
     jconfig.config_from_argv(argv)       # a valid configuration for JAX
     with pytest.raises(ValueError, match=re.escape(flag)):
         tconfig.config_from_argv(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    FUSED_ADD + ["-scatter-impl", "grmw", "-checkpoint-dir", "ckpt"],
+    ["-checkpoint-dir", "ckpt"],
+    ["-resume", "1"],
+    FUSED_ADD + ["-packed", "1", "-resume", "1"],
+])
+def test_formerly_unported_checkpoint_flags_train_on_cpu(tmp_path, argv):
+    """The checkpoint and resume flags (rejected by name before they were
+    ported) train a few steps; with -checkpoint-dir the run writes
+    state.npz and a -resume 1 run continues from it at the next epoch;
+    -resume 1 without a checkpoint starts from the initialization."""
+    (tmp_path / "c.txt").write_text("a b c d e f a b c d\n" * 40)
+    argv = [str(tmp_path / a) if a == "ckpt" else a for a in argv]
+    base = ["-train", str(tmp_path / "c.txt"), "-min-count", "1", "-debug",
+            "0", "-size", "8", "-batch-size", "32", "-steps-per-chunk", "4",
+            "-output", str(tmp_path / "v.bin")]
+    jconfig.config_from_argv(argv)       # a valid configuration for JAX
+    res = ttrain.train(tconfig.config_from_argv(argv + base + ["-iter", "1"]),
+                       device="cpu")
+    assert res.steps > 0 and np.isfinite(res.epoch_losses).all()
+    ckpt = tmp_path / "ckpt" / "state.npz"
+    assert ckpt.exists() == ("-checkpoint-dir" in argv)
+    if ckpt.exists():
+        cfg2 = tconfig.config_from_argv(argv + base + ["-iter", "2",
+                                                       "-resume", "1"])
+        resumed = ttrain.train(cfg2, device="cpu")
+        assert "load" in resumed.seconds and len(resumed.epoch_losses) == 1
+        assert ttrain.load_checkpoint(str(ckpt), cfg2, "cpu").epoch == 1
+    else:
+        assert "init" in res.seconds
+    assert (tmp_path / "v.bin").exists()
 
 
 @pytest.mark.parametrize("argv,flag", [
@@ -414,8 +442,8 @@ def test_cli_vocab_only_without_output(tmp_path, monkeypatch):
 
 
 def test_cli_other_subcommands_not_ported(monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["cli", "convert", "v.bin", "v.txt"])
-    with pytest.raises(SystemExit, match="convert"):
+    monkeypatch.setattr(sys, "argv", ["cli", "tune", "-train", "c.txt"])
+    with pytest.raises(SystemExit, match="tune"):
         cli.main()
 
 
@@ -440,7 +468,8 @@ def test_port_imports_neither_jax_nor_jax_package():
     for new in ("kernels.group_rmw", "eval.analogy", "io.packed",
                 "kernels.score_pallas", "models.cbow_slab", "models.cbow",
                 "kernels.hot_pallas", "kernels.scatter_pallas",
-                "ops.scatter"):
+                "ops.scatter", "kernels.quantize_pallas",
+                "kernels.sweep_scatter"):
         assert f"word2bits_tpu_torch.{new}" in mods
     pattern = re.compile(r"import jax|from jax|word2bits_tpu(?!_torch)")
     sources = [p for p in (REPO / "word2bits_tpu_torch").rglob("*")

@@ -8,9 +8,16 @@ reference src/word2bits.cpp:591-621 and src/compute-accuracy.c:73-79):
     python -m word2bits_tpu_torch.cli accuracy vec.bin 0 30000 \\
         -questions questions-words.txt
 
-Both run on the CUDA device; W2B_FORCE_CPU=1 runs them on the CPU instead.
-`accuracy` reads binary or text vector files and `.pack` files.  The other
-subcommands of the JAX package (convert, nearest, tune) are not ported.
+    python -m word2bits_tpu_torch.cli convert vec.bin vec.pack \\
+        -bitlevel 1 -packed 1
+    python -m word2bits_tpu_torch.cli nearest vec.bin king queen -topk 5
+
+The JAX package's extensions `convert` (re-quantize, re-format, bit-pack
+a vector file) and `nearest` (cosine neighbours) have the same usage,
+messages and output.  All four run on the CUDA device; W2B_FORCE_CPU=1
+runs them on the CPU instead.  They read binary, text or gzip'd text
+vector files and `.pack` files.  The JAX package's `tune` is not ported
+and is rejected by name.
 """
 
 from __future__ import annotations
@@ -43,8 +50,11 @@ def train_main(argv=None) -> int:
               "Update routes: [-rmw-scatter 0|1 -dedup-block M -hot-rows H "
               "-hot-pallas 0|1 -neg-stratify 0|1 -neg-dense-hot 0|1 "
               "-device-epoch 0]\n"
+              "Checkpoints: [-checkpoint-dir DIR -resume 0|1 "
+              "-checkpoint-every-epoch 0|1]\n"
               "Subcommands: train (default) | accuracy FILE [bitlevel "
-              "threshold] [-questions FILE]")
+              "threshold] [-questions FILE] | convert IN OUT | nearest FILE "
+              "[words...]")
         return 0
     from word2bits_tpu_torch.train import prepare, train
 
@@ -96,13 +106,183 @@ def accuracy_main(argv=None) -> int:
     return 0
 
 
+def convert_main(argv=None) -> int:
+    """Post-training vector-file converter (the JAX package's extension).
+
+    Usage: convert IN OUT [-bitlevel B] [-binary 0|1] [-packed 1]
+                          [-threshold N]
+
+    Reads text, binary, gzip'd text or `.pack` files, optionally
+    re-quantizes the rows at -bitlevel (as the reference evaluator does at
+    load, reference src/compute-accuracy.c:106), and writes text (-binary
+    0, default), binary (-binary 1) or bit-packed (-packed 1, 1- and 2-bit
+    grids only) vectors; -threshold keeps the first N rows.  Byte-identical
+    to the JAX package's `convert`.  The rows go to the device in blocks of
+    about 16M values: re-quantized there by kernel 4
+    (kernels/quantize_pallas.py), packed there, and written block by block;
+    a `.pack` source is read in the same blocks, other sources whole.
+    """
+    argv = sys.argv[1:] if argv is None else argv
+    pos, flags = [], {}
+    i = 0
+    while i < len(argv):
+        if argv[i].startswith("-") and not argv[i][1:].isdigit():
+            if i + 1 >= len(argv):
+                print(f"missing value for {argv[i]}", file=sys.stderr)
+                return 1
+            flags[argv[i]] = argv[i + 1]
+            i += 2
+        else:
+            pos.append(argv[i])
+            i += 1
+    if len(pos) != 2:
+        print("Usage: convert IN OUT [-bitlevel B] [-binary 0|1] "
+              "[-packed 1] [-threshold N]")
+        return 0 if not pos else 1
+    src, dst = pos
+    bitlevel = int(flags.get("-bitlevel", 0))
+    binary = bool(int(flags.get("-binary", 0)))
+    packed = bool(int(flags.get("-packed", 0)))
+    threshold = int(flags.get("-threshold", 0))
+
+    import torch
+
+    from word2bits_tpu_torch import train
+    from word2bits_tpu_torch.io.packed import (MAGIC, PackedWriter,
+                                               pack_codes, read_packed,
+                                               read_packed_header)
+    from word2bits_tpu_torch.io.vectors import VectorWriter, read_vectors
+    from word2bits_tpu_torch.kernels.quantize_pallas import quantize_pallas
+
+    dev = train.resolve_device(_device())
+    with open(src, "rb") as f:
+        is_packed = f.read(len(MAGIC)) == MAGIC
+    if is_packed:
+        header = read_packed_header(src)
+        words, size, src_bitlevel = header.words, header.size, header.bitlevel
+
+        def block(r0, r1):
+            return read_packed(src, max_words=r1 - r0, first_row=r0,
+                               header=header)[1]
+    else:
+        words, vectors = read_vectors(src, max_words=threshold)
+        size, src_bitlevel = vectors.shape[1], 0
+
+        def block(r0, r1):
+            return vectors[r0:r1]
+    if threshold:
+        words = words[:threshold]
+    out_bitlevel = bitlevel or src_bitlevel
+    if packed and out_bitlevel not in (1, 2):
+        print(f"-packed needs vectors on a 1- or 2-bit grid; pass "
+              f"-bitlevel 1|2 (got bitlevel {out_bitlevel})",
+              file=sys.stderr)
+        return 1
+    rows = max(1, train._EXPORT_VALUES // max(size, 1))
+    with (PackedWriter(dst, words, size, out_bitlevel) if packed
+          else VectorWriter(dst, len(words), size, binary=binary)) as w:
+        for r0 in range(0, len(words), rows):
+            r1 = min(len(words), r0 + rows)
+            x = torch.from_numpy(block(r0, r1)).to(dev)
+            if bitlevel:
+                x = quantize_pallas(x, bitlevel)
+            if packed:
+                w.write_payload(pack_codes(x, out_bitlevel).cpu().numpy())
+            else:
+                w.write_rows(words[r0:r1], x.cpu().numpy())
+    print(f"{len(words)} x {size} -> {dst} ({os.path.getsize(dst)} bytes)")
+    return 0
+
+
+def nearest_main(argv=None) -> int:
+    """Nearest-neighbour queries (the JAX package's extension, after
+    word2vec's `distance` tool).
+
+    Usage: nearest FILE [words...] [-topk N] [-bitlevel B]
+
+    Prints the top-N cosine neighbours of each query word (looked up in
+    upper case, as the evaluator does); with no words, reads queries from
+    stdin (one per line, EXIT quits).  -bitlevel re-quantizes the rows at
+    load, by kernel 4 (kernels/quantize_pallas.py); the rows are normalized
+    and scored on the device, in float32 (no TF32).  The transcript is the
+    JAX package's, apart from the order of neighbours whose similarities
+    tie within float32 rounding.
+    """
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        print("Usage: nearest FILE [words...] [-topk N] [-bitlevel B]")
+        return 0
+    topk, bitlevel = 10, 0
+    if "-topk" in argv:
+        i = argv.index("-topk")
+        topk = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
+    if "-bitlevel" in argv:
+        i = argv.index("-bitlevel")
+        bitlevel = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
+    path, queries = argv[0], argv[1:]
+
+    import torch
+
+    from word2bits_tpu_torch.io.packed import MAGIC, read_packed
+    from word2bits_tpu_torch.io.vectors import read_vectors
+    from word2bits_tpu_torch.kernels.quantize_pallas import quantize_pallas
+    from word2bits_tpu_torch.train import resolve_device
+
+    dev = resolve_device(_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(path, "rb") as f:
+        is_packed = f.read(len(MAGIC)) == MAGIC
+    if is_packed:
+        words, vectors, _ = read_packed(path)
+    else:
+        words, vectors = read_vectors(path)
+    x = torch.from_numpy(vectors).to(dev)
+    if bitlevel:
+        x = quantize_pallas(x, bitlevel)
+    m = x / torch.linalg.vector_norm(x, dim=1).clamp_min(1e-12)[:, None]
+    # evaluator-style uppercase lookup (reference src/compute-accuracy.c:104)
+    index = {}
+    for i, w in enumerate(words):
+        index.setdefault(w.upper(), i)
+    k = min(topk, len(words))
+
+    def show(q: str) -> None:
+        i = index.get(q.upper())
+        if i is None:
+            print(f"{q}: not in vocabulary")
+            return
+        sims = m @ m[i]
+        sims[i] = -float("inf")
+        vals, top = torch.topk(sims, k)
+        print(f"{q}:")
+        for j, s in zip(top.tolist(), vals.tolist()):
+            print(f"  {words[j]:<24s} {s:.6f}")
+
+    if queries:
+        for q in queries:
+            show(q)
+        return 0
+    for line in sys.stdin:
+        q = line.strip()
+        if not q or q == "EXIT":
+            break
+        show(q)
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args and args[0] == "train":
         return train_main(args[1:])
     if args and args[0] in ("accuracy", "compute-accuracy"):
         return accuracy_main(args[1:])
-    if args and args[0] in ("convert", "nearest", "tune"):
+    if args and args[0] == "convert":
+        return convert_main(args[1:])
+    if args and args[0] in ("nearest", "distance"):
+        return nearest_main(args[1:])
+    if args and args[0] == "tune":
         raise SystemExit(f"the {args[0]!r} subcommand is not implemented by "
                          "word2bits_tpu_torch yet")
     return train_main(args)

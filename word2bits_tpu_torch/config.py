@@ -17,7 +17,9 @@ split (`-hot-rows`, `-hot-pallas`, `-neg-stratify`, `-neg-dense-hot`);
 either with shifted-sum or banded windowed sums, optionally the fused
 context kernel (`-context-pallas`) and the fused score kernel
 (`-use-pallas`); any `-loop-mode` (all three run the same in-place loop);
-and the `-packed 1` export.  Epochs are built on the host only
+the `-packed 1` export; and checkpoint/resume (`-checkpoint-dir`,
+`-resume`, `-checkpoint-every-epoch`, train.save_checkpoint).  Epochs are
+built on the host only
 (`-device-epoch 1` is rejected), but `device_epoch_on` resolves the flag as
 the JAX package does, because it decides whether the hot/cold split gets
 its cold-position map.  A flag that selects anything else is rejected by
@@ -348,8 +350,6 @@ UNSUPPORTED = (
     ("-mesh-shape", "mesh_shape", bool),
     ("-model", "model", lambda m: m == "skipgram"),
     ("-device-epoch", "device_epoch", lambda d: d is True),
-    ("-checkpoint-dir", "checkpoint_dir", bool),
-    ("-resume", "resume", bool),
     ("-profile-dir", "profile_dir", bool),
 )
 

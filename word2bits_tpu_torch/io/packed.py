@@ -20,7 +20,7 @@ row blocks (`read_packed(first_row=, max_words=)`).
 from __future__ import annotations
 
 import struct
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -125,19 +125,38 @@ def write_packed(path: str, words: List[str], vectors: np.ndarray,
         w.write_payload(pack_codes(torch.from_numpy(v), bitlevel).numpy())
 
 
-def read_packed(path: str, max_words: int = 0, first_row: int = 0
-                ) -> Tuple[List[str], np.ndarray, int]:
-    """(words, float32 vectors, bitlevel) of rows [first_row, first_row +
-    max_words) (max_words 0: to the end)."""
+class PackedHeader(NamedTuple):
+    words: List[str]
+    n_rows: int
+    size: int
+    bitlevel: int
+    payload_offset: int      # file offset of row 0's payload
+
+
+def read_packed_header(path: str) -> PackedHeader:
     with open(path, "rb") as f:
         if f.read(8) != MAGIC:
             raise ValueError("not a W2BPACK1 file")
         V, D, bitlevel, wb = _HEADER.unpack(f.read(_HEADER.size))
         words = f.read(wb).decode("utf-8", errors="surrogateescape").split("\n")
-        stop = V if not max_words else min(V, first_row + max_words)
-        start = min(first_row, stop)
-        rb = row_bytes(D, bitlevel)
-        f.seek(start * rb, 1)
+        return PackedHeader(words, V, D, bitlevel, f.tell())
+
+
+def read_packed(path: str, max_words: int = 0, first_row: int = 0,
+                header: PackedHeader | None = None
+                ) -> Tuple[List[str], np.ndarray, int]:
+    """(words, float32 vectors, bitlevel) of rows [first_row, first_row +
+    max_words) (max_words 0: to the end).  Pass the file's `header`
+    (read_packed_header) to read it in row blocks without decoding the
+    word list again for each."""
+    if header is None:
+        header = read_packed_header(path)
+    words, V, D, bitlevel, offset = header
+    stop = V if not max_words else min(V, first_row + max_words)
+    start = min(first_row, stop)
+    rb = row_bytes(D, bitlevel)
+    with open(path, "rb") as f:
+        f.seek(offset + start * rb)
         raw = np.frombuffer(f.read((stop - start) * rb), np.uint8).reshape(
             stop - start, rb)
     bitmat = np.unpackbits(raw, axis=1, bitorder="little")

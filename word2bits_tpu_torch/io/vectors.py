@@ -77,11 +77,26 @@ def write_vectors(path: str, words: List[str], vectors: np.ndarray,
         w.write_rows(words, vectors)
 
 
+def _open_maybe_gzip(path: str):
+    """The reference's pretrained-vector catalog ships gzip'd text files
+    (reference README.md:27-41): sniff the magic and decompress."""
+    f = open(path, "rb")
+    magic = f.read(2)
+    f.seek(0)
+    if magic != b"\x1f\x8b":
+        return f
+    import gzip
+    import io
+    with f:
+        return io.BytesIO(gzip.open(f).read())
+
+
 def read_vectors(path: str, binary: bool | None = None,
                  max_words: int = 0) -> Tuple[List[str], np.ndarray]:
-    """Read either format; binary=None sniffs it.  max_words truncates
-    like the reference evaluator's threshold (src/compute-accuracy.c:86)."""
-    with open(path, "rb") as f:
+    """Read either format, plain or gzip'd; binary=None sniffs it.
+    max_words truncates like the reference evaluator's threshold
+    (src/compute-accuracy.c:86)."""
+    with _open_maybe_gzip(path) as f:
         header = f.readline().split()
         V, D = int(header[0]), int(header[1])
         if max_words and V > max_words:

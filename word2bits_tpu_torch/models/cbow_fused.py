@@ -10,8 +10,10 @@ banded or shifted-sum windowed sums, with or without the fused context
 kernel; and every parameter-update route of its step:
 
 - the `add` (index_add_), `span` (sorted kernel, the shipped throughput
-  configuration) or `grmw` (sorted group-RMW kernel, the 3.7M x 800d
-  capacity configuration) scatter;
+  configuration), `grmw` (sorted group-RMW kernel, the 3.7M x 800d
+  capacity configuration) or `sweep` (kernel 9, kernels/sweep_scatter.py,
+  which the JAX package keeps behind the span scatter and its config
+  rejects) scatter;
 - `rmw_scatter` (kernel 8, kernels/scatter_pallas.py, the earlier capacity
   path) and `dedup_block` (ops/scatter.py), each called for the slab rows
   and then for the negative rows, as the JAX step calls its `scat`;
@@ -49,6 +51,7 @@ from word2bits_tpu_torch.kernels.hot_pallas import (HotPlan, hot_plan,
 from word2bits_tpu_torch.kernels.scatter_pallas import scatter_add_rmw
 from word2bits_tpu_torch.kernels.span_scatter import (
     SpanPlan, scatter_add_span_planned, span_plan)
+from word2bits_tpu_torch.kernels.sweep_scatter import scatter_add_sweep
 from word2bits_tpu_torch.models.cbow import (
     CBOWHyper, ChunkScalars, chunk_slabs, step_alphas)
 from word2bits_tpu_torch.models.cbow_slab import (
@@ -61,7 +64,7 @@ from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.sampling.unigram import (
     AliasTable, draw_cold, draw_negatives, draw_negatives_stratified)
 
-SCATTER_IMPLS = ("add", "span", "grmw")
+SCATTER_IMPLS = ("add", "span", "grmw", "sweep")
 LOOP_MODES = ("scan", "fori", "unroll")
 
 
@@ -218,6 +221,13 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
     dv_slab[W:W + B] = pos.dv_center
     fused_rows = torch.cat([du_slab, dv_slab], dim=1)      # [B+2W, 2D]
     neg_ids = negs.reshape(-1)
+    if scatter_impl == "sweep":
+        # one swept call for slab + negative rows, its plan built here as
+        # the JAX step builds it; float32 rows round to the table dtype
+        # inside the kernel
+        scatter_add_sweep(table, torch.cat([slab_ids, neg_ids]),
+                          torch.cat([fused_rows, _v_rows(dv_neg)]))
+        return table, loss
     if scatter_impl in ("span", "grmw"):
         # one sorted call for slab + negative rows (kernels/span_scatter.py,
         # kernels/group_rmw.py); float32 rows round to the table dtype
@@ -347,8 +357,8 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
             "compose with use_pallas/dedup_block/hot_rows/strat_lanes/"
             "dense_hot (those restructure the scatter themselves)")
     if scatter_impl != "add" and (rmw_scatter or restructured):
-        raise ValueError("scatter_impl='span'/'grmw' replaces the plain "
-                         "scatter; it does not compose with rmw_scatter/"
+        raise ValueError("scatter_impl='span'/'grmw'/'sweep' replaces the "
+                         "plain scatter; it does not compose with rmw_scatter/"
                          "dedup_block/hot_rows/strat_lanes/dense_hot")
     if (strat_lanes is not None or dense_hot is not None) and not hot_rows:
         raise ValueError("strat_lanes/dense_hot require hot_rows")

@@ -17,18 +17,25 @@ package's device epoch (`device_epoch_on`: -neg-dense-hot under the auto
 The tables are stored unpadded (the JAX package pads rows and columns only
 for its TPU DMA tiles), allocated once on the training device and filled
 there in row blocks (models/init.py), and exported in row blocks
-(`write_output`): at the 3.7M x 800d capacity configuration the host never
-holds a copy of them.  The loss accumulates on the device and is
-fetched once per epoch (and for progress lines at -debug > 1).
+(`write_output`, each block quantized by kernel 4): at the 3.7M x 800d
+capacity configuration the host never holds a copy of them.  With
+-checkpoint-dir the tables are saved after every epoch (or, with
+-checkpoint-every-epoch 0, after the last) as the JAX package's state.npz,
+streamed in the same row blocks, and -resume 1 reads them back the same
+way into tables allocated once (`save_checkpoint`, `load_checkpoint`).
+The loss accumulates on the device and is fetched once per epoch (and for
+progress lines at -debug > 1).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
+import zipfile
 from contextlib import nullcontext
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,18 +47,19 @@ from word2bits_tpu_torch.data.pipeline import (cold_positions,
 from word2bits_tpu_torch.data.vocab import Vocab
 from word2bits_tpu_torch.io.packed import PackedWriter, pack_codes
 from word2bits_tpu_torch.io.vectors import VectorWriter
+from word2bits_tpu_torch.kernels.quantize_pallas import quantize_pallas
 from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
 from word2bits_tpu_torch.models.cbow_fused import (deinterleave,
                                                    make_fused_train_chunk)
 from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
 from word2bits_tpu_torch.models.init import init_fused_table, init_params
-from word2bits_tpu_torch.ops.quantize import quantize
 from word2bits_tpu_torch.sampling.unigram import (AliasTable,
                                                   build_alias_table,
                                                   build_stratified_tables)
 
-# rows per export block: about 16M float32 values of quantized output
+# rows per export, checkpoint and `cli convert` block: about 16M values
 _EXPORT_VALUES = 1 << 24
+CHECKPOINT_FILE = "state.npz"
 
 
 Tables = Tuple[torch.Tensor, ...]   # (fused (V, 2D) table,) or (u, v)
@@ -67,8 +75,11 @@ class TrainResult:
     # per chunk: (steps, words consumed, seconds on the device's clock —
     # CUDA events — or the host's on the CPU)
     chunks: List[Tuple[int, float, float]] = field(default_factory=list)
-    # seconds of the set-up phases: init, alias, epoch_build, upload, export
+    # seconds of the set-up phases: init (or load, when resumed), alias,
+    # epoch_build, upload, cold_map, checkpoint (the saves), export
     seconds: Dict[str, float] = field(default_factory=dict)
+    start_epoch: int = 0     # the first epoch run (after a resume: > 0)
+    words_done: float = 0.0  # the LR schedule's words at the end
 
 
 def _log(cfg: Word2BitsConfig, msg: str, end="\n"):
@@ -242,22 +253,44 @@ def train(cfg: Word2BitsConfig,
     hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=D, window=W,
                       negative=cfg.negative, reg=cfg.reg)
     seconds: Dict[str, float] = {"epoch_build": 0.0, "upload": 0.0,
-                                 "cold_map": 0.0}
+                                 "cold_map": 0.0, "checkpoint": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    ckpt_path = (os.path.join(cfg.checkpoint_dir, CHECKPOINT_FILE)
+                 if cfg.checkpoint_dir else None)
+    start_epoch, words_done = 0, 0.0
     t0 = time.perf_counter()
-    tables = init_tables(cfg, V, dev)
-    _sync(dev)
-    seconds["init"] = time.perf_counter() - t0
-    shape = " x ".join(str(n) for n in tables[0].shape)
-    _log(cfg, f"Init: {shape} {cfg.dtype} "
-              f"{'table' if len(tables) == 1 else 'tables u, v'} "
-              f"({2 * V * D} draws) in {seconds['init']:.2f} s")
+    if ckpt_path and cfg.resume and os.path.exists(ckpt_path):
+        ck = load_checkpoint(ckpt_path, cfg, dev)
+        if ck.tables[0].shape[0] != V:
+            raise ValueError(f"{ckpt_path} holds {ck.tables[0].shape[0]} "
+                             f"rows, the vocabulary {V}")
+        tables = ck.tables
+        start_epoch, words_done = ck.epoch + 1, ck.words_done
+        if ck.generator is not None and ck.generator_device == dev.type:
+            gen.set_state(ck.generator)
+        else:
+            gen.manual_seed(resume_seed(cfg.seed, start_epoch))
+            _log(cfg, f"WARNING: {ckpt_path} holds no {dev.type} generator "
+                      "state (a JAX key cannot be continued); the generator "
+                      f"is seeded from (seed {cfg.seed}, epoch {start_epoch})")
+        _sync(dev)
+        seconds["load"] = time.perf_counter() - t0
+        _log(cfg, f"Resumed from {ckpt_path} at epoch {start_epoch} "
+                  f"(loaded in {seconds['load']:.2f} s)")
+    else:
+        tables = init_tables(cfg, V, dev)
+        _sync(dev)
+        seconds["init"] = time.perf_counter() - t0
+        shape = " x ".join(str(n) for n in tables[0].shape)
+        _log(cfg, f"Init: {shape} {cfg.dtype} "
+                  f"{'table' if len(tables) == 1 else 'tables u, v'} "
+                  f"({2 * V * D} draws) in {seconds['init']:.2f} s")
     t0 = time.perf_counter()
     engine = build_engine(cfg, vocab, tables, hyper)
     seconds["alias"] = time.perf_counter() - t0
     _log(cfg, f"Alias table: {seconds['alias']:.2f} s")
     chunk_fn = engine.chunk_fn
     clock = _ChunkClock(dev)
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
     train_words = vocab.train_words
     denom = float(cfg.iter) * train_words + 1.0
@@ -267,11 +300,11 @@ def train(cfg: Word2BitsConfig,
     epoch_losses: List[float] = []
     cold_width = 0     # grows monotonically: a stable map width
     total_steps = 0
-    words_done = 0.0
+    words_at_start = words_done  # a resumed run reports its own rate
     t_train0 = time.perf_counter()
     t_print = 0.0
     stop = False
-    for epoch in range(cfg.iter):
+    for epoch in range(start_epoch, cfg.iter):
         _log(cfg, f"Starting epoch: {epoch}")
         epoch_rng = np.random.default_rng([cfg.seed, epoch])
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
@@ -322,7 +355,8 @@ def train(cfg: Word2BitsConfig,
                     t_print = time.perf_counter()
                     a0 = cfg.effective_alpha
                     alpha_now = max(a0 * (1 - words_done / denom), a0 * 1e-4)
-                    wps = words_done / max(t_print - t_train0, 1e-9)
+                    wps = (words_done - words_at_start) / max(
+                        t_print - t_train0 - seconds["checkpoint"], 1e-9)
                     print(f"\rAlpha: {alpha_now:.6f}  "
                           f"Progress: {min(words_done / denom * 100, 100.0):.2f}%  "
                           f"Cost: {float(loss_acc):.2f} "
@@ -344,11 +378,23 @@ def train(cfg: Word2BitsConfig,
         if cfg.save_every_epoch and cfg.output_file and cfg.classes == 0:
             write_output(f"{cfg.output_file}_epoch{epoch}", vocab, tables,
                          cfg)
+        # -checkpoint-every-epoch 0: only after the last epoch (a run cut
+        # by max_steps counts its epoch as done, as in the JAX package)
+        if ckpt_path and (cfg.checkpoint_every_epoch or stop
+                          or epoch == cfg.iter - 1):
+            t0 = time.perf_counter()
+            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+            save_checkpoint(ckpt_path, tables, epoch, gen, words_done)
+            dt = time.perf_counter() - t0
+            seconds["checkpoint"] += dt
+            _log(cfg, f"Checkpoint: epoch {epoch} to {ckpt_path} in "
+                      f"{dt:.2f} s")
         if stop:
             break
     _sync(dev)
-    wall = time.perf_counter() - t_train0
-    wps = words_done / max(wall, 1e-9)
+    # the words/sec of this run's own epochs, checkpoint writes excluded
+    wall = time.perf_counter() - t_train0 - seconds["checkpoint"]
+    wps = (words_done - words_at_start) / max(wall, 1e-9)
     _log(cfg, f"Epoch arrays: {seconds['epoch_build']:.2f} s, upload "
               f"{seconds['upload']:.2f} s, cold maps "
               f"{seconds['cold_map']:.2f} s")
@@ -371,7 +417,8 @@ def train(cfg: Word2BitsConfig,
     return TrainResult(vocab=vocab, tables=tuple(tables),
                        epoch_losses=epoch_losses,
                        words_per_sec=wps, steps=total_steps,
-                       chunks=clock.chunks(), seconds=seconds)
+                       chunks=clock.chunks(), seconds=seconds,
+                       start_epoch=start_epoch, words_done=words_done)
 
 
 def table_halves(tables: Tables) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -388,8 +435,9 @@ def write_output(path: str, vocab: Vocab, tables: Tables,
     """The vectors file quantize(u + v) (reference :548-552) and, with
     -packed 1 at bitlevel 1 or 2, `<path>.pack` (as the JAX package's
     train._write_output), built in row blocks on the tables' device: each
-    block is summed in float32, quantized and packed there and only the
-    block comes to the host.  `tables`: the fused (V, 2D) table or the
+    block is summed in float32, quantized there by kernel 4
+    (kernels/quantize_pallas.py) and packed, and only the block comes to
+    the host.  `tables`: the fused (V, 2D) table or the
     engine's tables.  Byte-identical to the JAX package's
     train._write_output (output_vectors + write_vectors + write_packed)."""
     u, v = table_halves(tables)
@@ -402,8 +450,159 @@ def write_output(path: str, vocab: Vocab, tables: Tables,
              else nullcontext()) as pw:
         for r0 in range(0, V, rows):
             r1 = min(V, r0 + rows)
-            q = quantize(u[r0:r1].to(torch.float32)
-                         + v[r0:r1].to(torch.float32), bl)
+            q = quantize_pallas(u[r0:r1].to(torch.float32)
+                                + v[r0:r1].to(torch.float32), bl)
             vw.write_rows(vocab.words[r0:r1], q.cpu().numpy())
             if packed:
                 pw.write_payload(pack_codes(q, bl).cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint / resume: the JAX package's state.npz (train.save_checkpoint,
+# _ckpt_encode), streamed in row blocks
+# ---------------------------------------------------------------------------
+
+class Checkpoint(NamedTuple):
+    tables: Tables                     # in the engine's layout, on device
+    epoch: int                         # the last epoch done
+    words_done: float
+    generator: Optional[torch.Tensor]  # torch.Generator state, or None
+    generator_device: Optional[str]    # its device type ("cuda", "cpu")
+
+
+def resume_seed(seed: int, epoch: int) -> int:
+    """The generator's seed where a checkpoint holds no state to continue
+    (a JAX checkpoint's key, or another device type's generator)."""
+    return int(np.random.SeedSequence([seed, epoch]).generate_state(
+        1, np.uint64)[0])
+
+
+def _ckpt_dtype(t: torch.Tensor) -> Tuple[np.dtype, str]:
+    """The JAX _ckpt_encode: bfloat16 stored as its uint16 bits with a
+    dtype tag, everything else as float32."""
+    if t.dtype == torch.bfloat16:
+        return np.dtype(np.uint16), "bfloat16"
+    return np.dtype(np.float32), "float32"
+
+
+def _ckpt_block(blk: torch.Tensor) -> np.ndarray:
+    if blk.dtype == torch.bfloat16:
+        return blk.contiguous().cpu().view(torch.int16).numpy().view(
+            np.uint16)
+    return blk.to(torch.float32).contiguous().cpu().numpy()
+
+
+def _write_small(zf: zipfile.ZipFile, name: str, value) -> None:
+    with zf.open(name + ".npy", "w", force_zip64=True) as f:
+        np.lib.format.write_array(f, np.asarray(value))
+
+
+def save_checkpoint(path: str, tables: Tables, epoch: int,
+                    gen: torch.Generator, words_done: float) -> None:
+    """Write `path` as np.savez writes the JAX package's state.npz (an
+    uncompressed zip of .npy members): `u` and `v` as (V, D) halves
+    (bfloat16 as uint16 bits, with `u_dtype`/`v_dtype` tags; else
+    float32), `epoch`, `words_done`, and in place of the JAX `key` the
+    generator's state (`torch_generator`, uint8, and its device type
+    `torch_generator_device`).  The halves stream from the device in row
+    blocks: the host holds one block, never a table.  Written to a
+    temporary name and renamed, so an interrupted save leaves the last
+    checkpoint whole."""
+    u, v = table_halves(tables)
+    V, D = u.shape
+    rows = max(1, _EXPORT_VALUES // max(D, 1))
+    tmp = path + ".tmp"
+    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for name, half in (("u", u), ("v", v)):
+            dt, tag = _ckpt_dtype(half)
+            with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array_header_1_0(f, {
+                    "descr": np.lib.format.dtype_to_descr(dt),
+                    "fortran_order": False, "shape": (V, D)})
+                for r0 in range(0, V, rows):
+                    f.write(_ckpt_block(half[r0:r0 + rows]).tobytes())
+            _write_small(zf, name + "_dtype", tag)
+        _write_small(zf, "epoch", np.int64(epoch))
+        _write_small(zf, "words_done", np.float64(words_done))
+        _write_small(zf, "torch_generator", gen.get_state().numpy())
+        _write_small(zf, "torch_generator_device", gen.device.type)
+    os.replace(tmp, path)
+
+
+def _read_member_header(f) -> Tuple[Tuple[int, ...], np.dtype]:
+    version = np.lib.format.read_magic(f)
+    if version == (1, 0):
+        shape, fortran, dt = np.lib.format.read_array_header_1_0(f)
+    elif version == (2, 0):
+        shape, fortran, dt = np.lib.format.read_array_header_2_0(f)
+    else:
+        raise ValueError(f"unsupported .npy version {version}")
+    if fortran:
+        raise ValueError("Fortran-ordered checkpoint arrays are not read")
+    return shape, dt
+
+
+def _read_small(zf: zipfile.ZipFile, name: str):
+    with zf.open(name + ".npy") as f:
+        return np.lib.format.read_array(f)
+
+
+def _read_half(zf: zipfile.ZipFile, name: str, dest: torch.Tensor) -> None:
+    """Stream member `name` ((V, D), its tag applied) into dest in row
+    blocks, through one host buffer."""
+    tag = (str(_read_small(zf, name + "_dtype"))
+           if name + "_dtype.npy" in zf.namelist() else "float32")
+    with zf.open(name + ".npy") as f:
+        shape, dt = _read_member_header(f)
+        if tuple(shape) != tuple(dest.shape):
+            raise ValueError(f"checkpoint {name} is {tuple(shape)}, the "
+                             f"table half {tuple(dest.shape)}")
+        V, D = shape
+        rows = max(1, _EXPORT_VALUES // max(D, 1))
+        buf = np.empty((min(rows, V), D), dt)
+        for r0 in range(0, V, rows):
+            n = min(rows, V - r0)
+            blk = buf[:n]
+            if f.readinto(memoryview(blk.reshape(-1).view(np.uint8))) != \
+                    blk.nbytes:
+                raise ValueError(f"checkpoint {name} ends early")
+            if tag == "bfloat16":
+                t = torch.from_numpy(blk.view(np.int16)).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(blk)
+            dest[r0:r0 + n].copy_(t)
+
+
+def load_checkpoint(path: str, cfg: Word2BitsConfig,
+                    device) -> Checkpoint:
+    """Read a state.npz of either package into tables allocated once on
+    `device` in the config's layout and dtype (a fused checkpoint resumes
+    on split tables and the other way round, as in the JAX package),
+    streaming each half in row blocks: no initialization runs first, and
+    the host holds one block.  A JAX checkpoint carries a JAX key, which
+    cannot be continued: `generator` is None then."""
+    dtype = getattr(torch, cfg.dtype)
+    with zipfile.ZipFile(path) as zf:
+        with zf.open("u.npy") as f:
+            (V, D), _ = _read_member_header(f)
+        if D != cfg.size:
+            raise ValueError(f"{path} holds size {D}, the config {cfg.size}")
+        if cfg.fused_tables:
+            table = torch.empty((V, 2 * D), dtype=dtype, device=device)
+            tables: Tables = (table,)
+        else:
+            tables = (torch.empty((V, D), dtype=dtype, device=device),
+                      torch.empty((V, D), dtype=dtype, device=device))
+        u, v = table_halves(tables)
+        _read_half(zf, "u", u)
+        _read_half(zf, "v", v)
+        names = zf.namelist()
+        generator = gen_device = None
+        if "torch_generator.npy" in names:
+            generator = torch.from_numpy(_read_small(zf, "torch_generator"))
+            gen_device = str(_read_small(zf, "torch_generator_device"))
+        return Checkpoint(tables=tables,
+                          epoch=int(_read_small(zf, "epoch")),
+                          words_done=float(_read_small(zf, "words_done")),
+                          generator=generator, generator_device=gen_device)
