@@ -48,6 +48,26 @@ def test_context_plain_matches_pallas(rng, bitlevel):
     np.testing.assert_allclose(float(got[4]), float(want[4]), rtol=1e-5)
 
 
+@pytest.mark.parametrize("bitlevel", [0, 1, 2, 4, 8])
+def test_context_plain_matches_pallas_any_mask(rng, bitlevel):
+    """A non-banded 0/1 mask (~30% ones anywhere in the tile's window, some
+    rows empty): the JAX kernel contracts over all F, and so must the
+    port (csrc/context.cu reads only the set entries, in any column)."""
+    args = list(_context_inputs(rng, B=64, banded=16))
+    M = (rng.random(args[2].shape) < 0.3).astype(np.float32)
+    M.reshape(-1, M.shape[-1])[::7] = 0.0
+    assert M[:, :, :-8].any(axis=1).all()   # ones beyond the band
+    args[2] = M
+    want = jctx(*(jnp.asarray(a) for a in args), bitlevel, True)
+    got = tctx.fused_context_pallas(*(torch.from_numpy(a) for a in args),
+                                    bitlevel)
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+    np.testing.assert_allclose(float(got[4]), float(want[4]), rtol=1e-5)
+    assert float(got[3].sum()) < 64          # the empty rows are inactive
+
+
 def test_context_wrapper_counts_only_launches(rng):
     args = [torch.from_numpy(a) for a in _context_inputs(rng)]
     before = tctx.fused_context_pallas.launches

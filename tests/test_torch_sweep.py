@@ -143,6 +143,53 @@ def test_id_spanning_two_blocks(rng, dtype):
         np.testing.assert_array_equal(got[7], row.float().numpy())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plan_edges_of_the_block_parallel_kernel(rng, dtype):
+    """The plans the kernel's ownership rule must get right: id 5 over four
+    blocks (two of them whole), window 1 one full block of offset 7 with
+    window 2 starting at offset 7 again (another row), and a window of
+    padding only (the plan's spare blocks).  The port == the JAX sweep,
+    and each block's sum of id 5 is rounded into its row in order."""
+    V, C, window, chunk = 2048, 128, 512, 128
+    ids = np.concatenate([[1, 2, 3], np.full(400, 5),
+                          rng.integers(6, 512, 60), np.full(128, 519),
+                          np.full(3, 1031), rng.integers(1032, 1536, 90),
+                          np.full(7, SENTINEL)]).astype(np.int32)
+    rng.shuffle(ids)
+    rows = rng.normal(size=(ids.size, C)).astype(np.float32)
+    table = rng.normal(size=(V, C)).astype(np.float32)
+    plan = tsweep.sweep_plan(torch.from_numpy(ids), V, window, chunk)
+    offs = plan.offs.numpy().reshape(-1, chunk)
+    meta = plan.meta.numpy()
+    assert sum(bool((b == 5).any()) for b in offs[meta == 0]) == 4
+    one = offs[meta == 1]
+    assert one.shape[0] == 1 and np.all(one == 7)
+    assert offs[meta == 2][0, 0] == 7
+    assert np.all(offs[meta == 3] < 0) and (meta == 3).any()
+    t_dt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    # a copy: the JAX sweep donates its table, which may alias numpy's
+    want = _jax(table.copy(), ids, rows, window, chunk, t_dt)
+    # a copy again: jnp.asarray may share numpy's memory, and the port
+    # updates its table in place
+    tt = torch.from_numpy(_f32(table, t_dt).copy()).to(getattr(torch, dtype))
+    got = _port(tt, ids, rows, window, chunk).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-6)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=2 ** -7)
+    s = torch.from_numpy(rows).to(getattr(torch, dtype)).float()
+    order = plan.order.numpy().reshape(-1, chunk)
+    row = torch.from_numpy(_f32(table, t_dt)[5]).to(getattr(torch, dtype))
+    for b, o in zip(offs[meta == 0], order[meta == 0]):
+        sel = o[b == 5]
+        if sel.size:
+            acc = torch.zeros(C)
+            for r in sel:
+                acc = acc + s[r]
+            row = (row.float() + acc).to(getattr(torch, dtype))
+    np.testing.assert_array_equal(got[5], row.float().numpy())
+
+
 @pytest.mark.parametrize("V,window", [(1000, 512), (300, 128), (70, 64)])
 def test_any_vocabulary_size(rng, V, window):
     """V % window != 0 (the JAX entry point raises; the port counts

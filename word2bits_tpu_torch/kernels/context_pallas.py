@@ -14,9 +14,16 @@ positive gradients, and writes only what the rest of the step consumes:
 
 Bound on the H100 (3.35 TB/s): bytes.  At the main path (B=8192, W=8,
 tile 256, D=200, bf16 rows) the kernel must read ~16 MB (window rows,
-center rows, f32 masks) and write ~20 MB: ~11 us.  Its design keeps the
-quantized window in shared memory and every f32 intermediate in
-registers (see the source note in csrc/context.cu).
+center rows, f32 masks) and write ~20 MB: ~11 us; at the capacity path's
+D=800, B=16384, 229 MB: 68 us.  One CTA owns whole rows of 16 centers of a
+tile: it reads their mask rows once into bit words (warp ballots), stages
+only the window rows those bits reach, quantized once, in shared memory,
+sums the set columns in ascending order, and writes each output once
+(float4 stores).  A mask with ones outside the band is still exact: the
+span is staged in pieces.  The first design (one thread per column, the
+whole band multiplied) took 1.78 ms at D=800 and 0.182 ms at D=200 (NVIDIA
+H100 80GB HBM3, 700 W; PERF.md, which has the redesign's times); the source
+note in csrc/context.cu has the details.
 
 `fused_context_pallas` runs the plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors, raising on anything the kernel does

@@ -21,14 +21,23 @@ contract is the JAX one too:
 - ids >= V (the 0x7FFFFFF0 drop sentinel) and negative ids are dropped;
 - the update is in place, with no atomics.
 
-The kernel gives each touched window to one CTA, which walks the window's
-blocks in order (the TPU kernel keeps the window resident in VMEM the same
-way), spreading each block's (run, column) items over its threads; the
-sums run in slot order, from 0, in the kernel and in the plain version
-alike, so the two are bit-equal.  The JAX entry point requires V %
-window == 0 and a row width that is a multiple of 128 (Mosaic tiles); the
-port takes any V, counting ceil(V / window) windows with the last one
-partial, and any width: the table needs no padding.
+The kernel runs every block of the plan at once, one CTA each
+(`csrc/sweep_scatter.cu` has the design): a block's runs of one offset are
+found in the kernel; the run holding an id's first slot owns the id, and
+where the id goes on into the next blocks of its window, the owner's CTA
+sums each of those blocks' rows in parallel and then adds the sums to the
+row in block order, each with its own rounding, so the table row is
+written by one thread per column only.  The sums run in slot order, from
+0, in the kernel and in the plain version alike, so the two are
+bit-equal.  The first version (one CTA per window, its blocks one after
+another) took 0.776 ms where `index_add_` of the same rows takes 0.043 ms
+(NVIDIA H100 80GB HBM3, 700 W; PERF.md, which has the redesign's time).
+The wrapper passes the plan's own arrays (slot rows, offsets, the window
+of each block) and derives nothing new.  The JAX
+entry point requires V % window == 0 and a row width that is a multiple of
+128 (Mosaic tiles); the port takes any V, counting ceil(V / window)
+windows with the last one partial, and any width: the table needs no
+padding.
 
 Bound on the H100 (3.35 TB/s): bytes — the rows and the plan read once,
 each touched table row read and written once; the time is in PERF.md.
@@ -194,7 +203,9 @@ def _check(table, plan: SweepPlan, rows, window: int, chunk: int) -> None:
         raise ValueError(f"scatter_add_sweep: chunk {chunk} > {MAX_CHUNK} "
                          "(the kernel stages a block's slots in shared "
                          "memory)")
-    if plan.offs.numel() % chunk or plan.win_chunk.numel() != nwin + 1:
+    if (plan.offs.numel() != plan.meta.numel() * chunk
+            or plan.order.numel() != plan.offs.numel()
+            or plan.win_chunk.numel() != nwin + 1):
         raise ValueError("scatter_add_sweep: the plan was built for another "
                          "table, window or chunk")
     for name, t in (("table", table), ("rows", rows)) + tuple(
@@ -224,7 +235,7 @@ def scatter_add_sweep_planned(table: torch.Tensor, plan: SweepPlan,
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _kernel()(table.data_ptr(), rows.data_ptr(),
                     plan.order.data_ptr(), plan.offs.data_ptr(),
-                    plan.win_chunk.data_ptr(), plan.win_chunk.numel() - 1,
+                    plan.meta.data_ptr(), plan.meta.numel(),
                     window, chunk, C, _DTYPES[table.dtype],
                     _DTYPES[rows.dtype], stream)
     check_launch("w2b_sweep_scatter", err)
