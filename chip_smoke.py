@@ -4,15 +4,18 @@
 
 from the root of a checkout.  It builds the port's CUDA kernels from
 word2bits_tpu_torch/csrc/ (one nvcc per source, all at once; [ptxas]
-prints each kernel's registers, shared memory and spills, and kernels 1
-and 9 must not spill), holds each against its plain PyTorch version at
-the shapes of the paths that run it ([context], [span], [score], [rank1]
-with kernel 2 on its float32 table, [hotk], [grmw], [rmwk],
+prints each kernel's registers, shared memory and spills, and kernels 1,
+2, 3 and 9 must not spill), holds each against its plain PyTorch version
+at the shapes of the paths that run it ([context], [span], [score],
+[rank1] with kernel 2 on its float32 table, [hotk], [grmw], [rmwk],
 [context@800], [context@exact] on float32 rows, [context@mask] on
 non-banded random masks, [quantk] kernel 4 at the capacity export's
 block, on a bf16 table and on the whole 3.7M x 800 sum, [sweepk] kernel
-9 at kernel 2's shape and [sweepk edges] on a plan whose head id spans
-four blocks), checks
+9 at kernel 2's shape, [sweepk edges] on a plan whose head id spans
+four blocks, and [spank edges]: kernels 2 and 3 on one id holding
+102,400 rows, runs about the tile length, sentinels only and N = 0, in
+three dtype pairs at four widths, bit-equal to each other and from
+launch to launch), checks
 the steps and chunks of both engines on the card against the same code on
 the CPU ([step], the fused chunk's "sweep" scatter among them), and then
 drives the port's paths through their entry points, each with the
@@ -434,7 +437,8 @@ def check_span(dev) -> dict:
     a bf16 [70000, 400] table, Zipf ids with duplicates plus drop
     sentinels, float32 rows.  Both sum each id's bf16-rounded rows in
     float32 and round once into the table, in another order, so they agree
-    to one bf16 rounding: atol 1e-5 + rtol 2^-7."""
+    to one bf16 rounding: atol 1e-5 + rtol 2^-7.  Two launches on the same
+    inputs are bit-equal."""
     from word2bits_tpu_torch.kernels.span_scatter import (
         scatter_add_span_plain, scatter_add_span_planned, span_plan)
     rng = np.random.default_rng(SEED)
@@ -448,6 +452,7 @@ def check_span(dev) -> dict:
         torch.bfloat16)
     plan = span_plan(ids, V)
     got = scatter_add_span_planned(table0.clone(), plan, rows)
+    again = scatter_add_span_planned(table0.clone(), plan, rows)
     want = scatter_add_span_plain(table0.clone(), ids, rows)
     torch.cuda.synchronize()
     err = _max_err(got, want)
@@ -455,6 +460,8 @@ def check_span(dev) -> dict:
                           rtol=2 ** -7):
         _fail(f"span scatter: max abs err {err:.3e} > atol 1e-5 + "
               "rtol 2^-7")
+    if not torch.equal(_bits(got), _bits(again)):
+        _fail("span scatter: two launches on the same inputs differ")
     if torch.equal(got, table0):
         _fail("span scatter changed nothing")
     n_unique = int(plan.n_runs)
@@ -589,9 +596,10 @@ def check_rank1(dev) -> dict:
     step (subsampled Zipf(1.05) centers, unigram^0.75 negatives).  Both sum
     each id's rows in float32 in another order: atol 1e-5 + rtol 1e-5.
     Kernel 2 on the same rows materialized (the exact mode's float32 v
-    scatter) is held to the same tolerance against its plain version and
-    the rank-1 plain version, and timed beside it, with and without
-    forming the rows; so is index_add_ of the materialized rows."""
+    scatter) is bit-equal to kernel 3, held to the same tolerance against
+    its plain version and the rank-1 plain version, and timed beside it,
+    with and without forming the rows; so is index_add_ of the
+    materialized rows."""
     from word2bits_tpu_torch.kernels.span_scatter import (
         scatter_add_span_plain, scatter_add_span_planned,
         scatter_add_span_rank1, scatter_add_span_rank1_plain, span_plan)
@@ -630,10 +638,13 @@ def check_rank1(dev) -> dict:
             and torch.allclose(mat, want, atol=1e-5, rtol=1e-5)):
         _fail(f"span scatter on the materialized rows (float32 table): max "
               f"abs err {mat_err:.3e} > atol 1e-5 + rtol 1e-5")
+    if not torch.equal(got, mat):
+        _fail(f"rank-1 span scatter vs kernel 2 on its rows materialized: "
+              f"max abs err {_max_err(got, mat):.3e}, not bit-equal")
     n_unique = int(plan.n_runs)
     print(f"[rank1] max abs err {err:.3e} against the plain version; "
           f"kernel 2 on the materialized rows {mat_err:.3e} against the "
-          f"plain versions, {_max_err(got, mat):.3e} against kernel 3; "
+          f"plain versions, bit-equal to kernel 3; "
           f"{nd} + {nn} rows, {n_unique} distinct ids")
     scratch = table0.clone()
     ms = _time_ms(lambda: scatter_add_span_rank1(scratch, plan, dense, g,
@@ -674,6 +685,116 @@ def check_rank1(dev) -> dict:
                     shapes=f"table [{V}, {D}] f32, {nd + nn} f32 rows"),
                 shapes=f"table [{V}, {D}] f32, {nd} dense + {nn} rank-1 "
                        f"rows")
+
+
+def _span_edge_ids(rng, L: int) -> np.ndarray:
+    """6,400 ids whose sorted stream (tiles of L slots) starts with runs of
+    L (a whole tile, uncut), L - 1 and 1, L + 1 (cut once), 2L + 1 (over
+    three tiles, the middle one whole), 3, L - 1 (cut), L, 2L + 1 and L + 1
+    rows, then Zipf ids and 64 drop sentinels, shuffled."""
+    from word2bits_tpu_torch.kernels.span_scatter import SENTINEL
+    lens = [L, L - 1, 1, L + 1, 2 * L + 1, 3, L - 1, L, 2 * L + 1, L + 1]
+    head = np.repeat(np.arange(len(lens)), lens)
+    n_rest = 6400 - head.size - 64
+    rest = len(lens) + np.minimum(rng.zipf(1.3, n_rest) - 1, 3000)
+    ids = np.concatenate([head, rest, np.full(64, SENTINEL)])
+    rng.shuffle(ids)
+    return ids.astype(np.int64)
+
+
+def check_span_edges(dev, widths=(200, 400, 37, 1600)) -> None:
+    """Kernels 2 and 3 at the tiled design's edges, for each dtype pair (a
+    bf16 table with float32 and with bf16 rows, a float32 table) at widths
+    200, 400, 37 (one column a thread) and 1,600: one id holding all
+    102,400 rows, the runs of _span_edge_ids (L - 1, L, L + 1 and 2L + 1
+    rows at several offsets from the tile edges), a plan of drop sentinels
+    only, and N = 0.  The rows are rank-1 rows as in [rank1] (4% dense,
+    96% g[j] * cavg[j // 24]).  Kernel 3 is bit-equal to kernel 2 on its
+    rows materialized, and two launches of each are bit-equal.  A bf16
+    table is held against scatter_add_span_plain (atol 1e-5 + rtol 2^-7); a
+    float32 table against the float64 sum of its rows rounded to float32
+    (atol 1e-5 + rtol 1e-5), since the plain version's own float32 sums
+    (index_add_'s running sum over one id's 102,400 rows) are further from
+    it than that; its distance is printed."""
+    from word2bits_tpu_torch.kernels.span_scatter import (
+        SENTINEL, _library, scatter_add_span_plain, scatter_add_span_planned,
+        scatter_add_span_rank1, span_plan)
+    TILE = _library().w2b_span_tile()
+    rng = np.random.default_rng(SEED + 7)
+    V, per_src = 4096, K
+    plans = {
+        "one id": np.full(RANK1_ND * (1 + per_src), 7),
+        "runs": _span_edge_ids(rng, TILE),
+        "sentinels only": np.full(25 * 40, SENTINEL),
+        "N = 0": np.zeros(0, dtype=np.int64)}
+    worst = {"bf16": 0.0, "f32": 0.0}
+    plain_f32 = 0.0
+    for what, ids_np in plans.items():
+        ids = torch.from_numpy(ids_np).to(dev)
+        plan = span_plan(ids, V)
+        nd = ids.numel() // (1 + per_src)
+        nn = ids.numel() - nd
+        for C in widths:
+            gen = torch.Generator(device=dev).manual_seed(SEED + C)
+            dense = torch.randn((nd, C), generator=gen, device=dev) * 0.01
+            g = torch.randn((nn,), generator=gen, device=dev) * 0.01
+            cavg = torch.randn((nd, C), generator=gen, device=dev) * 0.1
+            rows = torch.cat([dense, g[:, None] * cavg[
+                torch.arange(nn, device=dev) // per_src]])
+            base = torch.rand((V, C), generator=gen, device=dev) - 0.5
+            for tdt, rdt in ((torch.bfloat16, torch.float32),
+                             (torch.bfloat16, torch.bfloat16),
+                             (torch.float32, torch.float32)):
+                table0 = base.to(tdt)
+                k2 = [scatter_add_span_planned(table0.clone(), plan,
+                                               rows.to(rdt))
+                      for _ in range(2)]
+                k3 = [scatter_add_span_rank1(table0.clone(), plan,
+                                             dense.to(rdt), g, cavg, per_src)
+                      for _ in range(2)]
+                # kernel 2 on kernel 3's rows materialized: float32 rows,
+                # the dense ones already in rdt
+                mat = scatter_add_span_planned(table0.clone(), plan, torch.cat(
+                    [dense.to(rdt).float(), rows[nd:]]))
+                plain = scatter_add_span_plain(table0.clone(), ids,
+                                               rows.to(rdt))
+                torch.cuda.synchronize()
+                tag = (f"{what}, {str(tdt)[6:]} table, {str(rdt)[6:]} rows, "
+                       f"width {C}")
+                for x, y, name in ((k2[0], k2[1], "kernel 2 twice"),
+                                   (k3[0], k3[1], "kernel 3 twice"),
+                                   (k3[0], mat, "kernel 3 vs kernel 2 on "
+                                    "its rows")):
+                    if not torch.equal(_bits(x), _bits(y)):
+                        _fail(f"span edges ({tag}): {name} not bit-equal, "
+                              f"max abs err {_max_err(x, y):.3e}")
+                if nd == 0 or what == "sentinels only":
+                    if not torch.equal(_bits(k2[0]), _bits(table0)):
+                        _fail(f"span edges ({tag}): the table changed")
+                if tdt == torch.bfloat16:
+                    err = _max_err(k2[0], plain)
+                    if not torch.allclose(k2[0].float(), plain.float(),
+                                          atol=1e-5, rtol=2 ** -7):
+                        _fail(f"span edges ({tag}): max abs err {err:.3e} "
+                              "against the plain version > atol 1e-5 + rtol "
+                              "2^-7")
+                    worst["bf16"] = max(worst["bf16"], err)
+                    continue
+                keep = ids < V
+                exact = base.double().index_add_(
+                    0, ids[keep], rows[keep].double()).float()
+                err = _max_err(k2[0], exact)
+                if not torch.allclose(k2[0], exact, atol=1e-5, rtol=1e-5):
+                    _fail(f"span edges ({tag}): max abs err {err:.3e} "
+                          "against the float64 sum > atol 1e-5 + rtol 1e-5")
+                worst["f32"] = max(worst["f32"], err)
+                plain_f32 = max(plain_f32, _max_err(plain, exact))
+    print(f"[spank edges] tiles of {TILE} slots; {', '.join(plans)} at "
+          f"widths {', '.join(map(str, widths))} in 3 dtype pairs: two "
+          f"launches bit-equal, kernel 3 bit-equal to kernel 2 on its rows; "
+          f"max abs err {worst['bf16']:.3e} against the plain version (bf16 "
+          f"tables), {worst['f32']:.3e} against the float64 sum (float32 "
+          f"tables; the plain version {plain_f32:.3e})")
 
 
 # ---------------------------------------------------------------- kernel 7
@@ -2154,7 +2275,8 @@ def check_accuracy(dev, path: str, threshold: int, n_q: int,
 
 def report_ptxas() -> None:
     """Each kernel's registers, static shared memory and spills as ptxas
-    reported them in this run's build; kernels 1 and 9 must not spill."""
+    reported them in this run's build; kernels 1, 2, 3 (both
+    span_scatter_kernel row sources) and 9 must not spill."""
     from word2bits_tpu_torch.kernels._build import (BUILD_LOGS,
                                                     KERNEL_SOURCES,
                                                     ptxas_usage)
@@ -2168,11 +2290,11 @@ def report_ptxas() -> None:
                   f"registers, {u['smem']} bytes static shared memory, "
                   f"spill stores {u['spill_stores']} B, spill loads "
                   f"{u['spill_loads']} B")
-            if (name in ("context", "sweep_scatter")
+            if (name in ("context", "span_scatter", "sweep_scatter")
                     and (u["spill_stores"] or u["spill_loads"])):
                 spills.append(u["function"])
     if spills:
-        _fail(f"kernels 1 and 9 must not spill: {spills}")
+        _fail(f"kernels 1, 2, 3 and 9 must not spill: {spills}")
 
 
 def main() -> int:
@@ -2216,9 +2338,22 @@ def main() -> int:
     quant = check_quantize(dev)
     sweep = check_sweep(dev)
     check_sweep_edges(dev)
+    check_span_edges(dev)
     print(f"[redesign] kernel 1 at D = 800 {ctx['ms']:.5f} ms (plain "
           f"{ctx['plain_ms']:.5f}), at D = 200 {ctx200['ms']:.5f} ms; kernel 9 "
           f"{sweep['ms']:.5f} ms (index_add_ {sweep['library_ms']:.5f})")
+    # kernels 2 and 3 beside the times of their one-CTA-a-run design
+    # (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6)
+    exact2 = rank1["span_at_exact"]
+    for name, now, before, bound, lib in (
+            ("kernel 3, exact", rank1["ms"], 0.21589, rank1["bound_ms"],
+             rank1["library_ms"]),
+            ("kernel 2, exact", exact2["ms"], 0.2327, exact2["bound_ms"],
+             exact2["library_ms"]),
+            ("kernel 2, shipped", span["ms"], 0.02822, span["bound_ms"],
+             span["library_ms"])):
+        print(f"[redesign] {name}: {now:.5f} ms (one CTA a run: "
+              f"{before:.5f}), bound {bound:.5f}, index_add_ {lib:.5f}")
     work = os.path.join(repo, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)

@@ -98,6 +98,74 @@ def test_span_plain_matches_pallas(rng, V, C, N, n_sentinel):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("V,C,N,head,n_sentinel", [
+    (320, 128, 700, 0.8, 7), (64, 128, 400, 1.0, 0)])
+def test_span_plain_matches_pallas_dominant_head(rng, V, C, N, head,
+                                                 n_sentinel):
+    """One id holding most rows (80%, beside Zipf ids and drop sentinels)
+    or all of them: the Zipf head whose run the kernel cuts into pieces."""
+    table, ids, rows = _scatter_case(rng, V, C, N, 0)
+    ids[rng.random(N) < head] = 3
+    ids[rng.choice(N, n_sentinel, replace=False)] = tspan.SENTINEL
+    want = np.asarray(jspan(jnp.asarray(table), jnp.asarray(ids),
+                            jnp.asarray(rows), window=64, chunk=32,
+                            interpret=True))
+    got = tspan.scatter_add_span(torch.from_numpy(table.copy()),
+                                 torch.from_numpy(ids),
+                                 torch.from_numpy(rows))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
+
+
+def _bad_span_call(rng, bad):
+    """(table, plan, rows) of a scatter that the kernel does not take."""
+    V, C, N = 64, 16, 40
+    table, ids, rows = _scatter_case(rng, V, C, N, 2)
+    table, rows = torch.from_numpy(table), torch.from_numpy(rows)
+    plan = tspan.span_plan(torch.from_numpy(ids).long(), V)
+    if bad == "table dtype":
+        table = table.double()
+    elif bad == "row dtype":
+        rows = rows.to(torch.float16)
+    elif bad == "bf16 rows into a float32 table":
+        rows = rows.to(torch.bfloat16)
+    elif bad == "width":
+        rows = rows[:, :C - 1]
+    elif bad == "batched plan":
+        plan = tspan.span_plan(torch.from_numpy(ids).long()[None], V)
+    elif bad == "plan dtype":
+        plan = plan._replace(order=plan.order.long())
+    elif bad == "not contiguous":
+        rows = torch.from_numpy(np.asfortranarray(rows.numpy()))
+    elif bad == "run_start length":
+        plan = plan._replace(run_start=plan.run_start[:-1])
+    elif bad == "device":
+        rows = rows.to("meta")
+    return table, plan, rows
+
+
+@pytest.mark.parametrize("bad", [
+    "table dtype", "row dtype", "bf16 rows into a float32 table", "width",
+    "batched plan", "plan dtype", "not contiguous", "run_start length",
+    "device"])
+def test_span_wrapper_raises_on_what_the_kernel_does_not_take(rng, bad):
+    """The checks the wrapper makes before a launch (on a CUDA tensor it
+    launches the kernel or raises; it never falls back)."""
+    table, plan, rows = _bad_span_call(rng, bad)
+    with pytest.raises(ValueError):
+        tspan._check("scatter_add_span", table, plan, rows, table.shape[1])
+
+
+def test_span_wrapper_raises_off_cpu_and_cuda(rng):
+    table, plan, rows = _bad_span_call(rng, "none")
+    meta = [t.to("meta") for t in (table, rows)]
+    with pytest.raises(ValueError, match="cpu .* or cuda"):
+        tspan.scatter_add_span_planned(meta[0], plan, meta[1])
+    with pytest.raises(ValueError, match="cpu .* or cuda"):
+        tspan.scatter_add_span_rank1(meta[0], plan, meta[1][:8],
+                                     torch.zeros(32, device="meta"),
+                                     torch.zeros(8, 16, device="meta"), 4)
+
+
 def test_span_plain_bf16_one_rounding_per_row(rng):
     """bf16 table: rows round to bf16, sum in f32, one bf16 add per row."""
     V, C, N = 256, 64, 600

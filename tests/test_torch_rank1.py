@@ -55,6 +55,32 @@ def test_rank1_plain_matches_pallas(rng, V, C, nd, per_src, n_sentinel):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("V,C,nd,per_src,head", [
+    (300, 16, 64, 5, 0.8), (128, 24, 32, 24, 1.0)])
+def test_rank1_plain_matches_pallas_dominant_head(rng, V, C, nd, per_src,
+                                                  head):
+    """One id holding most of the dense and rank-1 rows (80%) or all of
+    them."""
+    table, ids, dense, g, cavg = _case(rng, V, C, nd, per_src)
+    ids[rng.random(ids.size) < head] = 5
+    vp, cp = (-V) % SPAN["window"], (-C) % 128
+    pad = ((0, vp), (0, cp))
+    want = jr1(jnp.pad(jnp.asarray(table), pad),
+               jplan(jnp.asarray(ids), V + vp, **SPAN),
+               jnp.pad(jnp.asarray(dense), ((0, 0), (0, cp))),
+               jnp.asarray(g), jnp.pad(jnp.asarray(cavg), ((0, 0), (0, cp))),
+               per_src, interpret=True, **SPAN)
+    want, _ = params_from_jax(np.asarray(want), np.asarray(want),
+                              dtype=torch.float32, device="cpu",
+                              table_pad=(vp, cp))
+    got = tspan.scatter_add_span_rank1(
+        torch.from_numpy(table.copy()), tspan.span_plan(
+            torch.from_numpy(ids).long(), V), torch.from_numpy(dense),
+        torch.from_numpy(g), torch.from_numpy(cavg), per_src)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rank1_equals_materialized_rows(rng, dtype):
     """The rank-1 rows, formed in float32 and rounded to the table dtype,

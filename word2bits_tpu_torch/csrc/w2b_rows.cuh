@@ -7,6 +7,8 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "w2b_common.cuh"
 
 namespace w2b {
@@ -70,42 +72,59 @@ __device__ __forceinline__ void add_row(const RowT* p, float (&acc)[VEC]) {
   for (int i = 0; i < VEC; ++i) acc[i] += to_f32(from_f32<TableT>(x[i]));
 }
 
-// Row sources of the span scatter: add(o, c, acc) adds columns c..c+VEC-1
-// of update row o (a source index of the unsorted row set), rounded to the
-// table dtype, to acc.
+// Row sources of the span scatter: fetch(o, c, x) sets x to columns
+// c..c+VEC-1 of update row o (a source index of the unsorted row set),
+// rounded to the table dtype and widened to float32.  Every load of a
+// fetch depends on o alone, so a caller that unrolls several fetches has
+// all their loads in flight at once.
 //
 // DenseRows: the rows are materialized, [N, C].
 template <typename TableT, typename RowT, int VEC>
 struct DenseRows {
   const RowT* rows;
   int C;
-  __device__ __forceinline__ void add(int o, int c, float (&acc)[VEC]) const {
-    add_row<TableT, RowT, VEC>(rows + (size_t)o * C + c, acc);
+  __device__ __forceinline__ void fetch(int o, int c, float (&x)[VEC]) const {
+    load_vec<VEC>(rows + (size_t)o * C + c, x);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) x[i] = to_f32(from_f32<TableT>(x[i]));
   }
 };
 
 // Rank1Rows: rows o < nd are dense[o]; row nd + j is g[j] * cavg[j /
 // per_src], formed in float32 and then rounded to the table dtype (the
 // per-center CBOW negative update at reg == 0), so the [N - nd, C] block is
-// never materialized.
+// never materialized.  With float32 dense rows either kind is one vector
+// load times a scale (1 for a dense row: exact), so g[j] and the row are
+// loaded together without a branch.
 template <typename TableT, typename RowT, int VEC>
 struct Rank1Rows {
   const RowT* dense;   // [nd, C]
   const float* g;      // [N - nd]
   const float* cavg;   // [(N - nd) / per_src, C]
   int nd, per_src, C;
-  __device__ __forceinline__ void add(int o, int c, float (&acc)[VEC]) const {
-    if (o < nd) {
-      add_row<TableT, RowT, VEC>(dense + (size_t)o * C + c, acc);
-      return;
-    }
+  __device__ __forceinline__ void fetch(int o, int c, float (&x)[VEC]) const {
     const int j = o - nd;
-    const float gj = g[j];
-    float x[VEC];
-    load_vec<VEC>(cavg + (size_t)(j / per_src) * C + c, x);
+    if constexpr (std::is_same<RowT, float>::value) {
+      const bool d = o < nd;
+      const float s = d ? 1.0f : __ldg(g + j);
+      load_vec<VEC>(d ? dense + (size_t)o * C + c
+                      : cavg + (size_t)(j / per_src) * C + c, x);
 #pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      acc[i] += to_f32(from_f32<TableT>(__fmul_rn(gj, x[i])));
+      for (int i = 0; i < VEC; ++i)
+        x[i] = to_f32(from_f32<TableT>(__fmul_rn(s, x[i])));
+    } else {
+      if (o < nd) {
+        load_vec<VEC>(dense + (size_t)o * C + c, x);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) x[i] = to_f32(from_f32<TableT>(x[i]));
+        return;
+      }
+      const float gj = __ldg(g + j);
+      load_vec<VEC>(cavg + (size_t)(j / per_src) * C + c, x);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        x[i] = to_f32(from_f32<TableT>(__fmul_rn(gj, x[i])));
+    }
   }
 };
 

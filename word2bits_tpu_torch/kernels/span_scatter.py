@@ -5,20 +5,25 @@ the JAX package's TPU span-sweep kernel (kernels/span_scatter.py,
 `_span_kernel` via `_span_call`).  It keeps the contract, not the TPU
 mechanism: rows are taken in the table dtype, duplicates are summed in
 float32, each touched row gets ONE add in the table dtype with no atomics
-(deterministic), ids outside [0, V) — the 0x7FFFFFF0 drop sentinel — are
-dropped, and the table is updated in place with no table-sized temporary.
+on the table or on a sum (deterministic), ids outside [0, V) — the
+0x7FFFFFF0 drop sentinel — are dropped, and the table is updated in place
+with no table-sized temporary.
 
 The plan is plain PyTorch: one stable sort of the ids plus the start of
 every run of equal in-range ids.  It depends only on the ids, so the
 training chunk builds it once for all S steps (batched over a leading
-dimension) and each step launches only the kernel.  One block sums one
-run, gathering rows[order[k]] directly from the unsorted rows, with the
-run's rows spread over a few row lanes that it adds in a fixed order.
+dimension) and each step launches only the kernel.  The kernel cuts the
+sorted stream into tiles of 64 slots (and the columns into groups of at
+most 128), one CTA each: a run inside a tile is summed there in chunks of
+at most 4 rows, one thread each, and the chunks added in order; a run cut
+by tile edges (the Zipf head) is summed piece by piece, in parallel, into
+float32 partials, and the CTA of its last-arriving piece adds them in
+tile order to the row.  So no thread sums more than 4 of a run's rows in
+series, and the order is fixed by the plan.
 
 Bound on the H100 (3.35 TB/s): bytes — the rows read once, each touched
-table row read and written once (~10 us at the main path).  A Zipf-head run
-of hundreds of rows is still summed by one block, so the longest run sets
-a floor that the bytes do not show; the kernel's time is in PERF.md.
+table row read and written once (~10 us at the main path); the kernel's
+time is in PERF.md.
 
 `scatter_add_span_rank1` is the same scatter whose trailing rows are
 rank-1, g[j] * cavg[j // per_src] (the per-center step's negative update at
@@ -27,14 +32,17 @@ reg == 0), formed inside the kernel (replacing the JAX package's
 block is never materialized.  The JAX package measured it slower than the
 materialized rows on the TPU, where XLA fused the broadcast multiply into
 its gather; PyTorch fuses nothing, so here it saves a write and a read of
-that block (PERF.md has both times).
+that block (PERF.md has both times).  The two entry points sum in one
+order, so they are bit-equal on the same rows.
 
 `scatter_add_span_planned` / `scatter_add_span` / `scatter_add_span_rank1`
 run the plain version for CPU tensors (an f32 `index_add_` into a temporary
 holding the touched rows, then one cast-add) and launch the kernel for
 CUDA tensors, raising on what it does not take; there is no fallback.
-`scatter_add_span_planned.launches` and `scatter_add_span_rank1.launches`
-count kernel launches.
+Every launch on a device uses the same workspace (`_workspace`), so two
+calls must not run at once on different streams; no path of the port
+does that.  `scatter_add_span_planned.launches` and
+`scatter_add_span_rank1.launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -116,7 +124,32 @@ def _library() -> ctypes.CDLL:
                                            + [ctypes.c_int] * 7
                                            + [ctypes.c_void_p])
     lib.w2b_span_scatter_rank1.restype = ctypes.c_int
+    lib.w2b_span_tile.restype = ctypes.c_int
+    for fn in (lib.w2b_span_partials, lib.w2b_span_counters):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_longlong
     return lib
+
+
+_WORKSPACE: dict = {}
+
+
+def _workspace(device: torch.device, N: int, C: int):
+    """The kernel's workspace on `device` for a plan of N ids and rows of
+    C columns: float32 partials (2 per tile of the sorted stream, C wide)
+    and int32 arrival counters (1 per tile and column group), allocated
+    zero once and grown when a call needs more; each call leaves the
+    counters zero.  Every call on the device shares it, so two calls must
+    not run at once on different streams (no path of the port does that)."""
+    lib = _library()
+    n_part, n_count = lib.w2b_span_partials(N, C), lib.w2b_span_counters(N, C)
+    part, count = _WORKSPACE.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if count is None or count.numel() < n_count:
+        count = torch.zeros(n_count, dtype=torch.int32, device=device)
+    _WORKSPACE[device] = (part, count)
+    return part, count
 
 
 def _check(fn: str, table, plan: SpanPlan, rows, C: int, *others) -> None:
@@ -153,9 +186,11 @@ def _check(fn: str, table, plan: SpanPlan, rows, C: int, *others) -> None:
         raise ValueError(f"{fn}: plan.run_start must have N+1 entries")
 
 
-def _plan_ptrs(plan: SpanPlan):
-    return (plan.sids.data_ptr(), plan.order.data_ptr(),
-            plan.run_start.data_ptr(), plan.n_runs.data_ptr())
+def _plan_ptrs(plan: SpanPlan, C: int):
+    """The kernel's plan and workspace pointers."""
+    part, count = _workspace(plan.sids.device, plan.sids.shape[-1], C)
+    return (plan.sids.data_ptr(), plan.order.data_ptr(), part.data_ptr(),
+            count.data_ptr())
 
 
 def _launch(table, plan: SpanPlan, rows):
@@ -167,7 +202,7 @@ def _launch(table, plan: SpanPlan, rows):
                          f"of {N} ids")
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _library().w2b_span_scatter(
-        table.data_ptr(), rows.data_ptr(), *_plan_ptrs(plan), N, V, C,
+        table.data_ptr(), rows.data_ptr(), *_plan_ptrs(plan, C), N, V, C,
         _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
     check_launch("w2b_span_scatter", err)
     scatter_add_span_planned.launches += 1
@@ -228,7 +263,7 @@ def _launch_rank1(table, plan: SpanPlan, dense_rows, g, cavg, per_src: int):
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _library().w2b_span_scatter_rank1(
         table.data_ptr(), dense_rows.data_ptr(), g.data_ptr(),
-        cavg.data_ptr(), *_plan_ptrs(plan), N, nd, per_src, V, C,
+        cavg.data_ptr(), *_plan_ptrs(plan, C), N, nd, per_src, V, C,
         _DTYPES[table.dtype], _DTYPES[dense_rows.dtype], stream)
     check_launch("w2b_span_scatter_rank1", err)
     scatter_add_span_rank1.launches += 1
