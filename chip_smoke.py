@@ -5,9 +5,11 @@
 from the root of a checkout.  It builds the port's CUDA kernels from
 word2bits_tpu_torch/csrc/ (one nvcc per source, all at once; [ptxas]
 prints each kernel's registers, shared memory and spills, and kernels 1,
-2, 3 and 9 must not spill), holds each against its plain PyTorch version
+2, 3, 5, 7 and 9 must not spill), holds each against its plain PyTorch version
 at the shapes of the paths that run it ([context], [span], [score],
-[rank1] with kernel 2 on its float32 table, [hotk], [grmw], [rmwk],
+[score edges] ragged tiles at bitlevels 0/1/2/4/8, [rank1] with kernel 2
+on its float32 table, [hotk], [grmw], [grmw edges] kernel 7 at its tiles'
+edges in three dtype pairs at widths 37, 200 and 1,600, [rmwk],
 [context@800], [context@exact] on float32 rows, [context@mask] on
 non-banded random masks, [quantk] kernel 4 at the capacity export's
 block, on a bf16 table and on the whole 3.7M x 800 sum, [sweepk] kernel
@@ -510,10 +512,18 @@ def check_score(dev) -> dict:
     is not compared; every other row: atol 1e-5 + rtol 1e-4.  Loss: rtol
     1e-5 plus the log-sigmoid jump for each pair at +-6."""
     from word2bits_tpu_torch.kernels.score_pallas import (
-        quantized_scores_pallas, quantized_scores_plain)
+        _library, cluster_size, quantized_scores_pallas,
+        quantized_scores_plain, smem_bytes)
     from word2bits_tpu_torch.ops.quantize import quantize
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     T, PK = SCORE_T, SCORE_PK
+    lib = _library()
+    for shape in ((G, PK, D), (9, 15, 37), (128, 24, 800)):
+        for cl in (1, 2, 4):
+            if (lib.w2b_score_smem_bytes(*shape, cl)
+                    != smem_bytes(*shape, cl)):
+                _fail(f"score kernel: the wrapper's shared-memory size at "
+                      f"{shape}, cluster {cl} differs from the kernel's")
     cavg3 = torch.randn((T, G, D), generator=gen, device=dev) * 0.1
     v_rows = torch.rand((T, PK, D), generator=gen, device=dev) - 0.5
     centers3 = torch.randint(0, 70_000, (T, G), generator=gen, device=dev)
@@ -526,8 +536,12 @@ def check_score(dev) -> dict:
         for reg in (0.0, 0.01):
             args = (cavg3, v_rows, centers3, negs, af3, alpha, bl, reg, P)
             got = quantized_scores_pallas(*args)
+            again = quantized_scores_pallas(*args)
             want = quantized_scores_plain(*args)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                _fail(f"score kernel at bitlevel {bl}, reg {reg}: two "
+                      "launches on the same inputs differ")
             f = torch.bmm(cavg3, quantize(v_rows, bl).transpose(1, 2))
             edge = _edge_pairs(f)
             keep_g = ~edge.any(dim=2)            # cavge rows [T, G]
@@ -553,7 +567,7 @@ def check_score(dev) -> dict:
                   f"{max(errs):.3e} over {int(keep_g.sum())} of {T * G} "
                   f"cavge rows and {int(keep_k.sum())} of {T * PK} dv rows "
                   f"({int(edge.sum())} pairs at a score edge); loss "
-                  f"{lg:.6f} vs plain {lw:.6f}")
+                  f"{lg:.6f} vs plain {lw:.6f}; two launches bit-equal")
     args = (cavg3, v_rows, centers3, negs, af3, alpha, 1, 0.0, P)
     ms = _time_ms(lambda: quantized_scores_pallas(*args))
     plain_ms = _time_ms(lambda: quantized_scores_plain(*args))
@@ -574,6 +588,10 @@ def check_score(dev) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    cl = cluster_size(G, PK, D)
+    print(f"[score] clusters of {cl} CTAs a tile ({T * cl} CTAs of "
+          f"{lib.w2b_score_threads()} threads, {smem_bytes(G, PK, D, cl)} "
+          f"bytes of shared memory each)")
     print(f"[score] bitlevel 1 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"the three bmm products alone {bmm_ms:.4f} ms; bound "
           f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms for {nbytes} bytes, "
@@ -584,8 +602,81 @@ def check_score(dev) -> dict:
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=None, bmm_only_ms=bmm_ms,
+                library_ms=None, bmm_only_ms=bmm_ms, config=dict(
+                    cluster=cl, threads=lib.w2b_score_threads()),
                 shapes=f"T={T}, G={G}, P*K={PK}, D={D}, f32")
+
+
+# (T, G, P, K, D): T = 1, T not a multiple of the cluster size, P = 1, 2
+# and 3, ragged G, P*K and D (D = 37 and 203: 4-byte copies), and the
+# capacity width D = 800 (too wide for one CTA: a cluster of 2 at least)
+SCORE_EDGE_CASES = ((1, 64, 2, 24, 200), (3, 9, 3, 5, 37), (5, 13, 1, 7, 8),
+                    (2, 64, 3, 16, 203), (7, 128, 1, 24, 100),
+                    (3, 64, 1, 24, 800))
+
+
+def check_score_edges(dev) -> None:
+    """Kernel 5 at the cluster design's edges (SCORE_EDGE_CASES) at
+    bitlevels 0, 1, 2, 4 and 8, reg 0 and 0.01, with clusters of 1, 2 and
+    4 CTAs a tile (the wrapper's CLUSTER set for the check): against the
+    plain version with [score]'s tolerance (rows holding a pair at a score
+    edge are not compared), the loss too, and two launches bit-equal."""
+    from word2bits_tpu_torch.kernels import score_pallas
+    from word2bits_tpu_torch.kernels.score_pallas import (
+        quantized_scores_pallas, quantized_scores_plain)
+    from word2bits_tpu_torch.ops.quantize import quantize
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    worst, n = 0.0, 0
+    kept = score_pallas.CLUSTER
+    for (T, G_, P_, K_, D_), cl in ((c, cl) for c in SCORE_EDGE_CASES
+                                    for cl in (1, 2, 4)):
+        score_pallas.CLUSTER = cl
+        PK = P_ * K_
+        cavg3 = torch.randn((T, G_, D_), generator=gen, device=dev) * 0.1
+        v_rows = torch.rand((T, PK, D_), generator=gen, device=dev) - 0.5
+        centers3 = torch.randint(0, 50, (T, G_), generator=gen, device=dev)
+        negs = torch.randint(0, 50, (T, PK), generator=gen, device=dev)
+        negs[:, 0] = centers3[:, 0]
+        af3 = (torch.rand((T, G_), generator=gen, device=dev) < 0.9).float()
+        alpha = torch.full((1, 1), 0.05, device=dev)
+        for bl in (0, 1, 2, 4, 8):
+            for reg in (0.0, 0.01):
+                args = (cavg3, v_rows, centers3, negs, af3, alpha, bl, reg,
+                        P_)
+                got = quantized_scores_pallas(*args)
+                again = quantized_scores_pallas(*args)
+                want = quantized_scores_plain(*args)
+                torch.cuda.synchronize()
+                tag = (f"T={T}, G={G_}, P={P_}, K={K_}, D={D_}, cluster "
+                       f"{cl}, bitlevel {bl}, reg {reg}")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    _fail(f"score edges ({tag}): two launches differ")
+                f = torch.bmm(cavg3, quantize(v_rows, bl).transpose(1, 2))
+                edge = _edge_pairs(f)
+                for name, gt, wt, keep in (
+                        ("cavge", got[0], want[0], ~edge.any(dim=2)),
+                        ("dv", got[1], want[1], ~edge.any(dim=1))):
+                    gt, wt = gt[keep], wt[keep]
+                    if gt.numel() and not torch.allclose(gt, wt, atol=1e-5,
+                                                         rtol=1e-4):
+                        _fail(f"score edges ({tag}) {name}: max abs err "
+                              f"{_max_err(gt, wt):.3e} > atol 1e-5 + rtol "
+                              "1e-4")
+                    if gt.numel():
+                        worst = max(worst, _max_err(gt, wt))
+                n6 = int((((f.abs() - 6.0).abs() < 2e-5)
+                          & (af3[:, :, None] > 0)).sum())
+                lg, lw = float(got[2]), float(want[2])
+                allow = 1e-5 * abs(lw) + max(_JUMP_LO, _JUMP_HI) * n6
+                if not math.isfinite(lg) or abs(lg - lw) > allow:
+                    _fail(f"score edges ({tag}) loss: {lg} vs {lw} (allowed "
+                          f"{allow:.4g})")
+                n += 1
+    score_pallas.CLUSTER = kept
+    print(f"[score edges] {n} cases ((T, G, P, K, D) in {SCORE_EDGE_CASES}, "
+          f"bitlevels 0/1/2/4/8, reg 0 and 0.01, clusters of 1, 2 and 4 "
+          f"CTAs, 2 at least at D = 800): two launches bit-equal, max abs "
+          f"err {worst:.3e}")
 
 
 # ---------------------------------------------------------------- kernel 3
@@ -807,7 +898,7 @@ def check_grmw(dev) -> dict:
     rounding into the table); every other row must be untouched in both."""
     from word2bits_tpu_torch.kernels.group_rmw import (
         group_plan, group_rows, scatter_add_grmw_plain,
-        scatter_add_grmw_planned)
+        scatter_add_grmw_planned, tile_config)
     rng = np.random.default_rng(SEED + 7)
     V, C, N = FLAG_V, 2 * FLAG_D, FLAG_N
     n_slab = FLAG_B + 2 * W
@@ -819,10 +910,17 @@ def check_grmw(dev) -> dict:
         device=dev).manual_seed(SEED + 1))
     want = got.clone()
     plan = group_plan(ids, group_rows(got.dtype))
+    touched = torch.unique(ids[ids < V])
+    before = got[touched]
+    scatter_add_grmw_planned(got, plan, rows)
+    first = got[touched]
+    got[touched] = before                       # and once more
     scatter_add_grmw_planned(got, plan, rows)
     scatter_add_grmw_plain(want, ids, rows)
     torch.cuda.synchronize()
-    touched = torch.unique(ids[ids < V])
+    if not torch.equal(_bits(first), _bits(got[touched])):
+        _fail("grmw: two launches on the same inputs differ")
+    del before, first
     g, w = got[touched].float(), want[touched].float()
     err = _max_err(g, w)
     if not torch.allclose(g, w, atol=1e-5, rtol=2 ** -7):
@@ -839,9 +937,13 @@ def check_grmw(dev) -> dict:
     vr, rs = plan.vis_run.long(), plan.run_start.long()
     vis_rows = rs[vr[1:n_vis + 1]] - rs[vr[:n_vis]]
     n_groups = int(torch.unique(touched >> 4).numel())
+    cfg = tile_config()
     print(f"[grmw] max abs err {err:.3e}; {N} rows, {touched.numel()} "
-          f"distinct ids in {n_groups} groups, {n_vis} visits, longest "
-          f"visit {int(vis_rows.max())} rows")
+          f"distinct ids in {n_groups} groups ({n_vis} visits of kernel 8's "
+          f"plan, longest {int(vis_rows.max())} rows); two launches "
+          f"bit-equal; tiles of {cfg['L']} slots, {cfg['THREADS']} threads, "
+          f"chunks of {cfg['SUB']} rows, {cfg['IB']} in flight, groups of at "
+          f"most {cfg['GROUP']} columns")
     ms = _time_ms(lambda: scatter_add_grmw_planned(got, plan, rows))
     plain_ms = _time_ms(lambda: scatter_add_grmw_plain(want, ids, rows))
     keep = ids < V
@@ -860,7 +962,114 @@ def check_grmw(dev) -> dict:
                 replaces="word2bits_tpu/kernels/group_rmw.py:184",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
-                shapes=f"table [{V}, {C}] bf16, {N} f32 rows")
+                config=cfg, shapes=f"table [{V}, {C}] bf16, {N} f32 rows")
+
+
+def _grmw_edge_plans(rng, L: int) -> dict:
+    """Id sets at the edges of kernel 7's tiles (L slots): one id holding
+    80% of 12,800 rows beside Zipf ids, drop sentinels and negative ids
+    (its run longer than many tiles); one id holding all of them; N below
+    one tile; sentinels and negative ids only; N = 0."""
+    from word2bits_tpu_torch.kernels.span_scatter import SENTINEL
+    n = 12_800
+    head = np.minimum(rng.zipf(1.3, n) - 1, 3000) + 10
+    head[rng.random(n) < 0.8] = 5
+    head[rng.choice(n, 64, replace=False)] = SENTINEL
+    head[rng.choice(n, 16, replace=False)] = -1
+    head[rng.choice(n, 4, replace=False)] = -7
+    short = np.minimum(rng.zipf(1.3, L - 7) - 1, 40)
+    short[:3] = SENTINEL
+    dropped = np.where(rng.random(1000) < 0.5, SENTINEL, -3)
+    return {"head 80%": head.astype(np.int64),
+            "one id": np.full(n, 9, dtype=np.int64),
+            f"N = {L - 7}": short.astype(np.int64),
+            "sentinels and negative ids only": dropped.astype(np.int64),
+            "N = 0": np.zeros(0, dtype=np.int64)}
+
+
+def check_grmw_edges(dev, widths=(37, 200, 1600)) -> dict:
+    """Kernel 7 at its tiles' edges (_grmw_edge_plans), for each dtype pair
+    (a bf16 table with float32 and with bf16 rows, a float32 table with
+    float32 rows) at widths 37 (one column a thread), 200 and 1,600: two
+    launches bit-equal; ids outside [0, V) dropped (a plan of them only
+    leaves the table as it was); a bf16 table held against its plain
+    version (atol 1e-5 + rtol 2^-7), a float32 one against the float64 sum
+    of its rows (atol 1e-5 + rtol 1e-5).  Kernel 7 and kernel 2 are timed
+    on the "head 80%" rows at each width (bf16 table, float32 rows)."""
+    from word2bits_tpu_torch.kernels.group_rmw import (
+        group_plan, group_rows, scatter_add_grmw_plain,
+        scatter_add_grmw_planned, tile_config)
+    from word2bits_tpu_torch.kernels.span_scatter import (
+        scatter_add_span_planned, span_plan)
+    L = tile_config()["L"]
+    rng = np.random.default_rng(SEED + 8)
+    V = 4096
+    worst = {"bf16": 0.0, "f32": 0.0}
+    times = {}
+    for what, ids_np in _grmw_edge_plans(rng, L).items():
+        ids = torch.from_numpy(ids_np).to(dev)
+        for C in widths:
+            gen = torch.Generator(device=dev).manual_seed(SEED + C)
+            rows = torch.randn((ids.numel(), C), generator=gen,
+                               device=dev) * 0.01
+            base = torch.rand((V, C), generator=gen, device=dev) - 0.5
+            for tdt, rdt in ((torch.bfloat16, torch.float32),
+                             (torch.bfloat16, torch.bfloat16),
+                             (torch.float32, torch.float32)):
+                table0 = base.to(tdt)
+                plan = group_plan(ids, group_rows(tdt))
+                r = rows.to(rdt)
+                k7 = [scatter_add_grmw_planned(table0.clone(), plan, r)
+                      for _ in range(2)]
+                plain = scatter_add_grmw_plain(table0.clone(), ids, r)
+                torch.cuda.synchronize()
+                tag = (f"{what}, {str(tdt)[6:]} table, {str(rdt)[6:]} rows, "
+                       f"width {C}")
+                if not torch.equal(_bits(k7[0]), _bits(k7[1])):
+                    _fail(f"grmw edges ({tag}): two launches not bit-equal, "
+                          f"max abs err {_max_err(k7[0], k7[1]):.3e}")
+                keep = (ids >= 0) & (ids < V)
+                if not bool(keep.any()) and not torch.equal(
+                        _bits(k7[0]), _bits(table0)):
+                    _fail(f"grmw edges ({tag}): the table changed")
+                if tdt == torch.bfloat16:
+                    err = _max_err(k7[0], plain)
+                    if not torch.allclose(k7[0].float(), plain.float(),
+                                          atol=1e-5, rtol=2 ** -7):
+                        _fail(f"grmw edges ({tag}): max abs err {err:.3e} "
+                              "against the plain version > atol 1e-5 + rtol "
+                              "2^-7")
+                    worst["bf16"] = max(worst["bf16"], err)
+                else:
+                    exact = base.double().index_add_(
+                        0, ids[keep], rows[keep].double()).float()
+                    err = _max_err(k7[0], exact)
+                    if not torch.allclose(k7[0], exact, atol=1e-5,
+                                          rtol=1e-5):
+                        _fail(f"grmw edges ({tag}): max abs err {err:.3e} "
+                              "against the float64 sum > atol 1e-5 + rtol "
+                              "1e-5")
+                    worst["f32"] = max(worst["f32"], err)
+                if what == "head 80%" and tdt == torch.bfloat16 \
+                        and rdt == torch.float32:
+                    scratch = table0.clone()
+                    splan = span_plan(ids, V)
+                    times[C] = (
+                        _time_ms(lambda: scatter_add_grmw_planned(
+                            scratch, plan, r)),
+                        _time_ms(lambda: scatter_add_span_planned(
+                            scratch, splan, r)))
+    print(f"[grmw edges] tiles of {L} slots; "
+          f"{', '.join(_grmw_edge_plans(np.random.default_rng(0), L))} at "
+          f"widths {', '.join(map(str, widths))} in 3 dtype pairs: two "
+          f"launches bit-equal; max abs err {worst['bf16']:.3e} against the "
+          f"plain version (bf16 tables), {worst['f32']:.3e} against the "
+          f"float64 sum (float32 tables)")
+    print("[grmw edges] 12,800 rows, one id holding 80%, into a [4096, C] "
+          "bf16 table: " + "; ".join(
+              f"width {C}: kernel 7 {a:.5f} ms, kernel 2 {b:.5f} ms"
+              for C, (a, b) in times.items()))
+    return {str(C): dict(ms=a, span_ms=b) for C, (a, b) in times.items()}
 
 
 # ---------------------------------------------------------------- kernel 6
@@ -2275,8 +2484,9 @@ def check_accuracy(dev, path: str, threshold: int, n_q: int,
 
 def report_ptxas() -> None:
     """Each kernel's registers, static shared memory and spills as ptxas
-    reported them in this run's build; kernels 1, 2, 3 (both
-    span_scatter_kernel row sources) and 9 must not spill."""
+    reported them in this run's build; kernels 1, 2, 3 (both row sources of
+    the tile template), 5, 7 (the tile template in group_rmw.cu) and 9
+    must not spill."""
     from word2bits_tpu_torch.kernels._build import (BUILD_LOGS,
                                                     KERNEL_SOURCES,
                                                     ptxas_usage)
@@ -2290,11 +2500,13 @@ def report_ptxas() -> None:
                   f"registers, {u['smem']} bytes static shared memory, "
                   f"spill stores {u['spill_stores']} B, spill loads "
                   f"{u['spill_loads']} B")
-            if (name in ("context", "span_scatter", "sweep_scatter")
-                    and (u["spill_stores"] or u["spill_loads"])):
+            held = (name in ("context", "span_scatter", "sweep_scatter",
+                             "score")
+                    or "tile_scatter_kernel" in u["function"])
+            if held and (u["spill_stores"] or u["spill_loads"]):
                 spills.append(u["function"])
     if spills:
-        _fail(f"kernels 1, 2, 3 and 9 must not spill: {spills}")
+        _fail(f"kernels 1, 2, 3, 5, 7 and 9 must not spill: {spills}")
 
 
 def main() -> int:
@@ -2326,10 +2538,12 @@ def main() -> int:
     ctx200 = check_context(dev, B, D, "context")
     span = check_span(dev)
     score = check_score(dev)
+    check_score_edges(dev)
     rank1 = check_rank1(dev)
     hot = check_hot(dev)
     check_step_and_chunk(dev)
     grmw = check_grmw(dev)
+    grmw["at_widths"] = check_grmw_edges(dev)
     rmw = check_rmw(dev)
     ctx = check_context(dev, FLAG_B, FLAG_D, "context@800")
     ctx_exact = check_context(dev, EXACT_B, D, "context@exact",
@@ -2354,6 +2568,14 @@ def main() -> int:
              span["library_ms"])):
         print(f"[redesign] {name}: {now:.5f} ms (one CTA a run: "
               f"{before:.5f}), bound {bound:.5f}, index_add_ {lib:.5f}")
+    # kernels 5 and 7 beside the times of their earlier designs (one CTA a
+    # tile; one CTA a visit), NVIDIA H100 80GB HBM3, 700 W, PERF.md section 6
+    print(f"[redesign] kernel 5: {score['ms']:.5f} ms (one CTA a tile: "
+          f"0.06411), bound {score['bound_ms']:.5f}, the three bmm "
+          f"{score['bmm_only_ms']:.5f}")
+    print(f"[redesign] kernel 7: {grmw['ms']:.5f} ms (one CTA a visit: "
+          f"0.24240), bound {grmw['bound_ms']:.5f}, index_add_ "
+          f"{grmw['library_ms']:.5f}")
     work = os.path.join(repo, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -2389,6 +2611,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes",
             "launches_by_path", "at_d200", "at_exact", "bmm_only_ms",
             "span_materialized_ms", "span_materialized_with_forming_ms",
+            "config", "at_widths",
             "plan_ms", "stratified_extra_ms", "bf16", "whole_ms",
             "whole_bound_ms", "export_blocks_ms", "export_blocks_plain_ms")
     print(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")

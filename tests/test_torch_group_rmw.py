@@ -2,10 +2,15 @@
 scatter_add_grmw (interpret mode, CPU).
 
 On CPU tensors the port's wrappers run the plain version (the CUDA kernel
-runs only on the card, where chip_smoke.py holds it against that plain
-version at the 3.7M x 800d shapes).  The cases are those of
-tests/test_group_rmw.py, always with chunk >= slots: the JAX kernel reads
-past its block when chunk < slots, and the port raises there.
+runs only on the card, where chip_smoke.py's [grmw] and [grmw edges]
+phases hold it against that plain version at the 3.7M x 800d shapes and at
+its tiles' edges).  The cases are those of tests/test_group_rmw.py, always
+with chunk >= slots: the JAX kernel reads past its block when chunk <
+slots, and the port raises there; and the shapes the tiled kernel's design
+makes risky: one id holding 80% of the rows or all of them (its run cut
+over many tiles), beside drop sentinels and negative ids, and a width that
+is not a multiple of 4.  The checks the wrapper makes before a launch
+(`_check`) are tested too.
 
 Tolerances.  float32 tables: both sum each id's rows in float32 in another
 order, so an entry may differ by the reordering error of its sum, held to
@@ -213,8 +218,9 @@ def test_chunk_below_slots_raises(rng):
 
 
 def _walk(table, plan, rows, V):
-    """The CUDA kernel's traversal, in Python: CTA per visit, its runs in
-    order, each run summed in float32 and added once."""
+    """Kernel 8's traversal (the visits' CTAs; kernel 7 reads only the
+    sorted ids and order), in Python: CTA per visit, its runs in order,
+    each run summed in float32 and added once."""
     seen = set()
     for v in range(int(plan.n_vis)):
         r0, r1 = int(plan.vis_run[v]), int(plan.vis_run[v + 1])
@@ -276,3 +282,89 @@ def test_wrapper_counts_only_launches(rng):
     assert tg.scatter_add_grmw_planned.launches == before
     assert tg.group_rows(torch.bfloat16) == 16
     assert tg.group_rows(torch.float32) == 8
+
+
+@pytest.mark.parametrize("V,C,N,head,n_sentinel", [
+    (320, 128, 700, 0.8, 7), (64, 128, 400, 1.0, 0), (320, 37, 700, 0.8, 7)])
+def test_grmw_matches_jax_dominant_head(rng, V, C, N, head, n_sentinel):
+    """One id holding most rows (80%, beside uniform ids and drop
+    sentinels) or all of them: the Zipf head whose run the kernel cuts
+    into pieces over many tiles; C = 37 is no multiple of 4 (one column a
+    thread)."""
+    table, ids, rows = _case(rng, V, C, N)
+    ids[rng.random(N) < head] = 3
+    ids[rng.choice(N, n_sentinel, replace=False)] = SENTINEL
+    want = _jax(table, ids, rows)
+    got = _port(table, ids, rows)
+    _assert_f32_close(got, want, table, ids, rows)
+
+
+def test_grmw_drops_negative_ids(rng):
+    """Negative ids sort first in the plan and are dropped, as ids >= V
+    are (the JAX package's mode='drop')."""
+    V, C, N = 256, 37, 500
+    table, ids, rows = _case(rng, V, C, N, dup_heavy=True)
+    ids[::11] = -1
+    ids[5::13] = SENTINEL
+    want = table.astype(np.float64)
+    keep = (ids >= 0) & (ids < V)
+    np.add.at(want, ids[keep], rows[keep])
+    got = _port(table, ids, rows)
+    _assert_f32_close(got, want, table, ids, rows)
+    plan = tg.group_plan(torch.from_numpy(ids), 8)
+    assert (plan.sids[:int((ids < 0).sum())] < 0).all()
+
+
+def _bad_grmw_call(rng, bad):
+    """(table, plan, rows) of a scatter that the kernel does not take."""
+    V, C, N = 64, 16, 40
+    table, ids, rows = _case(rng, V, C, N, dup_heavy=True)
+    table, rows = torch.from_numpy(table), torch.from_numpy(rows)
+    plan = tg.group_plan(torch.from_numpy(ids), 8)
+    if bad == "table dtype":
+        table = table.double()
+    elif bad == "row dtype":
+        rows = rows.to(torch.float16)
+    elif bad == "bf16 rows into a float32 table":
+        rows = rows.to(torch.bfloat16)
+    elif bad == "width":
+        rows = rows[:, :C - 1]
+    elif bad == "batched plan":
+        plan = tg.group_plan(torch.from_numpy(ids)[None], 8)
+    elif bad == "plan dtype":
+        plan = plan._replace(order=plan.order.long())
+    elif bad == "not contiguous":
+        rows = torch.from_numpy(np.asfortranarray(rows.numpy()))
+    elif bad == "run_start length":
+        plan = plan._replace(run_start=plan.run_start[:-1])
+    elif bad == "vis_run length":
+        plan = plan._replace(vis_run=plan.vis_run[:-1])
+    elif bad == "device":
+        rows = rows.to("meta")
+    return table, plan, rows
+
+
+@pytest.mark.parametrize("bad", [
+    "table dtype", "row dtype", "bf16 rows into a float32 table", "width",
+    "batched plan", "plan dtype", "not contiguous", "run_start length",
+    "vis_run length", "device"])
+def test_grmw_wrapper_raises_on_what_the_kernel_does_not_take(rng, bad):
+    """The checks the wrappers of kernels 7 and 8 make before a launch (on
+    a CUDA tensor each launches its kernel or raises; neither falls
+    back)."""
+    table, plan, rows = _bad_grmw_call(rng, bad)
+    with pytest.raises(ValueError):
+        tg._check("scatter_add_grmw", table, plan, rows)
+
+
+def test_grmw_check_takes_a_good_call(rng):
+    table, plan, rows = _bad_grmw_call(rng, "none")
+    tg._check("scatter_add_grmw", table, plan, rows)
+    tg._check("scatter_add_grmw", table.to(torch.bfloat16), plan,
+              rows.to(torch.bfloat16))
+
+
+def test_grmw_wrapper_raises_off_cpu_and_cuda(rng):
+    table, plan, rows = _bad_grmw_call(rng, "none")
+    with pytest.raises(ValueError, match="cpu .* or cuda"):
+        tg.scatter_add_grmw_planned(table.to("meta"), plan, rows.to("meta"))

@@ -32,35 +32,14 @@
 // mode's shape) and most runs one to three rows; a run summed by one CTA
 // would set the kernel's time by its length.  So the sorted stream is cut
 // into tiles of L slots and the columns into groups of at most GROUP, one
-// CTA each, all at once (column groups never meet):
-//   * The CTA stages its tile's ids and source rows in shared memory; warp
-//     0 finds the runs in it (ballots on neighbouring ids) and cuts each
-//     into chunks of at most SUB rows.
-//   * Every (chunk, column vector) item goes to one thread, IB at a time,
-//     neighbouring threads on neighbouring columns; the thread sums the
-//     chunk's rows from 0 in slot order, all of them in flight together.
-//     A run of one chunk (most runs) is finished by that thread: its table
-//     row's read was in flight with the rows, and it makes the row's one
-//     read-modify-write.  A longer run's chunk sums go to shared memory,
-//     and after a barrier one thread per column vector adds them in chunk
-//     order and makes the row's read-modify-write.  So no thread sums more
-//     than SUB of a run's rows in series, and no CTA more than L.
-//   * A run cut by tile edges leaves one piece in each tile it touches,
-//     summed as above into a float32 partial of the workspace (slot 2t + 1
-//     for the piece in the run's first tile t, 2t in a later tile t).  Each
-//     piece's CTA writes its partial, fences, and bumps the run's arrival
-//     counter (one per first tile and column group; the kernel's only
-//     atomics); the CTA that arrives last adds the partials in tile order,
-//     one thread per column vector, makes the run's one read-modify-write
-//     of the table row and resets the counter to 0 for the next call.  No
-//     CTA waits for another.  A warp of probes a tile apart finds the
-//     run's first and last tile from neighbouring ids.
-// The workspace (2 * ceil(N / L) * C floats and ceil(N / L) counters per
-// column group, zero between calls) is allocated once per device by the
-// wrapper.  L, GROUP, SUB and IB were chosen by timing variants at the
-// three shapes below (L of 32, 64 and 128; 128 or 256 threads; IB of 1, 2
-// and 4; SUB of 2, 4 and 8; groups of 64 to 512 columns; an L2 prefetch of
-// the rows read after a barrier).
+// CTA each, all at once: the template of csrc/w2b_tiles.cuh (its note has
+// the design), which kernel 7 (csrc/group_rmw.cu) shares with other
+// constants.  The workspace (2 * ceil(N / L) * C floats and ceil(N / L)
+// counters per column group, zero between calls) is allocated once per
+// device by the wrapper.  L, GROUP, SUB and IB (Cfg below) were chosen by
+// timing variants at the three shapes below (L of 32, 64 and 128; 128 or
+// 256 threads; IB of 1, 2 and 4; SUB of 2, 4 and 8; groups of 64 to 512
+// columns; an L2 prefetch of the rows read after a barrier).
 //
 // Bound on the H100 (3.35 TB/s): the bytes it must move, the rows and the
 // plan read once and each touched table row read and written once; 10.4
@@ -71,334 +50,15 @@
 // tile.  What is left: each CTA's dependent phases (staging, the chunk
 // loads, the longer runs' adds, a cut run's arrival), not its bytes
 // (PERF.md section 6 has the times).
-#include "w2b_rows.cuh"
+#include "w2b_tiles.cuh"
 
 namespace {
 
-using w2b::DenseRows;
-using w2b::load_vec;
 using w2b::Rank1Rows;
-using w2b::store_vec;
 
-constexpr int L = 64;          // slots of a tile
-constexpr int THREADS = 128;
-constexpr int SUB = 4;         // rows of a chunk: the most a thread sums
-constexpr int IB = 2;          // chunks in flight per thread
-constexpr int GROUP = 128;     // columns of a CTA, at most
-// shared slots: the chunks of the tile's runs of more than SUB rows (at
-// most 2 per SUB + 1 rows), and those runs
-constexpr int MAX_SLOTS = 2 * L / (SUB + 1);
-constexpr int MAX_MULTI = L / (SUB + 1);
-static_assert(L % 32 == 0 && L + 2 <= THREADS && THREADS >= 96,
-              "staging and the three setup warps need these");
-
-__device__ __forceinline__ bool in_range(int id, int V) {
-  return id >= 0 && id < V;
-}
-
-// float32 partials written by other CTAs in this launch: read from L2
-template <int VEC>
-__device__ __forceinline__ void load_partial(const float* p, float (&x)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) x[i] = __ldcg(p + i);
-  }
-}
-
-// The first (dir = -1) or last (dir = +1) tile of the run of `id` that
-// goes on past tile t's start (dir = -1) or end (dir = +1).  Lane i of the
-// calling warp probes tile t + dir * (i + 1) (then 32 tiles further): the
-// run fills a tile's last slot before t, its first slot after t.
-__device__ __forceinline__ int run_edge_tile(const int* __restrict__ sids,
-                                             int id, int t, int dir,
-                                             int n_tiles, int lane) {
-  for (int base = 0;; base += 32) {
-    const int j = t + dir * (base + lane + 1);
-    const bool out = dir < 0
-        ? j < 0 || __ldg(sids + (size_t)(j + 1) * L - 1) != id
-        : j >= n_tiles || __ldg(sids + (size_t)j * L) != id;
-    const unsigned m = __ballot_sync(0xffffffffu, out);
-    if (m) return t + dir * (base + __ffs(m) - 1);
-  }
-}
-
-// inclusive prefix sum over the warp
-__device__ __forceinline__ int warp_scan(int x, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d *= 2) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  return x;
-}
-
-template <typename TableT, typename Src, int VEC>
-__global__ void __launch_bounds__(THREADS)
-span_scatter_kernel(TableT* __restrict__ table, const Src src,
-                    const int* __restrict__ sids,
-                    const int* __restrict__ order, float* __restrict__ part,
-                    int* __restrict__ count, int N, int V, int C, int GC) {
-  __shared__ __align__(16) float s_acc[MAX_SLOTS * GROUP];  // chunk sums
-  __shared__ int s_id[L], s_ord[L];  // the tile's sorted ids, source rows
-  __shared__ int s_run[L + 1];       // run starts; s_run[n] = end of ids < V
-  __shared__ int s_cb[L], s_cu[L], s_cs[L];  // chunk: first slot, run,
-                                             // shared slot (-1: none)
-  __shared__ int s_mu[MAX_MULTI], s_ms[MAX_MULTI];  // runs of > SUB rows:
-                                                    // run, first slot
-  __shared__ int s_n, s_nc, s_nm, s_prev, s_next, s_first, s_last_tile;
-  __shared__ int s_done[2];          // this CTA finishes the head/tail run
-  const int t = blockIdx.x, n_tiles = gridDim.x;
-  const int tid = threadIdx.x, lane = tid % 32;
-  const size_t s0 = (size_t)t * L;
-  const int nt = min(L, N - (int)s0);  // slots in this tile
-  // this CTA's columns [c0, c0 + GC) of the tile; column groups never meet
-  const int c0 = blockIdx.y * GC, cw = min(GC, C - c0);
-  int* const cnt = count + (size_t)blockIdx.y * n_tiles;
-  if (tid < L) {
-    s_id[tid] = tid < nt ? sids[s0 + tid] : -1;
-    s_ord[tid] = tid < nt ? order[s0 + tid] : 0;
-  } else if (tid == L) {
-    s_prev = t > 0 ? sids[s0 - 1] : -1;
-  } else if (tid == L + 1) {
-    s_next = t + 1 < n_tiles ? sids[s0 + L] : -1;
-  }
-  __syncthreads();
-  const int head_id = s_id[0], tail_id = s_id[L - 1];
-  // the first run began in an earlier tile; the last goes on in a later one
-  const bool hc = in_range(head_id, V) && s_prev == head_id;
-  const bool tc = in_range(tail_id, V) && s_next == tail_id;
-  if (tid < 32) {
-    // warp 0: the runs (the ids in [0, V) are one stretch of the sorted
-    // stream, so they end at the last in-range slot), then their chunks
-    int n = 0, end = 0;
-    for (int base = 0; base < L; base += 32) {
-      const int i = base + lane;
-      const int id = s_id[i];
-      const bool inr = in_range(id, V);
-      const bool start = inr && (i == 0 || s_id[i - 1] != id);
-      const unsigned m = __ballot_sync(0xffffffffu, start);
-      if (start) s_run[n + __popc(m & ((1u << lane) - 1u))] = i;
-      n += __popc(m);
-      const unsigned mi = __ballot_sync(0xffffffffu, inr);
-      if (mi) end = base + 32 - __clz(mi);
-    }
-    if (lane == 0) s_run[n] = end;
-    __syncwarp();
-    int nc = 0, ns = 0, nm = 0;
-    for (int base = 0; base < n; base += 32) {
-      const int r = base + lane;
-      const int b = r < n ? s_run[r] : 0;
-      const int k = r < n ? (s_run[r + 1] - b + SUB - 1) / SUB : 0;
-      const int multi = k > 1 ? 1 : 0;
-      const int ck = warp_scan(k, lane), cs = warp_scan(multi * k, lane);
-      const int cm = warp_scan(multi, lane);
-      const int q0 = nc + ck - k, sl0 = ns + cs - multi * k;
-      for (int j = 0; j < k; ++j) {
-        s_cb[q0 + j] = b + j * SUB;
-        s_cu[q0 + j] = r;
-        s_cs[q0 + j] = multi ? sl0 + j : -1;
-      }
-      if (multi) {
-        s_mu[nm + cm - 1] = r;
-        s_ms[nm + cm - 1] = sl0;
-      }
-      nc += __shfl_sync(0xffffffffu, ck, 31);
-      ns += __shfl_sync(0xffffffffu, cs, 31);
-      nm += __shfl_sync(0xffffffffu, cm, 31);
-    }
-    if (lane == 0) {
-      s_n = n;
-      s_nc = nc;
-      s_nm = nm;
-    }
-  } else if (tid < 64) {
-    if (hc) s_first = run_edge_tile(sids, head_id, t, -1, n_tiles, lane);
-  } else if (tid < 96) {
-    if (tc) s_last_tile = run_edge_tile(sids, tail_id, t, 1, n_tiles, lane);
-  }
-  __syncthreads();
-  const int n = s_n, nc = s_nc, nm = s_nm;
-  if (n == 0) return;  // CTA-uniform: no id of this tile is in [0, V)
-  const int pv = cw / VEC;  // column vectors of this CTA
-  // where run r's sum goes: its table row (-1) or its piece's partial
-  auto dest = [&](int r) {
-    return r == 0 && hc ? 2 * t : r == n - 1 && tc ? 2 * t + 1 : -1;
-  };
-  // column c (of the table): the row's one add, rounded to TableT, or the
-  // piece's partial
-  auto finish = [&](int dst, int c, TableT* p, float (&cur)[VEC],
-                    const float (&acc)[VEC]) {
-    if (dst < 0) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) cur[i] += acc[i];
-      store_vec<VEC>(p, cur);
-    } else {
-      store_vec<VEC>(part + (size_t)dst * C + c, acc);
-    }
-  };
-
-  // 1. every chunk, IB a thread at a time, each summed from 0 in slot order
-  // with all its rows in flight: a run of one chunk goes straight to its
-  // row (whose read is in flight with the rows) or partial, a longer run's
-  // chunks to their shared slots
-  const int items = nc * pv;
-  for (int it0 = tid; it0 < items; it0 += IB * THREADS) {
-    int b[IB], e[IB], c[IB], dst[IB], sl[IB];
-    TableT* p[IB];
-    float cur[IB][VEC], acc[IB][VEC];
-#pragma unroll
-    for (int u = 0; u < IB; ++u) {
-      const int it = it0 + u * THREADS;
-      b[u] = e[u] = c[u] = 0;
-      dst[u] = sl[u] = -1;
-      p[u] = nullptr;
-      if (it < items) {
-        const int q = it / pv, r = s_cu[q];
-        b[u] = s_cb[q];
-        e[u] = min(b[u] + SUB, s_run[r + 1]);
-        c[u] = (it - q * pv) * VEC;  // within the group
-        sl[u] = s_cs[q];
-        if (sl[u] < 0) {
-          dst[u] = dest(r);
-          p[u] = table + (size_t)s_id[b[u]] * C + c0 + c[u];
-          if (dst[u] < 0) load_vec<VEC>(p[u], cur[u]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[u][i] = 0.0f;
-    }
-#pragma unroll
-    for (int k = 0; k < SUB; ++k) {
-      float x[IB][VEC];
-#pragma unroll
-      for (int u = 0; u < IB; ++u)
-        if (b[u] + k < e[u]) src.fetch(s_ord[b[u] + k], c0 + c[u], x[u]);
-#pragma unroll
-      for (int u = 0; u < IB; ++u) {
-        if (b[u] + k < e[u]) {
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) acc[u][i] += x[u][i];
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < IB; ++u) {
-      if (e[u] <= b[u]) continue;
-      if (sl[u] >= 0) {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i)
-          s_acc[sl[u] * GROUP + c[u] + i] = acc[u][i];
-      } else {
-        finish(dst[u], c0 + c[u], p[u], cur[u], acc[u]);
-      }
-    }
-  }
-  if (nm > 0) {  // CTA-uniform
-    __syncthreads();
-    // 2. the runs of more than SUB rows: their chunk sums added in chunk
-    // order, one thread per column vector
-    for (int it = tid; it < nm * pv; it += THREADS) {
-      const int m = it / pv, r = s_mu[m], sl0 = s_ms[m];
-      const int k = (s_run[r + 1] - s_run[r] + SUB - 1) / SUB;
-      const int c = (it - m * pv) * VEC;
-      const int dst = dest(r);
-      TableT* p = table + (size_t)s_id[s_run[r]] * C + c0 + c;
-      float cur[VEC], sum[VEC];
-      if (dst < 0) load_vec<VEC>(p, cur);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) sum[i] = 0.0f;
-      for (int j = 0; j < k; ++j) {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i)
-          sum[i] += s_acc[(sl0 + j) * GROUP + c + i];
-      }
-      finish(dst, c0 + c, p, cur, sum);
-    }
-  }
-  if (!hc && !tc) return;  // CTA-uniform: no run of this tile is cut
-
-  // 3. the cut runs: arrive, and finish the runs whose last piece this is
-  __threadfence();  // this thread's partials, before the arrival
-  __syncthreads();
-  const bool whole = hc && tc && n == 1;  // one run fills the tile
-  if (tid == 0) {
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      s_done[k] = 0;
-      if (k == 0 ? !hc : !tc || whole) continue;
-      const int f = k == 0 ? s_first : t;
-      const int l = k == 0 && !whole ? t : s_last_tile;
-      if (atomicAdd(cnt + f, 1) == l - f) {
-        cnt[f] = 0;
-        s_done[k] = 1;
-      }
-    }
-    __threadfence();  // the arrivals, before the other pieces are read
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    if (!s_done[k]) continue;  // CTA-uniform
-    const int f = k == 0 ? s_first : t;
-    const int l = k == 0 && !whole ? t : s_last_tile;
-    const int id = k == 0 ? head_id : tail_id;
-    for (int cv = tid; cv < pv; cv += THREADS) {
-      const int c = c0 + cv * VEC;
-      float sum[VEC], cur[VEC];
-      TableT* p = table + (size_t)id * C + c;
-      load_vec<VEC>(p, cur);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) sum[i] = 0.0f;
-      // the pieces in tile order: 2f + 1, then 2j for j = f + 1 .. l
-#pragma unroll 4
-      for (int j = f; j <= l; ++j) {
-        float x[VEC];
-        load_partial<VEC>(part + (size_t)(j == f ? 2 * f + 1 : 2 * j) * C + c,
-                          x);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) sum[i] += x[i];
-      }
-      finish(-1, c, p, cur, sum);
-    }
-  }
-}
-
-// The width of C columns' groups: ceil(C / GROUP) groups of equal width
-// (a multiple of 4, so that 16-byte accesses stay aligned), the last
-// narrower.
-inline int group_width(int C) {
-  const int Y = (C + GROUP - 1) / GROUP;
-  return ((C + Y - 1) / Y + 3) / 4 * 4;
-}
-
-template <typename TableT, int VEC, typename Src>
-int launch(void* table, const Src& src, const int* sids, const int* order,
-           float* part, int* count, int N, int V, int C,
-           cudaStream_t stream) {
-  const int GC = group_width(C);
-  span_scatter_kernel<TableT, Src, VEC>
-      <<<dim3((N + L - 1) / L, (C + GC - 1) / GC), THREADS, 0, stream>>>(
-          static_cast<TableT*>(table), src, sids, order, part, count, N, V, C,
-          GC);
-  return (int)cudaGetLastError();
-}
-
-template <typename TableT, typename RowT>
-int launch_dense(void* table, const void* rows, const int* sids,
-                 const int* order, float* part, int* count, int N, int V,
-                 int C, cudaStream_t stream) {
-  if (N == 0) return 0;
-  const RowT* r = static_cast<const RowT*>(rows);
-  // 4 columns per thread when every row start is aligned for one access
-  if (w2b::rows_vec4<TableT, RowT>(table, rows, C) && w2b::aligned(part, 16))
-    return launch<TableT, 4>(table, DenseRows<TableT, RowT, 4>{r, C}, sids,
-                             order, part, count, N, V, C, stream);
-  return launch<TableT, 1>(table, DenseRows<TableT, RowT, 1>{r, C}, sids,
-                           order, part, count, N, V, C, stream);
-}
+// L = 64 slots a tile, 128 threads, chunks of SUB = 4 rows, IB = 2 chunks
+// in flight a thread, groups of at most 128 columns
+using Cfg = w2b::TileCfg<64, 128, 4, 2, 128>;
 
 template <typename TableT, typename RowT>
 int launch_rank1(void* table, const void* dense, const float* g,
@@ -409,10 +69,10 @@ int launch_rank1(void* table, const void* dense, const float* g,
   const RowT* d = static_cast<const RowT*>(dense);
   if (w2b::rows_vec4<TableT, RowT>(table, dense, C) &&
       w2b::aligned(cavg, 16) && w2b::aligned(part, 16))
-    return launch<TableT, 4>(
+    return w2b::tile_launch<Cfg, TableT, 4>(
         table, Rank1Rows<TableT, RowT, 4>{d, g, cavg, nd, per_src, C}, sids,
         order, part, count, N, V, C, stream);
-  return launch<TableT, 1>(
+  return w2b::tile_launch<Cfg, TableT, 1>(
       table, Rank1Rows<TableT, RowT, 1>{d, g, cavg, nd, per_src, C}, sids,
       order, part, count, N, V, C, stream);
 }
@@ -422,19 +82,11 @@ int launch_rank1(void* table, const void* dense, const float* g,
 extern "C" {
 
 // Slots of a tile.
-int w2b_span_tile(void) { return L; }
+int w2b_span_tile(void) { return Cfg::L; }
 
-// The workspace of a call with N ids of C columns: 2 * ceil(N / L) * C
-// float32 partials and ceil(N / L) int32 arrival counters per column
-// group, the counters zero before the first call (each call leaves them
-// zero).
-long long w2b_span_partials(int N, int C) {
-  return 2LL * ((N + L - 1) / L) * C;
-}
-long long w2b_span_counters(int N, int C) {
-  return (long long)((N + L - 1) / L) * ((C + group_width(C) - 1) /
-                                          group_width(C));
-}
+// The workspace of a call with N ids of C columns (w2b::TileCfg).
+long long w2b_span_partials(int N, int C) { return Cfg::partials(N, C); }
+long long w2b_span_counters(int N, int C) { return Cfg::counters(N, C); }
 
 // table_dtype / row_dtype: 0 = float32, 1 = bfloat16 (rows in float32 or
 // in the table dtype).  sids/order: [N] int32 (span_plan); part/count: the
@@ -442,18 +94,9 @@ long long w2b_span_counters(int N, int C) {
 int w2b_span_scatter(void* table, const void* rows, const int* sids,
                      const int* order, float* part, int* count, int N, int V,
                      int C, int table_dtype, int row_dtype, void* stream) {
-  if (N < 0 || V < 0 || C < 1 || C > 12288) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (table_dtype == 1 && row_dtype == 0)
-    return launch_dense<__nv_bfloat16, float>(table, rows, sids, order, part,
-                                              count, N, V, C, s);
-  if (table_dtype == 1 && row_dtype == 1)
-    return launch_dense<__nv_bfloat16, __nv_bfloat16>(
-        table, rows, sids, order, part, count, N, V, C, s);
-  if (table_dtype == 0 && row_dtype == 0)
-    return launch_dense<float, float>(table, rows, sids, order, part, count,
-                                      N, V, C, s);
-  return (int)cudaErrorInvalidValue;
+  return w2b::tile_scatter_dense<Cfg>(table, rows, sids, order, part, count,
+                                      N, V, C, table_dtype, row_dtype,
+                                      stream);
 }
 
 // The same scatter with rank-1 trailing rows: the plan is of the N = nd + nn

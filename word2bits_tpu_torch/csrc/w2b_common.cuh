@@ -50,13 +50,24 @@ __device__ __forceinline__ float sigmoid(float x) {
 
 // ops/sigmoid.sigmoid_lut: the reference expTable lookup
 // (src/word2bits.cpp:473-475, integer-division scale 83), +-6 saturation.
-__device__ __forceinline__ float sigmoid_lut(float f) {
-  if (f > 6.0f) return 1.0f;
-  if (f < -6.0f) return 0.0f;
-  const float idx = floorf(__fmul_rn(__fadd_rn(f, 6.0f), 83.0f));
+// Its bin of f in [-6, 6] is 0 .. 996 (LUT_BINS bins); a kernel may hold
+// the bins' values in a table (sigmoid_lut_value of each) with the same bits.
+constexpr int LUT_BINS = 997;
+
+__device__ __forceinline__ float sigmoid_lut_bin(float f) {
+  return floorf(__fmul_rn(__fadd_rn(f, 6.0f), 83.0f));
+}
+
+__device__ __forceinline__ float sigmoid_lut_value(float idx) {
   const float x_bin = __fmul_rn(
       __fsub_rn(__fmul_rn(__fdiv_rn(idx, 1000.0f), 2.0f), 1.0f), 6.0f);
   return sigmoid(x_bin);
+}
+
+__device__ __forceinline__ float sigmoid_lut(float f) {
+  if (f > 6.0f) return 1.0f;
+  if (f < -6.0f) return 0.0f;
+  return sigmoid_lut_value(sigmoid_lut_bin(f));
 }
 
 // ops/sigmoid.sigmoid_exact: 1 above +6, 1e-9 below -6 (src :67-71).

@@ -6,11 +6,13 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the sources and flags, so an edited
-source never loads a stale build.  `build_all()` starts one nvcc per source
-at once and waits for all of them.  nvcc runs with `-Xptxas=-v`: each
-build's log (registers, shared memory and spills of every kernel) is kept
-in `BUILD_LOGS`, and `ptxas_usage` reads it.  Nothing here runs at import:
+The library name carries a hash of the sources, flags and `-D` defines, so
+an edited source never loads a stale build; `defines` (e.g.
+`("W2B_SCORE_THREADS=256",)`) override a source's build constants, which
+tools/tune_kernels.py uses to time variants side by side.  `build_all()`
+starts one nvcc per source at once and waits for all of them.  nvcc runs
+with `-Xptxas=-v`: each build's log (registers, shared memory and spills of
+every kernel) is kept in `BUILD_LOGS`, and `ptxas_usage` reads it.  Nothing here runs at import:
 the CPU tests import every module, and a CPU run never builds.
 """
 
@@ -24,7 +26,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -49,24 +51,26 @@ def _nvcc() -> str:
                        "toolkit's nvcc (PATH or /usr/local/cuda/bin)")
 
 
-def _library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + [f"-D{d}" for d in defines])
+                       .encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str, fresh: bool = False):
+def _start_build(name: str, fresh: bool = False,
+                 defines: Tuple[str, ...] = ()):
     """(nvcc process, temp output, final output), or None if built (and
     not `fresh`)."""
-    out = _library_path(name)
+    out = _library_path(name, defines)
     if out.exists() and not fresh:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), f"-I{CSRC}",
+           "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

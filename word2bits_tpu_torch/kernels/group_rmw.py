@@ -1,44 +1,48 @@
-"""Sorted group-RMW scatter-add: `table[ids] += rows`, the capacity path's
-parameter update.
+"""Sorted scatter-add: `table[ids] += rows`, the capacity path's
+parameter update (`-scatter-impl grmw`).
 
-Kernel: csrc/group_rmw.cu, a CUDA C++ kernel for sm_90a that replaces the
-JAX package's TPU kernel (kernels/group_rmw.py, `_group_kernel` via
-`_group_call`).  The public functions keep the JAX names and contracts:
-each row is first rounded to the table dtype, duplicates are summed in
-float32, each touched row gets ONE add in the table dtype with no atomics,
-ids outside [0, V) — the 0x7FFFFFF0 drop sentinel — are dropped, and the
-table is updated in place with no table-sized temporary.
+Kernel: `w2b_group_rmw` in csrc/group_rmw.cu, a CUDA C++ kernel for sm_90a
+that replaces the JAX package's TPU kernel (kernels/group_rmw.py,
+`_group_kernel` via `_group_call`).  The public functions keep the JAX
+names and contracts: each row is first rounded to the table dtype,
+duplicates are summed in float32, each touched row gets ONE add in the
+table dtype with no atomics on the table or on a sum, ids outside [0, V) —
+negative ids, the 0x7FFFFFF0 drop sentinel — are dropped, and the table is
+updated in place with no table-sized temporary.
 
 The plan is plain PyTorch, a pure function of the ids (batched over leading
 dimensions, so the training chunk builds it once for all S steps): one
 stable sort, the runs of equal ids, and the VISITS — the runs grouped by
 their `grp`-row table group (16 rows bf16, 8 float32, the JAX kernel's DMA
-granule).  Unlike the TPU plan, which opens a visit per group per
-`chunk`-row block and relies on the TPU grid running blocks in order, this
-plan has exactly one visit per touched group over the whole sorted stream,
-and the kernel gives each visit to one CTA: no two CTAs touch one row.  A
-group holding more than SPLIT_ROWS rows (the Zipf head: group 0 holds the
-16 most frequent ids) gets one visit per run instead, so its ids are summed
-by CTAs side by side rather than one after another; each id is still in
-exactly one visit.
+granule), one visit per touched group over the whole sorted stream, or one
+per run for a group holding more than SPLIT_ROWS rows.  Kernel 7 reads only
+the sorted ids and their source rows: it is the tiled template of
+csrc/w2b_tiles.cuh (kernels 2 and 3 run it too, with other constants),
+which cuts the sorted stream into tiles and the columns into groups, one
+CTA each, and sums a run cut by tile edges piece by piece into float32
+partials of the per-device workspace (`span_scatter.workspace`), the CTA
+whose piece arrives last adding them in tile order.  The run and visit
+tables (`run_start`, `vis_run`, `n_vis`) are read by kernel 8
+(kernels/scatter_pallas.py), which keeps the one-CTA-per-visit design.
 
 `chunk` and `slots` size the TPU kernel's blocks and DMA slots; they have no
 role on the card and are kept for the signature, with the JAX kernel's one
 hazard turned into an error: `chunk < slots` (its preamble reads past the
 block there) raises.
 
-Unlike the JAX kernel, the table needs no padding: any V (the last group
-may be partial) and any row width.
+Unlike the JAX kernel, the table needs no padding: any V and any row width.
 
 Bound on the H100 (3.35 TB/s): bytes — the rows read once, each touched
-table row read and written once, and the plan (~50 us at the flagship's
+table row read and written once, and the plan (~70 us at the flagship's
 22,544 f32 rows x 1,600 columns); the kernel's time is in PERF.md.
 
 `scatter_add_grmw_planned` / `scatter_add_grmw` run the plain version for
 CPU tensors (an f32 `index_add_` into a temporary holding the touched rows,
 then one cast-add) and launch the kernel for CUDA tensors, raising on what
-it does not take; there is no fallback.  `scatter_add_grmw_planned.launches`
-counts kernel launches.
+it does not take; there is no fallback.  Every launch on a device uses the
+workspace shared with kernels 2 and 3, so two calls must not run at once on
+different streams; no path of the port does that.
+`scatter_add_grmw_planned.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ import torch
 
 from word2bits_tpu_torch.kernels._build import check_launch, load_library
 from word2bits_tpu_torch.kernels.span_scatter import (SENTINEL,
-                                                      scatter_add_span_plain)
+                                                      scatter_add_span_plain,
+                                                      workspace)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # a group with more rows than this gets one visit per run (per id)
@@ -136,15 +141,28 @@ def scatter_add_grmw_plain(table: torch.Tensor, ids: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(entry: str):
-    """`entry` of csrc/group_rmw.cu (w2b_group_rmw, kernel 7, or
-    w2b_scatter_rmw, kernel 8: one template, two epilogues), built on first
-    use."""
-    fn = getattr(load_library("group_rmw"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _library() -> ctypes.CDLL:
+    """csrc/group_rmw.cu (w2b_group_rmw, kernel 7, on the tile template;
+    w2b_scatter_rmw, kernel 8), built on first use, with its C
+    signatures."""
+    lib = load_library("group_rmw")
+    lib.w2b_group_rmw.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                                  + [ctypes.c_void_p])
+    lib.w2b_scatter_rmw.argtypes = ([ctypes.c_void_p] * 7
+                                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.w2b_group_rmw.restype = lib.w2b_scatter_rmw.restype = ctypes.c_int
+    for fn in (lib.w2b_group_rmw_partials, lib.w2b_group_rmw_counters):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_longlong
+    lib.w2b_group_rmw_config.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def tile_config() -> dict:
+    """Kernel 7's tile constants, as built."""
+    out = (ctypes.c_int * 5)()
+    _library().w2b_group_rmw_config(out)
+    return dict(zip(("L", "THREADS", "SUB", "IB", "GROUP"), out))
 
 
 def _check_slots(chunk: int, slots: int) -> None:
@@ -155,10 +173,9 @@ def _check_slots(chunk: int, slots: int) -> None:
             "refuses the combination")
 
 
-def launch_group_kernel(entry: str, fn: str, table, plan: GroupPlan,
-                        rows) -> None:
-    """Check one step's plan and rows and launch `entry` (see _kernel) on
-    them; `fn` names the caller in errors."""
+def _check(fn: str, table, plan: GroupPlan, rows) -> None:
+    """Raise on anything kernels 7 and 8 do not take; `fn` names the caller
+    in errors."""
     V, C = table.shape
     N = plan.sids.shape[-1]
     dev = table.device
@@ -185,13 +202,39 @@ def launch_group_kernel(entry: str, fn: str, table, plan: GroupPlan,
     if plan.run_start.shape[-1] != N + 1 or plan.vis_run.shape[-1] != N + 1:
         raise ValueError(f"{fn}: plan.run_start and plan.vis_run must have "
                          "N+1 entries")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel(entry)(
+
+
+def launch_group_kernel(entry: str, fn: str, table, plan: GroupPlan,
+                        rows) -> None:
+    """Check one step's plan and rows and launch `entry` (w2b_scatter_rmw,
+    kernel 8, which reads the run and visit tables) on them; `fn` names
+    the caller in errors."""
+    _check(fn, table, plan, rows)
+    V, C = table.shape
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = getattr(_library(), entry)(
         table.data_ptr(), rows.data_ptr(), plan.sids.data_ptr(),
         plan.order.data_ptr(), plan.run_start.data_ptr(),
-        plan.vis_run.data_ptr(), plan.n_vis.data_ptr(), N, V, C,
-        _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
+        plan.vis_run.data_ptr(), plan.n_vis.data_ptr(), plan.sids.shape[-1],
+        V, C, _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
     check_launch(entry, err)
+
+
+def _launch(table, plan: GroupPlan, rows) -> None:
+    """Kernel 7 on one step's plan: the sorted ids, their source rows and
+    the device's workspace."""
+    _check("scatter_add_grmw", table, plan, rows)
+    V, C = table.shape
+    N = plan.sids.shape[-1]
+    lib = _library()
+    part, count = workspace(table.device, lib.w2b_group_rmw_partials(N, C),
+                            lib.w2b_group_rmw_counters(N, C))
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = lib.w2b_group_rmw(
+        table.data_ptr(), rows.data_ptr(), plan.sids.data_ptr(),
+        plan.order.data_ptr(), part.data_ptr(), count.data_ptr(), N, V, C,
+        _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
+    check_launch("w2b_group_rmw", err)
 
 
 def scatter_add_grmw_planned(table: torch.Tensor, plan: GroupPlan,
@@ -206,7 +249,7 @@ def scatter_add_grmw_planned(table: torch.Tensor, plan: GroupPlan,
     if table.device.type != "cuda":
         raise ValueError("scatter_add_grmw runs on cpu (plain version) or "
                          f"cuda (kernel), not {table.device}")
-    launch_group_kernel("w2b_group_rmw", "scatter_add_grmw", table, plan, rows)
+    _launch(table, plan, rows)
     scatter_add_grmw_planned.launches += 1
     return table
 

@@ -13,9 +13,13 @@ P*K negatives (center g uses pool g % P):
     loss   = sum((log sigma_exact(-f) - reg*||q_vn||^2) * mask)
 
 Bound on the H100: bytes and float32 operations about equally (~7 us each
-at the shipped shape; see the source note in csrc/score.cu).  The kernel
-keeps q_vn, f and g in shared memory: only the two gradient blocks reach
-device memory.
+at the shipped shape; see the source note in csrc/score.cu).  Each tile
+runs on a thread-block cluster of CLUSTER CTAs, each holding D / CLUSTER
+of its columns: the partial scores are summed across the cluster through
+distributed shared memory in rank order, and each CTA writes cavge and dv
+for its own columns (at the shipped shape one CTA of 512 threads a tile
+was the fastest).  q_vn, f and g stay in shared memory: only the two
+gradient blocks reach device memory.
 
 `quantized_scores_plain` is the plain PyTorch version (three batched
 products), which the steps also run when `use_pallas` is off, as the JAX
@@ -37,6 +41,12 @@ from word2bits_tpu_torch.ops.quantize import quantize
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 
 _SMEM_LIMIT = 232_448   # bytes of shared memory one block may use (H100)
+# CTAs per tile (a thread-block cluster along D): 1, 2 and 4 were timed at
+# the shipped shape and 1 was the fastest (tools/tune_kernels.py, PERF.md).
+# A tile whose CTA would not fit in shared memory takes the smallest larger
+# cluster that fits (cluster_size).
+CLUSTER = 1
+_MAX_CLUSTER = 8
 
 
 def pool_mask(G: int, K: int, P: int, dtype=torch.float32,
@@ -76,20 +86,51 @@ def quantized_scores_plain(cavg3, v_rows, centers3, negs, af3, scalars,
     return cavge, dv, loss
 
 
+def smem_bytes(G: int, PK: int, D: int, cluster: int | None = None) -> int:
+    """Shared-memory bytes of one CTA of the kernel (csrc/score.cu Layout)
+    with `cluster` CTAs a tile (CLUSTER by default): G and P*K padded to 4,
+    each CTA's ceil(D / cluster) columns padded to 4 (and by 4 more where
+    that leaves an even number of 16-byte vectors), a partial-score slot
+    per rank, the 997 LUT values."""
+    cluster = CLUSTER if cluster is None else cluster
+
+    def up(x, m):
+        return -(-x // m) * m
+    Gp, PKp, Gr = up(G, 4), up(PK, 4), -(-G // cluster)
+    Dc = up(-(-D // cluster), 4)
+    Dp = Dc if (Dc // 4) % 2 else Dc + 4
+    floats = ((Gp + PKp) * Dp + cluster * Gr * PKp + Gp * PKp
+              + cluster * PKp + PKp + Gp + 8 + 1000)
+    return (Gp + PKp) * 8 + 4 * floats
+
+
+def cluster_size(G: int, PK: int, D: int) -> int:
+    """CTAs a tile: the smallest power of two from CLUSTER up to 8 whose
+    CTA fits in shared memory (0 if none does)."""
+    cl = CLUSTER
+    while cl <= _MAX_CLUSTER:
+        if smem_bytes(G, PK, D, cl) <= _SMEM_LIMIT:
+            return cl
+        cl *= 2
+    return 0
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """csrc/score.cu, built on first use, with its C signatures."""
     lib = load_library("score")
-    lib.w2b_scores.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    lib.w2b_scores.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                                + [ctypes.c_float, ctypes.c_void_p])
     lib.w2b_scores.restype = ctypes.c_int
-    lib.w2b_score_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.w2b_score_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.w2b_score_smem_bytes.restype = ctypes.c_longlong
+    lib.w2b_score_threads.restype = ctypes.c_int
     return lib
 
 
-def _launch(cavg3, v_rows, centers3, negs, af3, scalars, bitlevel: int,
-            reg: float, P: int):
+def _check(cavg3, v_rows, centers3, negs, af3, scalars, P: int) -> None:
+    """Raise on anything the kernel does not take."""
+    fn = "quantized_scores_pallas"
     T, G, D = cavg3.shape
     PK = v_rows.shape[1]
     dev = cavg3.device
@@ -101,34 +142,38 @@ def _launch(cavg3, v_rows, centers3, negs, af3, scalars, bitlevel: int,
             ("scalars", scalars, torch.float32, (1, 1)))
     for name, t, dtype, shape in args:
         if t.device != dev:
-            raise ValueError(f"quantized_scores_pallas: {name} is on "
-                             f"{t.device}, cavg3 on {dev}")
+            raise ValueError(f"{fn}: {name} is on {t.device}, cavg3 on {dev}")
         if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"quantized_scores_pallas: {name} must be "
-                             f"{dtype} {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
+            raise ValueError(f"{fn}: {name} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"quantized_scores_pallas: {name} must be "
-                             "contiguous")
-    if PK % P:
-        raise ValueError(f"quantized_scores_pallas: {P} pools do not divide "
-                         f"{PK} negatives")
-    lib = _library()
-    smem = lib.w2b_score_smem_bytes(G, PK, D)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"quantized_scores_pallas: a tile of G={G}, "
-                         f"P*K={PK}, D={D} needs {smem} bytes of shared "
-                         f"memory (limit {_SMEM_LIMIT})")
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    if P < 1 or PK % P:
+        raise ValueError(f"{fn}: {P} pools do not divide {PK} negatives")
+    if not cluster_size(G, PK, D):
+        raise ValueError(f"{fn}: a tile of G={G}, P*K={PK}, D={D} needs "
+                         f"{smem_bytes(G, PK, D, _MAX_CLUSTER)} bytes of "
+                         f"shared memory in each CTA of a cluster of "
+                         f"{_MAX_CLUSTER} (limit {_SMEM_LIMIT})")
+
+
+def _launch(cavg3, v_rows, centers3, negs, af3, scalars, bitlevel: int,
+            reg: float, P: int):
+    _check(cavg3, v_rows, centers3, negs, af3, scalars, P)
+    T, G, D = cavg3.shape
+    PK = v_rows.shape[1]
+    dev = cavg3.device
     f32 = dict(dtype=torch.float32, device=dev)
     cavge = torch.empty((T, G, D), **f32)
     dv = torch.empty((T, PK, D), **f32)
     loss = torch.empty((T,), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.w2b_scores(
+    err = _library().w2b_scores(
         cavg3.data_ptr(), v_rows.data_ptr(), centers3.data_ptr(),
         negs.data_ptr(), af3.data_ptr(), scalars.data_ptr(),
         cavge.data_ptr(), dv.data_ptr(), loss.data_ptr(),
-        T, G, PK, D, P, bitlevel, float(reg), stream)
+        T, G, PK, D, P, bitlevel, cluster_size(G, PK, D), float(reg),
+        stream)
     check_launch("w2b_scores", err)
     quantized_scores_pallas.launches += 1
     return cavge, dv, loss.sum()

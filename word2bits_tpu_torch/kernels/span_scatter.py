@@ -39,9 +39,9 @@ order, so they are bit-equal on the same rows.
 run the plain version for CPU tensors (an f32 `index_add_` into a temporary
 holding the touched rows, then one cast-add) and launch the kernel for
 CUDA tensors, raising on what it does not take; there is no fallback.
-Every launch on a device uses the same workspace (`_workspace`), so two
-calls must not run at once on different streams; no path of the port
-does that.  `scatter_add_span_planned.launches` and
+Every launch on a device uses the same workspace (`workspace`, shared
+with kernel 7), so two calls must not run at once on different streams;
+no path of the port does that.  `scatter_add_span_planned.launches` and
 `scatter_add_span_rank1.launches` count kernel launches.
 """
 
@@ -134,15 +134,14 @@ def _library() -> ctypes.CDLL:
 _WORKSPACE: dict = {}
 
 
-def _workspace(device: torch.device, N: int, C: int):
-    """The kernel's workspace on `device` for a plan of N ids and rows of
-    C columns: float32 partials (2 per tile of the sorted stream, C wide)
-    and int32 arrival counters (1 per tile and column group), allocated
-    zero once and grown when a call needs more; each call leaves the
-    counters zero.  Every call on the device shares it, so two calls must
-    not run at once on different streams (no path of the port does that)."""
-    lib = _library()
-    n_part, n_count = lib.w2b_span_partials(N, C), lib.w2b_span_counters(N, C)
+def workspace(device: torch.device, n_part: int, n_count: int):
+    """The tiled scatter kernels' workspace on `device` (csrc/w2b_tiles.cuh:
+    kernels 2, 3 and 7): n_part float32 partials (2 per tile of the sorted
+    stream, C wide) and n_count int32 arrival counters (1 per tile and
+    column group), allocated zero once and grown when a call needs more;
+    each call leaves the counters zero.  Every call on the device shares
+    it, so two calls must not run at once on different streams (no path of
+    the port does that)."""
     part, count = _WORKSPACE.get(device, (None, None))
     if part is None or part.numel() < n_part:
         part = torch.empty(n_part, dtype=torch.float32, device=device)
@@ -188,7 +187,9 @@ def _check(fn: str, table, plan: SpanPlan, rows, C: int, *others) -> None:
 
 def _plan_ptrs(plan: SpanPlan, C: int):
     """The kernel's plan and workspace pointers."""
-    part, count = _workspace(plan.sids.device, plan.sids.shape[-1], C)
+    lib, N = _library(), plan.sids.shape[-1]
+    part, count = workspace(plan.sids.device, lib.w2b_span_partials(N, C),
+                            lib.w2b_span_counters(N, C))
     return (plan.sids.data_ptr(), plan.order.data_ptr(), part.data_ptr(),
             count.data_ptr())
 
