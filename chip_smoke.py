@@ -5,11 +5,15 @@
 from the root of a checkout.  It builds the port's CUDA kernels from
 word2bits_tpu_torch/csrc/ (one nvcc per source, all at once; [ptxas]
 prints each kernel's registers, shared memory and spills, and kernels 1,
-2, 3, 5, 7 and 9 must not spill), holds each against its plain PyTorch version
-at the shapes of the paths that run it ([context], [span], [score],
-[score edges] ragged tiles at bitlevels 0/1/2/4/8, [rank1] with kernel 2
-on its float32 table, [hotk], [grmw], [grmw edges] kernel 7 at its tiles'
-edges in three dtype pairs at widths 37, 200 and 1,600, [rmwk],
+2, 3, 5, 6, 7, 8 and 9 must not spill), holds each against its plain
+PyTorch version at the shapes of the paths that run it ([context], [span]
+and [grmw] each printing a digest of the table it wrote, to hold kernels 2
+and 7 bit-equal across commits, [score], [score edges] ragged tiles at
+bitlevels 0/1/2/4/8, [rank1] with kernel 2 on its float32 table, [hotk],
+[hot edges] kernel 6 at its tiles' edges with and without `extra`, [grmw],
+[grmw edges] kernel 7 at its tiles' edges in three dtype pairs at widths
+37, 200 and 1,600, [rmwk], [rmw edges] kernel 8 at its tiles' edges and
+on an id whose rounded sum differs from the sum of its rounded pieces,
 [context@800], [context@exact] on float32 rows, [context@mask] on
 non-banded random masks, [quantk] kernel 4 at the capacity export's
 block, on a bf16 table and on the whole 3.7M x 800 sum, [sweepk] kernel
@@ -85,6 +89,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -440,7 +445,8 @@ def check_span(dev) -> dict:
     sentinels, float32 rows.  Both sum each id's bf16-rounded rows in
     float32 and round once into the table, in another order, so they agree
     to one bf16 rounding: atol 1e-5 + rtol 2^-7.  Two launches on the same
-    inputs are bit-equal."""
+    inputs are bit-equal; the table's digest (_digest) is printed, to be
+    held equal across commits."""
     from word2bits_tpu_torch.kernels.span_scatter import (
         scatter_add_span_plain, scatter_add_span_planned, span_plan)
     rng = np.random.default_rng(SEED)
@@ -470,7 +476,7 @@ def check_span(dev) -> dict:
     longest = int((plan.run_start[1:n_unique + 1]
                    - plan.run_start[:n_unique]).max())
     print(f"[span] max abs err {err:.3e}; {N} rows, {n_unique} distinct "
-          f"ids, longest run {longest}")
+          f"ids, longest run {longest}; the table's digest {_digest(got)}")
     scratch = table0.clone()
     ms = _time_ms(lambda: scatter_add_span_planned(scratch, plan, rows))
     plain_ms = _time_ms(lambda: scatter_add_span_plain(scratch, ids, rows))
@@ -895,7 +901,9 @@ def check_grmw(dev) -> dict:
     22,544 float32 rows (subsampled Zipf(1.05) slab ids, unigram^0.75
     negatives, 64 drop sentinels).  Touched rows: atol 1e-5 + rtol 2^-7
     (each id's bf16-rounded rows summed in float32 in another order, one
-    rounding into the table); every other row must be untouched in both."""
+    rounding into the table); every other row must be untouched in both.
+    The digest of the touched rows (in id order) is printed, to be held
+    equal across commits."""
     from word2bits_tpu_torch.kernels.group_rmw import (
         group_plan, group_rows, scatter_add_grmw_plain,
         scatter_add_grmw_planned, tile_config)
@@ -933,15 +941,12 @@ def check_grmw(dev) -> dict:
         m = untouched[r0:r0 + step]
         if not torch.equal(got[r0:r0 + step][m], want[r0:r0 + step][m]):
             _fail(f"grmw wrote rows it was not given (rows {r0}..)")
-    n_vis = int(plan.n_vis)
-    vr, rs = plan.vis_run.long(), plan.run_start.long()
-    vis_rows = rs[vr[1:n_vis + 1]] - rs[vr[:n_vis]]
     n_groups = int(torch.unique(touched >> 4).numel())
     cfg = tile_config()
     print(f"[grmw] max abs err {err:.3e}; {N} rows, {touched.numel()} "
-          f"distinct ids in {n_groups} groups ({n_vis} visits of kernel 8's "
-          f"plan, longest {int(vis_rows.max())} rows); two launches "
-          f"bit-equal; tiles of {cfg['L']} slots, {cfg['THREADS']} threads, "
+          f"distinct ids in {n_groups} groups; two launches bit-equal; the "
+          f"touched rows' digest {_digest(got[touched])} (the rest held "
+          f"untouched); tiles of {cfg['L']} slots, {cfg['THREADS']} threads, "
           f"chunks of {cfg['SUB']} rows, {cfg['IB']} in flight, groups of at "
           f"most {cfg['GROUP']} columns")
     ms = _time_ms(lambda: scatter_add_grmw_planned(got, plan, rows))
@@ -1073,6 +1078,16 @@ def check_grmw_edges(dev, widths=(37, 200, 1600)) -> dict:
 
 
 # ---------------------------------------------------------------- kernel 6
+def _hot_bytes(ids: torch.Tensor, H: int, C: int, extra: bool) -> int:
+    """The bytes kernel 6's function must move: the ids (int64) and the hot
+    rows (float32) read once; with `extra`, extra read and every head row
+    read and written once (bf16), without it only the touched head rows."""
+    hot = ids[(ids >= 0) & (ids < H)]
+    head = H if extra else int(torch.unique(hot).numel())
+    return (ids.numel() * 8 + hot.numel() * C * 4 + 2 * head * C * 2
+            + (H * C * 4 if extra else 0))
+
+
 def check_hot(dev) -> dict:
     """Kernel 6 against its plain version at the [hot] path: a bf16
     [70,000, 400] table, H = 2048, one step's 8,208 float32 slab rows
@@ -1081,9 +1096,9 @@ def check_hot(dev) -> dict:
     Both round the rows to bf16, sum each head row's rows in float32 in
     another order and round once, after the same head + extra rounding:
     atol 1e-5 + rtol 2^-7 (one bf16 rounding); every row past the head
-    must be untouched."""
+    must be untouched; two launches on the same inputs are bit-equal."""
     from word2bits_tpu_torch.kernels.hot_pallas import (
-        hot_plan, hot_slice_add_pallas, hot_slice_add_plain)
+        hot_plan, hot_slice_add_pallas, hot_slice_add_plain, tile_config)
     rng = np.random.default_rng(SEED + 6)
     V, C, H = SCATTER_V, 2 * D, HOT
     n_slab = B + 2 * W
@@ -1105,6 +1120,7 @@ def check_hot(dev) -> dict:
              torch.randn((H, C), generator=gen, device=dev) * 0.01)):
         rows = torch.randn((ids.numel(), C), generator=gen, device=dev) * 0.01
         got = hot_slice_add_pallas(table0.clone(), ids, rows, H, extra)
+        again = hot_slice_add_pallas(table0.clone(), ids, rows, H, extra)
         want = hot_slice_add_plain(table0.clone(), ids, rows, H, extra)
         torch.cuda.synchronize()
         err = _max_err(got[:H], want[:H])
@@ -1112,15 +1128,22 @@ def check_hot(dev) -> dict:
                               rtol=2 ** -7):
             _fail(f"hot kernel ({tag}): max abs err {err:.3e} > atol 1e-5 + "
                   "rtol 2^-7")
+        if not torch.equal(_bits(got), _bits(again)):
+            _fail(f"hot kernel ({tag}): two launches on the same inputs "
+                  "differ")
         if not torch.equal(got[H:], table0[H:]):
             _fail(f"hot kernel ({tag}) wrote rows past the head")
-        n_hot = int(((ids >= 0) & (ids < H)).sum())
+        hot = ids[(ids >= 0) & (ids < H)]
+        n_hot = hot.numel()
+        counts = torch.unique(hot, return_counts=True)[1]
         print(f"[hotk] {tag}: max abs err {err:.3e}; {ids.numel()} rows, "
-              f"{n_hot} of them hot, into a [{H}, {C}] head")
+              f"{n_hot} of them hot on {counts.numel()} head rows (longest "
+              f"run {int(counts.max())}), into a [{H}, {C}] head; two "
+              f"launches bit-equal")
         worst = max(worst, err)
-        cases[tag] = (ids, rows, extra, n_hot)
+        cases[tag] = (ids, rows, extra)
     # timed as the chunk calls it: the plan hoisted (its time apart)
-    ids, rows, _, n_hot = cases["hot"]
+    ids, rows, _ = cases["hot"]
     plan = hot_plan(ids, H)
     scratch = table0.clone()
     ms = _time_ms(lambda: hot_slice_add_pallas(scratch, ids, rows, H,
@@ -1130,33 +1153,144 @@ def check_hot(dev) -> dict:
     keep = ids < H
     ids_in, rows_in = ids[keep], rows[keep].to(torch.bfloat16)
     library_ms = _time_ms(lambda: scratch.index_add_(0, ids_in, rows_in))
-    # bytes: the ids and the hot rows read once, the head read and
-    # written once
-    nbytes = ids.numel() * 8 + n_hot * C * 4 + 2 * H * C * 2
+    nbytes = _hot_bytes(ids, H, C, False)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ids_s, rows_s, extra_s, n_hot_s = cases["stratified, extra"]
+    ids_s, rows_s, extra_s = cases["stratified, extra"]
     plan_s = hot_plan(ids_s, H)
     strat_ms = _time_ms(lambda: hot_slice_add_pallas(scratch, ids_s, rows_s,
                                                      H, extra_s, plan=plan_s))
-    strat_bytes = (ids_s.numel() * 8 + n_hot_s * C * 4 + 2 * H * C * 2
-                   + H * C * 4)
-    print(f"[hotk] kernel {ms:.4f} ms (one step's plan, hoisted to the "
-          f"chunk's entry, {plan_ms:.4f} ms), "
-          f"plain {plain_ms:.4f} ms, index_add_ of the hot rows "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes); "
-          f"stratified with extra {strat_ms:.4f} ms (bound "
-          f"{strat_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    keep_s = ids_s < H
+    ids_si, rows_si = ids_s[keep_s], rows_s[keep_s].to(torch.bfloat16)
+    strat_library_ms = _time_ms(
+        lambda: scratch.index_add_(0, ids_si, rows_si))
+    strat_bytes = _hot_bytes(ids_s, H, C, True)
+    strat_bound_ms = strat_bytes / HBM_BYTES_PER_S * 1e3
+    cfg = tile_config()
+    print(f"[hotk] kernel {ms:.5f} ms (one step's plan, hoisted to the "
+          f"chunk's entry, {plan_ms:.5f} ms), plain {plain_ms:.5f} ms, "
+          f"index_add_ of the hot rows {library_ms:.5f} ms, bound "
+          f"{bound_ms:.5f} ms ({nbytes} bytes); stratified with extra "
+          f"{strat_ms:.5f} ms (index_add_ {strat_library_ms:.5f} ms, bound "
+          f"{strat_bound_ms:.5f} ms, {strat_bytes} bytes); tiles of "
+          f"{cfg['L']} slots, {cfg['THREADS']} threads, chunks of "
+          f"{cfg['SUB']} rows, {cfg['IB']} in flight, groups of at most "
+          f"{cfg['GROUP']} columns")
     return dict(name="hot_slice_add_pallas", route="cuda",
                 source="word2bits_tpu_torch/csrc/hot_slice.cu",
                 replaces="word2bits_tpu/kernels/hot_pallas.py:84",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
                 plan_ms=plan_ms, stratified_extra_ms=strat_ms,
+                stratified_extra_bound_ms=strat_bound_ms,
+                stratified_extra_library_ms=strat_library_ms, config=cfg,
                 shapes=f"table [{V}, {C}] bf16, H={H}, {ids.numel()} f32 "
-                       f"rows ({n_hot} hot)")
+                       f"rows ({int(keep.sum())} hot)")
+
+
+def _hot_edge_ids(rng, L: int, H: int) -> dict:
+    """Id sets at the edges of kernel 6's tiles (L slots) for a head of H
+    rows: one head id holding 80% of 12,800 rows beside Zipf, cold and
+    negative ids; runs of L - 1, L, L + 1 and 2L + 1 rows about the tile
+    edges; cold and negative ids only; a few rows, so that most head rows
+    have none (what `extra` must still fold); N = 0."""
+    from word2bits_tpu_torch.kernels.span_scatter import SENTINEL
+    n = 12_800
+    head = np.minimum(rng.zipf(1.3, n) - 1, 3000) + 10
+    head[rng.random(n) < 0.8] = 5
+    head[rng.choice(n, 64, replace=False)] = SENTINEL
+    head[rng.choice(n, 16, replace=False)] = -1
+    lens = [L, L - 1, 1, L + 1, 2 * L + 1, 3, L - 1, L, 2 * L + 1, L + 1]
+    # the runs lead the sorted stream: their offsets from the tile edges
+    # are set by `lens`; half the ids after them are cold
+    runs = np.concatenate([np.repeat(np.arange(len(lens)), lens),
+                           rng.integers(len(lens), 2 * H, 3000)])
+    rng.shuffle(runs)
+    cold = rng.choice(np.array([-4, -1, H, H + 9, SENTINEL]), 2000)
+    few = rng.integers(0, H, 40)
+    return {"head 80%": head, "runs about L": runs,
+            "cold and negative only": cold, "40 rows": few,
+            "N = 0": np.zeros(0, dtype=np.int64)}
+
+
+def check_hot_edges(dev, widths=(37, 400, 1600)) -> None:
+    """Kernel 6 at its tiles' edges (_hot_edge_ids) into the head of a
+    [4096, C] table, H = 2,000 (not a multiple of the tile length), with
+    and without a float32 `extra`, for each dtype pair (a bf16 table with
+    float32 and with bf16 rows, a float32 table) at widths 37 (one column a
+    thread), 400 and 1,600: two launches bit-equal; rows past the head
+    untouched; held against the plain version at [hotk]'s tolerance (atol
+    1e-5 + rtol 2^-7); and every head row that no row reaches equal to the
+    plain version's (with `extra`: folded once, round(table + extra);
+    without: as it was)."""
+    from word2bits_tpu_torch.kernels.hot_pallas import (
+        hot_slice_add_pallas, hot_slice_add_plain, tile_config)
+    L = tile_config()["L"]
+    rng = np.random.default_rng(SEED + 10)
+    V, H = 4096, 2000
+    worst = 0.0
+    cases = _hot_edge_ids(rng, L, H)
+    for what, ids_np in cases.items():
+        ids = torch.from_numpy(ids_np.astype(np.int64)).to(dev)
+        hot = ids[(ids >= 0) & (ids < H)]
+        empty = torch.ones(H, dtype=torch.bool, device=dev)
+        empty[hot] = False
+        for C in widths:
+            gen = torch.Generator(device=dev).manual_seed(SEED + C)
+            rows = torch.randn((ids.numel(), C), generator=gen,
+                               device=dev) * 0.01
+            base = torch.rand((V, C), generator=gen, device=dev) - 0.5
+            ext = torch.randn((H, C), generator=gen, device=dev) * 0.1
+            for tdt, rdt in ((torch.bfloat16, torch.float32),
+                             (torch.bfloat16, torch.bfloat16),
+                             (torch.float32, torch.float32)):
+                table0, r = base.to(tdt), rows.to(rdt)
+                for extra in (None, ext):
+                    k6 = [hot_slice_add_pallas(table0.clone(), ids, r, H,
+                                               extra) for _ in range(2)]
+                    plain = hot_slice_add_plain(table0.clone(), ids, r, H,
+                                                extra)
+                    torch.cuda.synchronize()
+                    tag = (f"{what}, {str(tdt)[6:]} table, {str(rdt)[6:]} "
+                           f"rows, width {C}, "
+                           f"{'extra' if extra is not None else 'no extra'}")
+                    if not torch.equal(_bits(k6[0]), _bits(k6[1])):
+                        _fail(f"hot edges ({tag}): two launches not "
+                              f"bit-equal, max abs err "
+                              f"{_max_err(k6[0], k6[1]):.3e}")
+                    if not torch.equal(_bits(k6[0][H:]), _bits(table0[H:])):
+                        _fail(f"hot edges ({tag}): rows past the head "
+                              "changed")
+                    if not torch.equal(k6[0][:H][empty], plain[:H][empty]):
+                        _fail(f"hot edges ({tag}): a head row that no row "
+                              "reaches differs from the plain version")
+                    err = _max_err(k6[0][:H], plain[:H])
+                    if not torch.allclose(k6[0][:H].float(),
+                                          plain[:H].float(), atol=1e-5,
+                                          rtol=2 ** -7):
+                        _fail(f"hot edges ({tag}): max abs err {err:.3e} "
+                              "against the plain version > atol 1e-5 + "
+                              "rtol 2^-7")
+                    worst = max(worst, err)
+    print(f"[hot edges] tiles of {L} slots, H = {H} of a [{V}, C] table; "
+          f"{', '.join(cases)} at widths {', '.join(map(str, widths))} in 3 "
+          f"dtype pairs, with and without extra: two launches bit-equal, "
+          f"head rows no row reaches equal to the plain version's, max abs "
+          f"err {worst:.3e} against the plain version")
 
 
 # ---------------------------------------------------------------- kernel 8
+def _rmw_allowed(want: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
+                 touched: torch.Tensor) -> torch.Tensor:
+    """[rmwk]'s tolerance on the touched rows (in `touched`'s order): two
+    bf16 roundings of the value and of the sums that entered it,
+    2^-6 (|want| + A) + 1e-6, A the per-id sum of |rows|."""
+    keep = (ids >= 0) & (ids < want.shape[0])
+    slot = torch.searchsorted(touched, ids[keep])
+    mags = torch.zeros((touched.numel(), rows.shape[1]), device=rows.device)
+    mags.index_add_(0, slot, rows[keep].float().abs())
+    return 2 ** -6 * (want[touched].float().abs() + mags) + 1e-6
+
+
 def check_rmw(dev) -> dict:
     """Kernel 8 against its plain version at the capacity shape: two
     copies of one random bf16 [3,699,941, 1,600] table, one step's two
@@ -1166,11 +1300,12 @@ def check_rmw(dev) -> dict:
     round the sum, and add it with one rounding, twice: a touched value may
     differ by two bf16 roundings of itself and of the sums that entered it
     (|got - want| <= 2^-6 (|want| + A) + 1e-6, A the per-id sum of |rows|);
-    every other row must be untouched in both."""
+    every other row must be untouched in both; the two calls run twice on
+    the same inputs give bit-equal rows."""
     from word2bits_tpu_torch.kernels.group_rmw import group_plan
     from word2bits_tpu_torch.kernels.scatter_pallas import (
-        group_rows, scatter_add_rmw, scatter_add_rmw_plain,
-        scatter_add_rmw_planned)
+        group_rows, rmw_plan, scatter_add_rmw, scatter_add_rmw_plain,
+        scatter_add_rmw_planned, tile_config)
     from word2bits_tpu_torch.kernels.span_scatter import SENTINEL
     rng = np.random.default_rng(SEED + 8)
     V, C = FLAG_V, 2 * FLAG_D
@@ -1187,21 +1322,28 @@ def check_rmw(dev) -> dict:
     got.uniform_(-0.5, 0.5, generator=torch.Generator(
         device=dev).manual_seed(SEED + 9))
     want = got.clone()
+    all_ids = torch.cat([c[0] for c in calls])
+    touched = torch.unique(all_ids[all_ids < V])
+    before = got[touched]
     for ids, rows in calls:
         scatter_add_rmw(got, ids, rows)
         scatter_add_rmw_plain(want, ids, rows)
+    first = got[touched]
+    got[touched] = before                       # and once more
+    for ids, rows in calls:
+        scatter_add_rmw(got, ids, rows)
     torch.cuda.synchronize()
-    all_ids = torch.cat([c[0] for c in calls])
-    keep = all_ids < V
-    touched, slot = torch.unique(all_ids[keep], return_inverse=True)
-    mags = torch.zeros((touched.numel(), C), device=dev)
-    mags.index_add_(0, slot, torch.cat([c[1] for c in calls])[keep].abs())
+    if not torch.equal(_bits(first), _bits(got[touched])):
+        _fail("rmw: two launches on the same inputs differ")
+    del before, first
     g, w = got[touched].float(), want[touched].float()
     err = _max_err(g, w)
-    allowed = 2 ** -6 * (w.abs() + mags) + 1e-6
+    allowed = _rmw_allowed(want, all_ids, torch.cat([c[1] for c in calls]),
+                           touched)
     if not bool(((g - w).abs() <= allowed).all()):
         _fail(f"rmw: max abs err {err:.3e} on the touched rows beyond two "
               "bf16 roundings")
+    del g, w, allowed
     untouched = torch.ones(V, dtype=torch.bool, device=dev)
     untouched[touched] = False
     step = 1 << 18
@@ -1209,13 +1351,21 @@ def check_rmw(dev) -> dict:
         m = untouched[r0:r0 + step]
         if not torch.equal(got[r0:r0 + step][m], want[r0:r0 + step][m]):
             _fail(f"rmw wrote rows it was not given (rows {r0}..)")
-    grp = group_rows(got.dtype)
-    plans = [group_plan(ids, grp) for ids, _ in calls]
-    n_touch = [int(torch.unique(ids[ids < V]).numel()) for ids, _ in calls]
+    runs, longest = [], []
+    for ids, _ in calls:
+        counts = torch.unique(ids[ids < V], return_counts=True)[1]
+        runs.append(counts.numel())
+        longest.append(int(counts.max()))
+    cfg = tile_config()
     print(f"[rmwk] max abs err {err:.3e}; calls of {n_slab} and {n_neg} "
-          f"rows, {n_touch[0]} and {n_touch[1]} distinct ids "
-          f"({touched.numel()} over both), visits "
-          f"{[int(pl.n_vis) for pl in plans]}")
+          f"rows, {runs[0]} and {runs[1]} runs (distinct ids; "
+          f"{touched.numel()} over both), longest {longest[0]} and "
+          f"{longest[1]} rows; two launches bit-equal; tiles of {cfg['L']} "
+          f"slots, {cfg['THREADS']} threads, chunks of {cfg['SUB']} rows, "
+          f"{cfg['IB']} in flight, groups of at most {cfg['GROUP']} columns")
+    # kernel 8 reads each call's sorted ids and source rows (group_plan's
+    # are rmw_plan's)
+    plans = [group_plan(ids, group_rows(got.dtype)) for ids, _ in calls]
 
     def kernel():
         for (ids, rows), pl in zip(calls, plans):
@@ -1231,18 +1381,17 @@ def check_rmw(dev) -> dict:
         for ids, rows in inside:
             got.index_add_(0, ids, rows)
     ms = _time_ms(kernel)
-    plan_ms = _time_ms(lambda: [group_plan(ids, grp) for ids, _ in calls])
+    plan_ms = _time_ms(lambda: [rmw_plan(ids) for ids, _ in calls])
     plain_ms = _time_ms(plain)
     library_ms = _time_ms(library)
-    # bytes, both calls: rows and plan read once; each touched row read
-    # and written once per call
-    nbytes = sum(rows.numel() * 4 + sum(t.numel() * 4 for t in pl)
-                 + 2 * nt * C * 2
-                 for (_, rows), pl, nt in zip(calls, plans, n_touch))
+    # bytes, both calls: the rows, the sorted ids and their source rows
+    # read once; each touched row read and written once per call
+    nbytes = sum(rows.numel() * 4 + 2 * ids.numel() * 4 + 2 * nt * C * 2
+                 for (ids, rows), nt in zip(calls, runs))
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[rmwk] one step's two calls: kernel {ms:.4f} ms (the two plans "
-          f"{plan_ms:.4f} ms), plain {plain_ms:.4f} ms, index_add_ "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes)")
+    print(f"[rmwk] one step's two calls: kernel {ms:.5f} ms (the two sorts "
+          f"{plan_ms:.5f} ms), plain {plain_ms:.5f} ms, index_add_ "
+          f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes)")
     del got, want
     torch.cuda.empty_cache()
     return dict(name="scatter_add_rmw", route="cuda",
@@ -1250,15 +1399,110 @@ def check_rmw(dev) -> dict:
                 replaces="word2bits_tpu/kernels/scatter_pallas.py:178",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
-                plan_ms=plan_ms,
+                plan_ms=plan_ms, config=cfg,
                 shapes=f"table [{V}, {C}] bf16, {n_slab} + {n_neg} f32 "
                        "rows (one step's two calls)")
+
+
+def _rmw_rounding_case(L: int) -> tuple:
+    """Ids and rows (C columns alike) where an id's rounded sum differs
+    from the sum of its rounded pieces: id 0 leads the sorted stream with
+    2L rows, cut once by a tile edge; its first tile's piece sums to
+    1 + 2^-8 (bf16 rounds that to 1), its second's to 2^-8, the whole to
+    1 + 2^-7 (a bf16 value).  So at a zero bf16 row the one rounding of
+    the sum gives 1 + 2^-7 and rounding the pieces would give 1."""
+    ids = np.concatenate([np.zeros(2 * L, dtype=np.int64),
+                          np.arange(1, 201, dtype=np.int64)])
+    vals = np.zeros(ids.size, dtype=np.float32)
+    vals[0], vals[1], vals[L] = 1.0, 2.0 ** -8, 2.0 ** -8
+    vals[2 * L:] = 0.5
+    return ids, vals
+
+
+def check_rmw_edges(dev, widths=(37, 200, 1600)) -> None:
+    """Kernel 8 at its tiles' edges, as [grmw edges] for kernel 7
+    (_grmw_edge_plans at kernel 8's tile length: one id holding 80% of
+    12,800 rows, one id holding all, N below one tile, drop sentinels and
+    negative ids only, N = 0) and an id whose rounded sum differs from the
+    sum of its rounded pieces (_rmw_rounding_case), for each dtype pair at
+    widths 37 (one column a thread), 200 and 1,600: two launches
+    bit-equal; ids outside [0, V) dropped (a plan of them only leaves the
+    table as it was); held against the plain version at [rmwk]'s tolerance;
+    the rounding case's id bit-equal to the plain version (one rounding of
+    its whole sum)."""
+    from word2bits_tpu_torch.kernels.scatter_pallas import (
+        scatter_add_rmw, scatter_add_rmw_plain, tile_config)
+    L = tile_config()["L"]
+    rng = np.random.default_rng(SEED + 11)
+    V = 4096
+    plans = _grmw_edge_plans(rng, L)
+    r_ids, r_vals = _rmw_rounding_case(L)
+    plans["rounded sum"] = r_ids
+    worst = 0.0
+    for what, ids_np in plans.items():
+        ids = torch.from_numpy(ids_np).to(dev)
+        keep = (ids >= 0) & (ids < V)
+        touched = torch.unique(ids[keep])
+        for C in widths:
+            gen = torch.Generator(device=dev).manual_seed(SEED + C)
+            rows = torch.randn((ids.numel(), C), generator=gen,
+                               device=dev) * 0.01
+            base = torch.rand((V, C), generator=gen, device=dev) - 0.5
+            if what == "rounded sum":
+                rows = torch.from_numpy(r_vals).to(dev)[:, None].expand(
+                    -1, C).contiguous()
+                base[0] = 0.0
+            for tdt, rdt in ((torch.bfloat16, torch.float32),
+                             (torch.bfloat16, torch.bfloat16),
+                             (torch.float32, torch.float32)):
+                table0, r = base.to(tdt), rows.to(rdt)
+                k8 = [scatter_add_rmw(table0.clone(), ids, r)
+                      for _ in range(2)]
+                plain = scatter_add_rmw_plain(table0.clone(), ids, r)
+                torch.cuda.synchronize()
+                tag = (f"{what}, {str(tdt)[6:]} table, {str(rdt)[6:]} rows, "
+                       f"width {C}")
+                if not torch.equal(_bits(k8[0]), _bits(k8[1])):
+                    _fail(f"rmw edges ({tag}): two launches not bit-equal, "
+                          f"max abs err {_max_err(k8[0], k8[1]):.3e}")
+                untouched = torch.ones(V, dtype=torch.bool, device=dev)
+                untouched[touched] = False
+                if not torch.equal(_bits(k8[0][untouched]),
+                                   _bits(table0[untouched])):
+                    _fail(f"rmw edges ({tag}): a row it was not given "
+                          "changed")
+                if touched.numel() == 0:
+                    continue
+                g, w = k8[0][touched].float(), plain[touched].float()
+                err = _max_err(g, w)
+                allowed = _rmw_allowed(plain, ids, r, touched)
+                if not bool(((g - w).abs() <= allowed).all()):
+                    _fail(f"rmw edges ({tag}): max abs err {err:.3e} "
+                          "against the plain version beyond two roundings")
+                worst = max(worst, err)
+                if what == "rounded sum" and not torch.equal(
+                        _bits(k8[0][0]), _bits(plain[0])):
+                    _fail(f"rmw edges ({tag}): id 0 is {k8[0][0][0]}, the "
+                          f"plain version {plain[0][0]} (one rounding of "
+                          "the whole sum)")
+    print(f"[rmw edges] tiles of {L} slots; {', '.join(plans)} at widths "
+          f"{', '.join(map(str, widths))} in 3 dtype pairs: two launches "
+          f"bit-equal, rows not given untouched, the rounded-sum id "
+          f"bit-equal to the plain version; max abs err {worst:.3e} "
+          f"against the plain version")
 
 
 # ---------------------------------------------------------------- kernel 4
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """The raw bits of a float32 or bfloat16 tensor (-0.0 is not +0.0)."""
     return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _digest(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's raw bits, row-major (its first 16 hex
+    digits): equal digests mean bit-equal tensors."""
+    raw = _bits(t.contiguous()).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
 
 
 def check_quantize(dev) -> dict:
@@ -2484,8 +2728,9 @@ def check_accuracy(dev, path: str, threshold: int, n_q: int,
 
 def report_ptxas() -> None:
     """Each kernel's registers, static shared memory and spills as ptxas
-    reported them in this run's build; kernels 1, 2, 3 (both row sources of
-    the tile template), 5, 7 (the tile template in group_rmw.cu) and 9
+    reported them in this run's build; kernels 1, 5 and 9 and every
+    instantiation of the tile template (kernels 2 and 3, both row sources;
+    6, its head-fold epilogue in hot_slice.cu; 7 and 8 in group_rmw.cu)
     must not spill."""
     from word2bits_tpu_torch.kernels._build import (BUILD_LOGS,
                                                     KERNEL_SOURCES,
@@ -2506,7 +2751,7 @@ def report_ptxas() -> None:
             if held and (u["spill_stores"] or u["spill_loads"]):
                 spills.append(u["function"])
     if spills:
-        _fail(f"kernels 1, 2, 3, 5, 7 and 9 must not spill: {spills}")
+        _fail(f"kernels 1, 2, 3, 5, 6, 7, 8 and 9 must not spill: {spills}")
 
 
 def main() -> int:
@@ -2541,10 +2786,12 @@ def main() -> int:
     check_score_edges(dev)
     rank1 = check_rank1(dev)
     hot = check_hot(dev)
+    check_hot_edges(dev)
     check_step_and_chunk(dev)
     grmw = check_grmw(dev)
     grmw["at_widths"] = check_grmw_edges(dev)
     rmw = check_rmw(dev)
+    check_rmw_edges(dev)
     ctx = check_context(dev, FLAG_B, FLAG_D, "context@800")
     ctx_exact = check_context(dev, EXACT_B, D, "context@exact",
                               torch.float32)
@@ -2576,6 +2823,18 @@ def main() -> int:
     print(f"[redesign] kernel 7: {grmw['ms']:.5f} ms (one CTA a visit: "
           f"0.24240), bound {grmw['bound_ms']:.5f}, index_add_ "
           f"{grmw['library_ms']:.5f}")
+    # kernels 6 and 8 beside the times of their earlier designs (one CTA a
+    # head row; one CTA a visit), NVIDIA H100 80GB HBM3, 700 W, PERF.md
+    # section 6
+    print(f"[redesign] kernel 6: {hot['ms']:.5f} ms (one CTA a head row: "
+          f"0.00896), bound {hot['bound_ms']:.5f}, index_add_ "
+          f"{hot['library_ms']:.5f}; with extra "
+          f"{hot['stratified_extra_ms']:.5f}, bound "
+          f"{hot['stratified_extra_bound_ms']:.5f}, index_add_ "
+          f"{hot['stratified_extra_library_ms']:.5f}")
+    print(f"[redesign] kernel 8: {rmw['ms']:.5f} ms for one step's two calls "
+          f"(one CTA a visit: 0.26565), bound {rmw['bound_ms']:.5f}, "
+          f"index_add_ {rmw['library_ms']:.5f}")
     work = os.path.join(repo, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -2612,7 +2871,8 @@ def main() -> int:
             "launches_by_path", "at_d200", "at_exact", "bmm_only_ms",
             "span_materialized_ms", "span_materialized_with_forming_ms",
             "config", "at_widths",
-            "plan_ms", "stratified_extra_ms", "bf16", "whole_ms",
+            "plan_ms", "stratified_extra_ms", "stratified_extra_bound_ms",
+            "stratified_extra_library_ms", "bf16", "whole_ms",
             "whole_bound_ms", "export_blocks_ms", "export_blocks_plain_ms")
     print(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys if k in kd}

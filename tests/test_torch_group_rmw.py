@@ -349,9 +349,8 @@ def _bad_grmw_call(rng, bad):
     "batched plan", "plan dtype", "not contiguous", "run_start length",
     "vis_run length", "device"])
 def test_grmw_wrapper_raises_on_what_the_kernel_does_not_take(rng, bad):
-    """The checks the wrappers of kernels 7 and 8 make before a launch (on
-    a CUDA tensor each launches its kernel or raises; neither falls
-    back)."""
+    """The checks kernel 7's wrapper makes before a launch (on a CUDA
+    tensor it launches the kernel or raises; it does not fall back)."""
     table, plan, rows = _bad_grmw_call(rng, bad)
     with pytest.raises(ValueError):
         tg._check("scatter_add_grmw", table, plan, rows)

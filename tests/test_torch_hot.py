@@ -1,7 +1,9 @@
 """The port's hot/cold split == the JAX package's (CPU).
 
 Kernel 6's plain version against the JAX Pallas kernel
-`hot_slice_add_pallas` in interpret mode; `hot_slice_add`, the cold map
+`hot_slice_add_pallas` in interpret mode; its plan (`hot_plan`: the sorted
+keys the kernel reads, their source rows, the run starts) and its
+wrapper's argument checks; `hot_slice_add`, the cold map
 (`cold_positions`) and the stratified sampler's tables against the JAX
 package's; the fused step with `hot_rows` (with a cold map, with and
 without `hot_pallas`, with `use_pallas`), with stratified lanes and with
@@ -31,13 +33,14 @@ from word2bits_tpu.ops.scatter import hot_slice_add as jhot
 from word2bits_tpu.sampling.unigram import \
     build_stratified_tables as jstrat
 from word2bits_tpu_torch.data.pipeline import cold_positions
+from word2bits_tpu_torch.kernels import hot_pallas as hk
 from word2bits_tpu_torch.kernels.hot_pallas import (hot_plan,
                                                     hot_slice_add_pallas,
                                                     hot_slice_add_plain)
 from word2bits_tpu_torch.models import cbow_fused as tf
 from word2bits_tpu_torch.models import cbow_slab as ts
 from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-from word2bits_tpu_torch.ops.scatter import hot_slice_add
+from word2bits_tpu_torch.ops.scatter import SENTINEL, hot_slice_add
 from word2bits_tpu_torch.sampling.unigram import (
     build_alias_table, build_stratified_tables, draw_cold,
     draw_negatives_stratified)
@@ -138,6 +141,89 @@ def test_hot_plan_runs(rng):
     for s in range(2):
         for a, b in zip(batched.step(s), hot_plan(two[s], HH)):
             assert torch.equal(a, b)
+
+
+def _plan_ids(rng, case: str) -> np.ndarray:
+    """Ids for the plan cases: the Zipf head with cold and negative ids,
+    cold and negative ids only, one head id, and N = 0."""
+    if case == "zipf":
+        return _hot_case(rng, False)[1]
+    if case == "cold and negative":
+        return rng.choice(np.array([-3, -1, HH, HH + 7, SENTINEL]),
+                          200).astype(np.int32)
+    if case == "one head id":
+        ids = np.full(300, 5, dtype=np.int32)
+        ids[::7] = -1
+        return ids
+    return np.zeros(0, dtype=np.int32)
+
+
+@pytest.mark.parametrize("case", ["zipf", "cold and negative",
+                                  "one head id", "N = 0"])
+def test_hot_plan_sids(rng, case):
+    """HotPlan.sids is the stable sort of the ids keyed H outside [0, H)
+    (cold and negative ids last), `order` its source rows, `starts` the
+    run starts within it; the batched plan (the chunk's hoisted one)
+    equals the per-step plans."""
+    ids = _plan_ids(rng, case)
+    plan = hot_plan(torch.from_numpy(ids).long(), HH)
+    key = np.where((ids >= 0) & (ids < HH), ids, HH)
+    order = np.argsort(key, kind="stable")
+    assert plan.sids.dtype == plan.order.dtype == torch.int32
+    np.testing.assert_array_equal(plan.sids.numpy(), key[order])
+    np.testing.assert_array_equal(plan.order.numpy(), order)
+    np.testing.assert_array_equal(
+        plan.starts.numpy(), np.searchsorted(key[order], np.arange(HH + 1)))
+    two = torch.from_numpy(np.stack([ids, ids[::-1].copy()])).long()
+    batched = hot_plan(two, HH)
+    for s in range(2):
+        for a, b in zip(batched.step(s), hot_plan(two[s], HH)):
+            assert torch.equal(a, b)
+
+
+def _bad_hot_call(rng, bad):
+    """(table, ids, rows, extra, plan) of a call the kernel does not
+    take."""
+    table, ids, rows, ext = _hot_case(rng, True)
+    table, rows = torch.from_numpy(table), torch.from_numpy(rows)
+    ids, extra = torch.from_numpy(ids).long(), torch.from_numpy(ext)
+    plan = hot_plan(ids, HH)
+    if bad == "sids dtype":
+        plan = plan._replace(sids=plan.sids.long())
+    elif bad == "sids length":
+        plan = plan._replace(sids=plan.sids[:-1])
+    elif bad == "starts length":
+        plan = plan._replace(starts=plan.starts[:-1])
+    elif bad == "batched plan":
+        plan = hot_plan(ids[None], HH)
+    elif bad == "device":
+        plan = plan._replace(sids=plan.sids.to("meta"))
+    elif bad == "table dtype":
+        table = table.double()
+    elif bad == "extra shape":
+        extra = extra[:-1]
+    elif bad == "hot_rows":
+        return table, ids, rows, None, hot_plan(ids, HV + 1)
+    return table, ids, rows, extra, plan
+
+
+@pytest.mark.parametrize("bad", [
+    "sids dtype", "sids length", "starts length", "batched plan", "device",
+    "table dtype", "extra shape", "hot_rows"])
+def test_hot_wrapper_raises_on_what_the_kernel_does_not_take(rng, bad):
+    """The checks kernel 6's wrapper makes before a launch (on a CUDA
+    tensor it launches the kernel or raises; it does not fall back)."""
+    table, ids, rows, extra, plan = _bad_hot_call(rng, bad)
+    H = HV + 1 if bad == "hot_rows" else HH
+    with pytest.raises(ValueError):
+        hk._check("hot_slice_add_pallas", table, ids, rows, H, extra, plan)
+
+
+def test_hot_check_takes_a_good_call(rng):
+    table, ids, rows, extra, plan = _bad_hot_call(rng, "none")
+    hk._check("hot_slice_add_pallas", table, ids, rows, HH, extra, plan)
+    hk._check("hot_slice_add_pallas", table.to(torch.bfloat16), ids,
+              rows.to(torch.bfloat16), HH, None, plan)
 
 
 def test_hot_wrappers_raise_off_cpu_and_cuda():

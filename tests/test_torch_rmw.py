@@ -7,7 +7,9 @@ in interpret mode, at the JAX suite's own cases and tolerances
 package's (tests/test_scatter.py:25-60); the steps of both engines with
 `dedup_block`, and the fused step with `rmw_scatter`, against the JAX
 steps on the same SlabInputs (JAX's RMW table is padded to its 8-row
-groups and trimmed through params_from_jax).
+groups and trimmed through params_from_jax).  Kernel 8's per-call plan
+(`rmw_plan`, one sort) against group_plan's sorted ids and order, its
+routes against each other, and its wrapper's argument checks.
 
 The JAX kernel combines duplicates per `block` of rows and adds once per
 block; the port combines over the whole call and adds once.  In float32
@@ -30,8 +32,9 @@ from word2bits_tpu.models.cbow_slab import SlabInputs as JInputs
 from word2bits_tpu.models.cbow_slab import slab_step as jslab
 from word2bits_tpu.ops.scatter import scatter_add_dedup as jdedup
 from word2bits_tpu_torch.kernels.group_rmw import group_plan
+from word2bits_tpu_torch.kernels import scatter_pallas as sp
 from word2bits_tpu_torch.kernels.scatter_pallas import (
-    group_rows, scatter_add_rmw, scatter_add_rmw_plain,
+    group_rows, rmw_plan, scatter_add_rmw, scatter_add_rmw_plain,
     scatter_add_rmw_planned)
 from word2bits_tpu_torch.models import cbow_fused as tf
 from word2bits_tpu_torch.models import cbow_slab as ts
@@ -162,6 +165,100 @@ def test_rmw_rejects_bad_sizes_and_devices():
         scatter_add_rmw_planned(m, group_plan(
             torch.zeros(2, dtype=torch.long, device="meta"), 8),
             torch.zeros((2, 4), device="meta"))
+
+
+def _rmw_ids(rng, case: str) -> np.ndarray:
+    """Zipf ids with drop sentinels and negative ids; sentinels and
+    negative ids only; N = 0."""
+    if case == "zipf":
+        ids = np.minimum(rng.zipf(1.3, 400) - 1, 90)
+        ids[rng.choice(400, 30, replace=False)] = SENTINEL
+        ids[rng.choice(400, 10, replace=False)] = -2
+        return ids
+    if case == "dropped only":
+        return rng.choice(np.array([SENTINEL, -1, -5]), 60)
+    return np.zeros(0, dtype=np.int64)
+
+
+@pytest.mark.parametrize("case", ["zipf", "dropped only", "N = 0"])
+def test_rmw_plan_is_group_plans_sort(rng, case):
+    """The one sort scatter_add_rmw builds gives group_plan's sids and
+    order (per step and batched)."""
+    ids = torch.from_numpy(_rmw_ids(rng, case))
+    for x in (ids, torch.stack([ids, ids.flip(0)])):
+        sids, order = rmw_plan(x)
+        plan = group_plan(x, group_rows(torch.bfloat16))
+        assert sids.dtype == order.dtype == torch.int32
+        assert torch.equal(sids, plan.sids)
+        assert torch.equal(order, plan.order)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmw_routes_give_one_table(rng, dtype):
+    """scatter_add_rmw, scatter_add_rmw_planned(group_plan(...)), kernel
+    8's launch path on rmw_plan and the plain version give the same table
+    on the CPU, bit for bit (the stable sort keeps each id's row order),
+    sentinels and negative ids dropped and other rows untouched."""
+    V, C = 97, 24
+    ids = torch.from_numpy(_rmw_ids(rng, "zipf"))
+    rows = torch.from_numpy(rng.normal(size=(ids.numel(), C)).astype(
+        np.float32))
+    table = torch.from_numpy(rng.normal(size=(V, C)).astype(
+        np.float32)).to(dtype)
+    want = scatter_add_rmw_plain(table.clone(), ids, rows)
+    for got in (scatter_add_rmw(table.clone(), ids, rows),
+                scatter_add_rmw_planned(table.clone(), group_plan(
+                    ids, group_rows(dtype)), rows),
+                sp._apply(table.clone(), *rmw_plan(ids), rows)):
+        assert torch.equal(got, want)
+    keep = torch.zeros(V, dtype=torch.bool)
+    keep[ids[(ids >= 0) & (ids < V)]] = True
+    assert torch.equal(want[~keep], table[~keep])
+
+
+def _bad_rmw_call(rng, bad):
+    """(table, sids, order, rows) of a call kernel 8 does not take."""
+    V, C = 64, 16
+    ids = torch.from_numpy(_rmw_ids(rng, "zipf"))
+    rows = torch.from_numpy(rng.normal(size=(ids.numel(), C)).astype(
+        np.float32))
+    table = torch.zeros((V, C))
+    sids, order = rmw_plan(ids)
+    if bad == "sids dtype":
+        sids = sids.long()
+    elif bad == "sids length":
+        sids = sids[:-1]
+    elif bad == "order length":
+        order = order[:-1]
+    elif bad == "batched plan":
+        sids, order = rmw_plan(ids[None])
+    elif bad == "device":
+        order = order.to("meta")
+    elif bad == "table dtype":
+        table = table.double()
+    elif bad == "row dtype":
+        rows = rows.to(torch.float16)
+    elif bad == "width":
+        rows = rows[:, :C - 1]
+    return table, sids, order, rows
+
+
+@pytest.mark.parametrize("bad", [
+    "sids dtype", "sids length", "order length", "batched plan", "device",
+    "table dtype", "row dtype", "width"])
+def test_rmw_wrapper_raises_on_what_the_kernel_does_not_take(rng, bad):
+    """The checks kernel 8's wrapper makes before a launch (on a CUDA
+    tensor it launches the kernel or raises; it does not fall back)."""
+    table, sids, order, rows = _bad_rmw_call(rng, bad)
+    with pytest.raises(ValueError):
+        sp._check("scatter_add_rmw", table, sids, order, rows)
+
+
+def test_rmw_check_takes_a_good_call(rng):
+    table, sids, order, rows = _bad_rmw_call(rng, "none")
+    sp._check("scatter_add_rmw", table, sids, order, rows)
+    sp._check("scatter_add_rmw", table.to(torch.bfloat16), sids, order,
+              rows.to(torch.bfloat16))
 
 
 # ----------------------------------------------------------------- dedup

@@ -1,7 +1,16 @@
 // The tiled sorted scatter-add template, table[ids] += rows, of kernels 2
-// and 3 (csrc/span_scatter.cu) and kernel 7 (csrc/group_rmw.cu).  Each
-// entry point instantiates it with its own constants (TileCfg), chosen by
-// timing at its own shapes.
+// and 3 (csrc/span_scatter.cu), kernel 6 (csrc/hot_slice.cu) and kernels 7
+// and 8 (csrc/group_rmw.cu).  Each entry point instantiates it with its own
+// constants (TileCfg), chosen by timing at its own shapes, and one of three
+// epilogues, which say what a run's one read-modify-write does with the
+// table row's values `cur` and the run's float32 sum:
+//   * AddSum (kernels 2, 3 and 7): cur += sum;
+//   * AddRoundedSum (kernel 8): cur += the sum rounded to the table dtype,
+//     the whole id's sum (a cut run's pieces added first), never a piece;
+//   * HeadFold (kernel 6 with `extra`): cur = round(cur + extra[id]) as
+//     the row is read, then cur += sum; it also stores the head rows that
+//     no row reaches (below).
+// Each stores cur with one rounding to the table dtype.
 //
 // The contract:
 //   * each row is first rounded to the table dtype;
@@ -11,8 +20,8 @@
 //     sum: the summation order is fixed by the plan (the stable sort of the
 //     ids), so the result does not depend on scheduling and two launches
 //     give bit-equal tables;
-//   * ids outside [0, V) (negative ids, the 0x7FFFFFF0 drop sentinel) are
-//     dropped;
+//   * ids outside [0, V) (negative ids, the 0x7FFFFFF0 drop sentinel, the
+//     cold key H of kernel 6's plan) are dropped;
 //   * the table is updated in place; no temporary the size of the table.
 //
 // The sorted stream is cut into tiles of L slots and the columns into
@@ -23,7 +32,12 @@
 //     into chunks of at most SUB rows.
 //   * Every (chunk, column vector) item goes to one thread, IB at a time,
 //     neighbouring threads on neighbouring columns; the thread sums the
-//     chunk's rows from 0 in slot order, all of them in flight together.
+//     chunk's rows from 0 in slot order.  With TileCfg::BATCH (kernels 6
+//     and 8) all the loads of a thread's IB items (rows and table rows) go
+//     out together, branch-free at clamped addresses, before any is used.
+//     Without it (kernels 2, 3 and 7) each row's load sits in its own
+//     branch with its rounding, so that the compiled code waits for each
+//     load before it issues the next: SUB * IB round trips an item batch.
 //     A run of one chunk (most runs) is finished by that thread: its table
 //     row's read was in flight with the rows, and it makes the row's one
 //     read-modify-write.  A longer run's chunk sums go to shared memory,
@@ -40,15 +54,29 @@
 //     of the table row and resets the counter to 0 for the next call.  No
 //     CTA waits for another.  A warp of probes a tile apart finds the
 //     run's first and last tile from neighbouring ids.
+//   * HeadFold with `extra`: ceil(V / L) more CTAs per column group, past
+//     the tiles, each fold the head rows of its L whose run is empty
+//     (starts[h] == starts[h + 1]) and store them; a row with a run is
+//     folded by its run's one read-modify-write.  So every head row is
+//     folded and stored once, by one CTA.
 // The workspace (TileCfg::partials floats and TileCfg::counters int32
 // counters, the counters zero between calls) is allocated by the caller.
 #pragma once
 
 #include "w2b_rows.cuh"
 
+// W2B_TILE_STOP = 1, 2 or 3 builds a kernel that returns after staging its
+// tile and finding the runs, after step 1 or after step 2 below, leaving
+// the table incomplete (tools/tune_kernels.py times such builds to see
+// where the time goes); 0, the default, compiles none of it.
+#ifndef W2B_TILE_STOP
+#define W2B_TILE_STOP 0
+#endif
+
 namespace w2b {
 
-template <int L_, int THREADS_, int SUB_, int IB_, int GROUP_>
+template <int L_, int THREADS_, int SUB_, int IB_, int GROUP_,
+          bool BATCH_ = false>
 struct TileCfg {
   static constexpr int L = L_;              // slots of a tile
   static constexpr int THREADS = THREADS_;
@@ -56,6 +84,11 @@ struct TileCfg {
                                             // thread sums
   static constexpr int IB = IB_;            // chunks in flight per thread
   static constexpr int GROUP = GROUP_;      // columns of a CTA, at most
+  // step 1 issues all of a thread's loads (its IB chunks' rows and table
+  // rows, at clamped addresses, without a branch) before it uses any;
+  // without it each row's load sits in its own branch with its rounding,
+  // so that the loads of a thread go out one after another
+  static constexpr bool BATCH = BATCH_;
   // shared slots: the chunks of the tile's runs of more than SUB rows (at
   // most 2 per SUB + 1 rows), and those runs
   static constexpr int MAX_SLOTS = 2 * L / (SUB + 1);
@@ -127,12 +160,71 @@ __device__ __forceinline__ int warp_scan(int x, int lane) {
   return x;
 }
 
-template <class Cfg, typename TableT, typename Src, int VEC>
+// The epilogues.  load(p, id, c, cur): cur = the values entering row id's
+// add at columns c .. c + VEC - 1 (p points there in the table); apply(cur,
+// sum): the add of the run's float32 sum.  fold_ctas(V, L): the CTAs
+// launched past the tiles (FOLD only).
+struct AddSum {
+  static constexpr bool FOLD = false;
+  bool vec4_ok() const { return true; }
+  int fold_ctas(int, int) const { return 0; }
+  template <int VEC, typename TableT>
+  __device__ __forceinline__ void load(const TableT* p, int, int,
+                                       float (&cur)[VEC]) const {
+    load_vec<VEC>(p, cur);
+  }
+  template <typename TableT, int VEC>
+  __device__ __forceinline__ void apply(float (&cur)[VEC],
+                                        const float (&sum)[VEC]) const {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) cur[i] += sum[i];
+  }
+};
+
+struct AddRoundedSum : AddSum {
+  template <typename TableT, int VEC>
+  __device__ __forceinline__ void apply(float (&cur)[VEC],
+                                        const float (&sum)[VEC]) const {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) cur[i] += to_f32(from_f32<TableT>(sum[i]));
+  }
+};
+
+// The head fold happens as the row is read: its table and extra loads go
+// out together, with the rows' loads.  (Without `extra`, kernel 6 is a
+// plain AddSum.)
+struct HeadFold {
+  static constexpr bool FOLD = true;
+  const float* extra;   // [V, C] float32
+  const int* starts;    // [V + 1] run starts, read by the fold CTAs
+  int C;
+  bool vec4_ok() const { return aligned(extra, 16); }
+  int fold_ctas(int V, int L) const { return (V + L - 1) / L; }
+  template <int VEC, typename TableT>
+  __device__ __forceinline__ void load(const TableT* p, int id, int c,
+                                       float (&cur)[VEC]) const {
+    float ex[VEC];
+    load_vec<VEC>(p, cur);
+    load_vec<VEC>(extra + (size_t)id * C + c, ex);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      cur[i] = to_f32(from_f32<TableT>(cur[i] + ex[i]));
+  }
+  template <typename TableT, int VEC>
+  __device__ __forceinline__ void apply(float (&cur)[VEC],
+                                        const float (&sum)[VEC]) const {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) cur[i] += sum[i];
+  }
+};
+
+template <class Cfg, typename TableT, typename Src, int VEC, typename Epi>
 __global__ void __launch_bounds__(Cfg::THREADS)
 tile_scatter_kernel(TableT* __restrict__ table, const Src src,
                     const int* __restrict__ sids,
                     const int* __restrict__ order, float* __restrict__ part,
-                    int* __restrict__ count, int N, int V, int C, int GC) {
+                    int* __restrict__ count, int N, int V, int C, int GC,
+                    const Epi epi) {
   constexpr int L = Cfg::L, THREADS = Cfg::THREADS, SUB = Cfg::SUB;
   constexpr int IB = Cfg::IB, GROUP = Cfg::GROUP;
   __shared__ __align__(16) float s_acc[Cfg::MAX_SLOTS * GROUP];  // chunk sums
@@ -144,12 +236,62 @@ tile_scatter_kernel(TableT* __restrict__ table, const Src src,
                                                     // SUB rows: run, first slot
   __shared__ int s_n, s_nc, s_nm, s_prev, s_next, s_first, s_last_tile;
   __shared__ int s_done[2];          // this CTA finishes the head/tail run
-  const int t = blockIdx.x, n_tiles = gridDim.x;
+  // the fold CTAs (HeadFold with extra) come after the tiles
+  const int t = blockIdx.x;
+  const int n_tiles = Epi::FOLD ? (N + L - 1) / L : (int)gridDim.x;
   const int tid = threadIdx.x, lane = tid % 32;
-  const size_t s0 = (size_t)t * L;
-  const int nt = min(L, N - (int)s0);  // slots in this tile
   // this CTA's columns [c0, c0 + GC) of the tile; column groups never meet
   const int c0 = blockIdx.y * GC, cw = min(GC, C - c0);
+  if constexpr (Epi::FOLD) {
+    if (t >= n_tiles) {
+      // fold the head rows [h0, h0 + L) whose run is empty, no row added:
+      // warp 0 lists them, then every (row, column vector) item, IB a
+      // thread with their loads in flight together
+      const int h0 = (t - n_tiles) * L, pv = cw / VEC;
+      if (tid < L) {
+        const int h = h0 + tid;
+        s_ord[tid] = h < V && __ldg(epi.starts + h) ==
+                                  __ldg(epi.starts + h + 1);
+      }
+      __syncthreads();
+      if (tid < 32) {
+        int ne = 0;
+        for (int base = 0; base < L; base += 32) {
+          const bool e = s_ord[base + lane];
+          const unsigned m = __ballot_sync(0xffffffffu, e);
+          if (e) s_id[ne + __popc(m & ((1u << lane) - 1u))] = h0 + base + lane;
+          ne += __popc(m);
+        }
+        if (lane == 0) s_n = ne;
+      }
+      __syncthreads();
+      const int items = s_n * pv;
+      for (int it0 = tid; it0 < items; it0 += IB * THREADS) {
+        TableT* p[IB];
+        float cur[IB][VEC];
+#pragma unroll
+        for (int u = 0; u < IB; ++u) {
+          // past the end: a repeat of the last item, not stored
+          const int it = min(it0 + u * THREADS, items - 1);
+          const int r = it / pv, c = c0 + (it - r * pv) * VEC;
+          p[u] = table + (size_t)s_id[r] * C + c;
+          epi.template load<VEC>(p[u], s_id[r], c, cur[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < IB; ++u) {
+          if (it0 + u * THREADS >= items) continue;
+          float zero[VEC];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) zero[i] = 0.0f;
+          epi.template apply<TableT, VEC>(cur[u], zero);
+          store_vec<VEC>(p[u], cur[u]);
+        }
+      }
+      return;
+    }
+  }
+  const size_t s0 = (size_t)t * L;
+  const int nt = min(L, N - (int)s0);  // slots in this tile
   int* const cnt = count + (size_t)blockIdx.y * n_tiles;
   if (tid < L) {
     s_id[tid] = tid < nt ? sids[s0 + tid] : -1;
@@ -218,18 +360,18 @@ tile_scatter_kernel(TableT* __restrict__ table, const Src src,
   __syncthreads();
   const int n = s_n, nc = s_nc, nm = s_nm;
   if (n == 0) return;  // CTA-uniform: no id of this tile is in [0, V)
+  if constexpr (W2B_TILE_STOP == 1) return;
   const int pv = cw / VEC;  // column vectors of this CTA
   // where run r's sum goes: its table row (-1) or its piece's partial
   auto dest = [&](int r) {
     return r == 0 && hc ? 2 * t : r == n - 1 && tc ? 2 * t + 1 : -1;
   };
-  // column c (of the table): the row's one add, rounded to TableT, or the
-  // piece's partial
+  // column c (of the table): the row's one add (the epilogue), rounded to
+  // TableT, or the piece's partial
   auto finish = [&](int dst, int c, TableT* p, float (&cur)[VEC],
                     const float (&acc)[VEC]) {
     if (dst < 0) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) cur[i] += acc[i];
+      epi.template apply<TableT, VEC>(cur, acc);
       store_vec<VEC>(p, cur);
     } else {
       store_vec<VEC>(part + (size_t)dst * C + c, acc);
@@ -241,6 +383,48 @@ tile_scatter_kernel(TableT* __restrict__ table, const Src src,
   // row (whose read is in flight with the rows) or partial, a longer run's
   // chunks to their shared slots
   const int items = nc * pv;
+  if constexpr (Cfg::BATCH) {
+    for (int it0 = tid; it0 < items; it0 += IB * THREADS) {
+      int len[IB], c[IB], dst[IB], sl[IB];
+      TableT* p[IB];
+      float cur[IB][VEC], x[IB][SUB][VEC];
+      // every load first: an item past the end repeats the last item, a
+      // chunk's slots past its end repeat its last row (both masked)
+#pragma unroll
+      for (int u = 0; u < IB; ++u) {
+        const int it = min(it0 + u * THREADS, items - 1);
+        const int q = it / pv, r = s_cu[q], b = s_cb[q], id = s_id[b];
+        len[u] = min(SUB, s_run[r + 1] - b);
+        c[u] = (it - q * pv) * VEC;  // within the group
+        sl[u] = s_cs[q];
+        dst[u] = dest(r);
+        p[u] = table + (size_t)id * C + c0 + c[u];
+        epi.template load<VEC>(p[u], id, c0 + c[u], cur[u]);
+#pragma unroll
+        for (int k = 0; k < SUB; ++k)
+          src.fetch(s_ord[b + min(k, len[u] - 1)], c0 + c[u], x[u][k]);
+      }
+#pragma unroll
+      for (int u = 0; u < IB; ++u) {
+        float acc[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          acc[i] = 0.0f;
+#pragma unroll
+          for (int k = 0; k < SUB; ++k)
+            acc[i] = k < len[u] ? acc[i] + x[u][k][i] : acc[i];
+        }
+        if (it0 + u * THREADS >= items) continue;
+        if (sl[u] >= 0) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            s_acc[sl[u] * GROUP + c[u] + i] = acc[i];
+        } else {
+          finish(dst[u], c0 + c[u], p[u], cur[u], acc);
+        }
+      }
+    }
+  } else {
   for (int it0 = tid; it0 < items; it0 += IB * THREADS) {
     int b[IB], e[IB], c[IB], dst[IB], sl[IB];
     TableT* p[IB];
@@ -259,8 +443,10 @@ tile_scatter_kernel(TableT* __restrict__ table, const Src src,
         sl[u] = s_cs[q];
         if (sl[u] < 0) {
           dst[u] = dest(r);
-          p[u] = table + (size_t)s_id[b[u]] * C + c0 + c[u];
-          if (dst[u] < 0) load_vec<VEC>(p[u], cur[u]);
+          const int id = s_id[b[u]];
+          p[u] = table + (size_t)id * C + c0 + c[u];
+          if (dst[u] < 0)
+            epi.template load<VEC>(p[u], id, c0 + c[u], cur[u]);
         }
       }
 #pragma unroll
@@ -292,6 +478,8 @@ tile_scatter_kernel(TableT* __restrict__ table, const Src src,
       }
     }
   }
+  }
+  if constexpr (W2B_TILE_STOP == 2) return;
   if (nm > 0) {  // CTA-uniform
     __syncthreads();
     // 2. the runs of more than SUB rows: their chunk sums added in chunk
@@ -300,10 +488,10 @@ tile_scatter_kernel(TableT* __restrict__ table, const Src src,
       const int m = it / pv, r = s_mu[m], sl0 = s_ms[m];
       const int k = (s_run[r + 1] - s_run[r] + SUB - 1) / SUB;
       const int c = (it - m * pv) * VEC;
-      const int dst = dest(r);
-      TableT* p = table + (size_t)s_id[s_run[r]] * C + c0 + c;
+      const int dst = dest(r), id = s_id[s_run[r]];
+      TableT* p = table + (size_t)id * C + c0 + c;
       float cur[VEC], sum[VEC];
-      if (dst < 0) load_vec<VEC>(p, cur);
+      if (dst < 0) epi.template load<VEC>(p, id, c0 + c, cur);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) sum[i] = 0.0f;
       for (int j = 0; j < k; ++j) {
@@ -314,6 +502,7 @@ tile_scatter_kernel(TableT* __restrict__ table, const Src src,
       finish(dst, c0 + c, p, cur, sum);
     }
   }
+  if constexpr (W2B_TILE_STOP == 3) return;
   if (!hc && !tc) return;  // CTA-uniform: no run of this tile is cut
 
   // 3. the cut runs: arrive, and finish the runs whose last piece this is
@@ -345,7 +534,7 @@ tile_scatter_kernel(TableT* __restrict__ table, const Src src,
       const int c = c0 + cv * VEC;
       float sum[VEC], cur[VEC];
       TableT* p = table + (size_t)id * C + c;
-      load_vec<VEC>(p, cur);
+      epi.template load<VEC>(p, id, c, cur);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) sum[i] = 0.0f;
       // the pieces in tile order: 2f + 1, then 2j for j = f + 1 .. l
@@ -362,52 +551,57 @@ tile_scatter_kernel(TableT* __restrict__ table, const Src src,
   }
 }
 
-template <class Cfg, typename TableT, int VEC, typename Src>
+// One launch: the tiles of the N sorted ids and the epilogue's fold CTAs,
+// times the column groups.
+template <class Cfg, typename TableT, int VEC, typename Src,
+          typename Epi = AddSum>
 int tile_launch(void* table, const Src& src, const int* sids,
                 const int* order, float* part, int* count, int N, int V,
-                int C, cudaStream_t stream) {
+                int C, cudaStream_t stream, const Epi& epi = Epi{}) {
   const int GC = Cfg::group_width(C);
-  tile_scatter_kernel<Cfg, TableT, Src, VEC>
-      <<<dim3((N + Cfg::L - 1) / Cfg::L, (C + GC - 1) / GC), Cfg::THREADS, 0,
-         stream>>>(static_cast<TableT*>(table), src, sids, order, part, count,
-                   N, V, C, GC);
+  const int ctas = (N + Cfg::L - 1) / Cfg::L + epi.fold_ctas(V, Cfg::L);
+  if (ctas == 0) return 0;
+  tile_scatter_kernel<Cfg, TableT, Src, VEC, Epi>
+      <<<dim3(ctas, (C + GC - 1) / GC), Cfg::THREADS, 0, stream>>>(
+          static_cast<TableT*>(table), src, sids, order, part, count, N, V, C,
+          GC, epi);
   return (int)cudaGetLastError();
 }
 
-template <class Cfg, typename TableT, typename RowT>
+template <class Cfg, typename TableT, typename RowT, typename Epi>
 int tile_launch_dense(void* table, const void* rows, const int* sids,
                       const int* order, float* part, int* count, int N, int V,
-                      int C, cudaStream_t stream) {
-  if (N == 0) return 0;
+                      int C, cudaStream_t stream, const Epi& epi) {
   const RowT* r = static_cast<const RowT*>(rows);
   // 4 columns per thread when every row start is aligned for one access
-  if (rows_vec4<TableT, RowT>(table, rows, C) && aligned(part, 16))
+  if (rows_vec4<TableT, RowT>(table, rows, C) && aligned(part, 16) &&
+      epi.vec4_ok())
     return tile_launch<Cfg, TableT, 4>(table, DenseRows<TableT, RowT, 4>{r, C},
                                        sids, order, part, count, N, V, C,
-                                       stream);
+                                       stream, epi);
   return tile_launch<Cfg, TableT, 1>(table, DenseRows<TableT, RowT, 1>{r, C},
                                      sids, order, part, count, N, V, C,
-                                     stream);
+                                     stream, epi);
 }
 
 // The dense-row scatter in the three (table, row) dtype pairs: 0 = float32,
 // 1 = bfloat16 (rows in float32 or in the table dtype).
-template <class Cfg>
+template <class Cfg, typename Epi = AddSum>
 int tile_scatter_dense(void* table, const void* rows, const int* sids,
                        const int* order, float* part, int* count, int N,
                        int V, int C, int table_dtype, int row_dtype,
-                       void* stream) {
+                       void* stream, const Epi& epi = Epi{}) {
   if (N < 0 || V < 0 || C < 1 || C > 12288) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (table_dtype == 1 && row_dtype == 0)
     return tile_launch_dense<Cfg, __nv_bfloat16, float>(
-        table, rows, sids, order, part, count, N, V, C, s);
+        table, rows, sids, order, part, count, N, V, C, s, epi);
   if (table_dtype == 1 && row_dtype == 1)
     return tile_launch_dense<Cfg, __nv_bfloat16, __nv_bfloat16>(
-        table, rows, sids, order, part, count, N, V, C, s);
+        table, rows, sids, order, part, count, N, V, C, s, epi);
   if (table_dtype == 0 && row_dtype == 0)
     return tile_launch_dense<Cfg, float, float>(table, rows, sids, order,
-                                                part, count, N, V, C, s);
+                                                part, count, N, V, C, s, epi);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,13 +17,18 @@ their `grp`-row table group (16 rows bf16, 8 float32, the JAX kernel's DMA
 granule), one visit per touched group over the whole sorted stream, or one
 per run for a group holding more than SPLIT_ROWS rows.  Kernel 7 reads only
 the sorted ids and their source rows: it is the tiled template of
-csrc/w2b_tiles.cuh (kernels 2 and 3 run it too, with other constants),
-which cuts the sorted stream into tiles and the columns into groups, one
-CTA each, and sums a run cut by tile edges piece by piece into float32
-partials of the per-device workspace (`span_scatter.workspace`), the CTA
-whose piece arrives last adding them in tile order.  The run and visit
-tables (`run_start`, `vis_run`, `n_vis`) are read by kernel 8
-(kernels/scatter_pallas.py), which keeps the one-CTA-per-visit design.
+csrc/w2b_tiles.cuh (kernels 2, 3, 6 and 8 run it too, with their own
+constants), which cuts the sorted stream into tiles and the columns into
+groups, one CTA each, and sums a run cut by tile edges piece by piece
+into float32 partials of the per-device workspace
+(`span_scatter.workspace`), the CTA whose piece arrives last adding them
+in tile order.  Kernel 8
+(kernels/scatter_pallas.py) runs the same template on the same sorted
+stream with a rounding epilogue.  No kernel reads the run and visit tables
+(`run_start`, `vis_run`, `n_vis`): they stay in the plan for its JAX
+counterpart's contract and its tests.  The earlier design gave one CTA to
+each visit, a chain of dependent loads per run (PERF.md section 6 has its
+times).
 
 `chunk` and `slots` size the TPU kernel's blocks and DMA slots; they have no
 role on the card and are kept for the signature, with the JAX kernel's one
@@ -40,8 +45,8 @@ table row read and written once, and the plan (~70 us at the flagship's
 CPU tensors (an f32 `index_add_` into a temporary holding the touched rows,
 then one cast-add) and launch the kernel for CUDA tensors, raising on what
 it does not take; there is no fallback.  Every launch on a device uses the
-workspace shared with kernels 2 and 3, so two calls must not run at once on
-different streams; no path of the port does that.
+workspace shared with kernels 2, 3, 6 and 8, so two calls must not run at
+once on different streams; no path of the port does that.
 `scatter_add_grmw_planned.launches` counts kernel launches.
 """
 
@@ -56,6 +61,7 @@ import torch
 from word2bits_tpu_torch.kernels._build import check_launch, load_library
 from word2bits_tpu_torch.kernels.span_scatter import (SENTINEL,
                                                       scatter_add_span_plain,
+                                                      tile_constants,
                                                       workspace)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -142,27 +148,26 @@ def scatter_add_grmw_plain(table: torch.Tensor, ids: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """csrc/group_rmw.cu (w2b_group_rmw, kernel 7, on the tile template;
-    w2b_scatter_rmw, kernel 8), built on first use, with its C
+    """csrc/group_rmw.cu (w2b_group_rmw, kernel 7, and w2b_scatter_rmw,
+    kernel 8, both on the tile template), built on first use, with its C
     signatures."""
     lib = load_library("group_rmw")
-    lib.w2b_group_rmw.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                                  + [ctypes.c_void_p])
-    lib.w2b_scatter_rmw.argtypes = ([ctypes.c_void_p] * 7
-                                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.w2b_group_rmw.restype = lib.w2b_scatter_rmw.restype = ctypes.c_int
-    for fn in (lib.w2b_group_rmw_partials, lib.w2b_group_rmw_counters):
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_longlong
-    lib.w2b_group_rmw_config.argtypes = [ctypes.c_void_p]
+    for k in ("group_rmw", "scatter_rmw"):
+        fn = getattr(lib, f"w2b_{k}")
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        for size in (getattr(lib, f"w2b_{k}_partials"),
+                     getattr(lib, f"w2b_{k}_counters")):
+            size.argtypes = [ctypes.c_int, ctypes.c_int]
+            size.restype = ctypes.c_longlong
+        getattr(lib, f"w2b_{k}_config").argtypes = [ctypes.c_void_p]
     return lib
 
 
 def tile_config() -> dict:
     """Kernel 7's tile constants, as built."""
-    out = (ctypes.c_int * 5)()
-    _library().w2b_group_rmw_config(out)
-    return dict(zip(("L", "THREADS", "SUB", "IB", "GROUP"), out))
+    return tile_constants(_library().w2b_group_rmw_config)
 
 
 def _check_slots(chunk: int, slots: int) -> None:
@@ -174,8 +179,8 @@ def _check_slots(chunk: int, slots: int) -> None:
 
 
 def _check(fn: str, table, plan: GroupPlan, rows) -> None:
-    """Raise on anything kernels 7 and 8 do not take; `fn` names the caller
-    in errors."""
+    """Raise on anything kernel 7 does not take; `fn` names the caller in
+    errors."""
     V, C = table.shape
     N = plan.sids.shape[-1]
     dev = table.device
@@ -202,22 +207,6 @@ def _check(fn: str, table, plan: GroupPlan, rows) -> None:
     if plan.run_start.shape[-1] != N + 1 or plan.vis_run.shape[-1] != N + 1:
         raise ValueError(f"{fn}: plan.run_start and plan.vis_run must have "
                          "N+1 entries")
-
-
-def launch_group_kernel(entry: str, fn: str, table, plan: GroupPlan,
-                        rows) -> None:
-    """Check one step's plan and rows and launch `entry` (w2b_scatter_rmw,
-    kernel 8, which reads the run and visit tables) on them; `fn` names
-    the caller in errors."""
-    _check(fn, table, plan, rows)
-    V, C = table.shape
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = getattr(_library(), entry)(
-        table.data_ptr(), rows.data_ptr(), plan.sids.data_ptr(),
-        plan.order.data_ptr(), plan.run_start.data_ptr(),
-        plan.vis_run.data_ptr(), plan.n_vis.data_ptr(), plan.sids.shape[-1],
-        V, C, _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
-    check_launch(entry, err)
 
 
 def _launch(table, plan: GroupPlan, rows) -> None:

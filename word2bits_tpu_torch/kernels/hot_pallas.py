@@ -8,18 +8,29 @@ body `_hot_kernel`; the `-hot-pallas` path).  Same function and signature:
     table[:H] = round(head + sum_{ids[k] == h} round(rows[k]))
 
 with `round` to the table dtype and the sum in float32; ids outside [0, H)
-contribute nothing, and every head row is stored.  `extra` rounds into the
+contribute nothing; with `extra` every head row is stored, without it a
+head row that no row reaches keeps its value.  `extra` rounds into the
 head once before the rows' sum, as the Pallas function does; the XLA twin
 ops/scatter.hot_slice_add adds it in float32 and rounds once.
 
 The TPU kernel builds one-hot tiles so that the MXU does the segmented sum;
 the card needs no such mechanism.  The plan (`hot_plan`, plain PyTorch) is
-one stable sort of the ids, ids outside [0, H) sent to the end, and the
-start of each head row's run; it depends only on the ids, so the training
-chunk builds it once for all S steps (batched over a leading dimension,
-as the span plan) and passes each step's.  The kernel gives one CTA to
-each head row, which sums its run in a fixed order and stores the row
-once.
+one stable sort of the ids keyed H outside [0, H): the sorted keys
+(`sids`), their source rows (`order`) and the start of each head row's run
+(`starts`).  It depends only on the ids, so the training chunk builds it
+once for all S steps (batched over a leading dimension, as the span plan)
+and passes each step's.  The kernel is the tiled sorted scatter-add of
+csrc/w2b_tiles.cuh (kernels 2, 3, 7 and 8 run it too) on `sids` and
+`order` with V = H, so the cold key drops out like any id outside [0, V):
+tiles of the sorted stream and groups of columns, one CTA each, all at
+once; a run cut by tile edges (the Zipf head) summed piece by piece into
+float32 partials of the per-device workspace (`span_scatter.workspace`)
+and added in tile order.  Its HeadFold epilogue folds `extra` into each
+touched head row in that row's one read-modify-write; with `extra`,
+further CTAs fold the head rows that no row reaches (read from
+`starts`).  The earlier design gave one CTA to each head row (2,048 CTAs
+for ~5,470 hot rows, most with a run of 0-3 rows, each paying a chain of
+dependent loads; the longest run summed by one CTA): 2.5x its bound.
 
 Bound on the H100 (3.35 TB/s): bytes — the ids, the hot rows, the head
 read and written once, `extra` once (a few us at the [hot] path's 8,208
@@ -27,7 +38,9 @@ rows into a 2048 x 400 bf16 head); the time is in PERF.md.
 
 `hot_slice_add_pallas` runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors, raising on what it does not take; there is no
-fallback.  `hot_slice_add_pallas.launches` counts kernel launches.
+fallback.  Its launches share the workspace of kernels 2, 3, 7 and 8, so
+two calls must not run at once on different streams; no path of the port
+does that.  `hot_slice_add_pallas.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -39,6 +52,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from word2bits_tpu_torch.kernels._build import check_launch, load_library
+from word2bits_tpu_torch.kernels.span_scatter import (tile_constants,
+                                                      workspace)
 from word2bits_tpu_torch.ops.scatter import hot_slice_add
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,6 +65,8 @@ class HotPlan(NamedTuple):
     order: torch.Tensor    # [..., N] int32 rows sorted by head id, the
     #                        others last
     starts: torch.Tensor   # [..., H+1] int32 start of each head row's run
+    sids: torch.Tensor     # [..., N] int32 the sorted keys: the id in
+    #                        [0, H), else H
 
     def step(self, s: int) -> "HotPlan":
         """The plan of step s of a batched plan."""
@@ -65,7 +82,9 @@ def hot_plan(ids: torch.Tensor, hot_rows: int) -> HotPlan:
     heads = torch.arange(H + 1, dtype=skey.dtype, device=ids.device)
     starts = torch.searchsorted(
         skey, heads.expand(ids.shape[:-1] + (H + 1,)).contiguous())
-    return HotPlan(order=order.to(torch.int32), starts=starts.to(torch.int32))
+    i32 = torch.int32
+    return HotPlan(order=order.to(i32), starts=starts.to(i32),
+                   sids=skey.to(i32))
 
 
 def hot_slice_add_plain(table: torch.Tensor, ids: torch.Tensor,
@@ -82,17 +101,27 @@ def hot_slice_add_plain(table: torch.Tensor, ids: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """w2b_hot_slice of csrc/hot_slice.cu, built on first use."""
-    fn = load_library("hot_slice").w2b_hot_slice
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _library() -> ctypes.CDLL:
+    """csrc/hot_slice.cu, built on first use, with its C signatures."""
+    lib = load_library("hot_slice")
+    lib.w2b_hot_slice.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                                  + [ctypes.c_void_p])
+    lib.w2b_hot_slice.restype = ctypes.c_int
+    for fn in (lib.w2b_hot_slice_partials, lib.w2b_hot_slice_counters):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_longlong
+    lib.w2b_hot_slice_config.argtypes = [ctypes.c_void_p]
+    return lib
 
 
-def _launch(table, ids, rows, H: int, extra, plan: Optional[HotPlan]):
-    fn = "hot_slice_add_pallas"
+def tile_config() -> dict:
+    """The kernel's tile constants, as built."""
+    return tile_constants(_library().w2b_hot_slice_config)
+
+
+def _check(fn: str, table, ids, rows, H: int, extra, plan: HotPlan) -> None:
+    """Raise on anything the kernel does not take; `fn` names the caller
+    in errors."""
     V, C = table.shape
     dev = table.device
     if table.dtype not in _DTYPES:
@@ -117,19 +146,31 @@ def _launch(table, ids, rows, H: int, extra, plan: Optional[HotPlan]):
             raise ValueError(f"{fn}: {name} is on {t.device}, table on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
-    if plan is None:
-        plan = hot_plan(ids, H)
-    for name, t, n in (("order", plan.order, ids.shape[0]),
-                       ("starts", plan.starts, H + 1)):
+    N = ids.shape[0]
+    for name, n in (("order", N), ("starts", H + 1), ("sids", N)):
+        t = getattr(plan, name)
         if (t.dtype != torch.int32 or tuple(t.shape) != (n,)
                 or t.device != dev or not t.is_contiguous()):
             raise ValueError(f"{fn}: plan.{name} must be one step's "
                              f"contiguous int32 [{n}] on {dev}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(
+
+
+def _launch(table, ids, rows, H: int, extra, plan: Optional[HotPlan]):
+    fn = "hot_slice_add_pallas"
+    if plan is None:
+        plan = hot_plan(ids, H)
+    _check(fn, table, ids, rows, H, extra, plan)
+    C = table.shape[1]
+    N = ids.shape[0]
+    lib = _library()
+    part, count = workspace(table.device, lib.w2b_hot_slice_partials(N, C),
+                            lib.w2b_hot_slice_counters(N, C))
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = lib.w2b_hot_slice(
         table.data_ptr(), rows.data_ptr(),
         None if extra is None else extra.data_ptr(),
-        plan.order.data_ptr(), plan.starts.data_ptr(), H, C,
+        plan.sids.data_ptr(), plan.order.data_ptr(), plan.starts.data_ptr(),
+        part.data_ptr(), count.data_ptr(), N, H, C,
         _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
     check_launch("w2b_hot_slice", err)
     hot_slice_add_pallas.launches += 1

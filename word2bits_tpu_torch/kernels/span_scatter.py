@@ -40,9 +40,10 @@ run the plain version for CPU tensors (an f32 `index_add_` into a temporary
 holding the touched rows, then one cast-add) and launch the kernel for
 CUDA tensors, raising on what it does not take; there is no fallback.
 Every launch on a device uses the same workspace (`workspace`, shared
-with kernel 7), so two calls must not run at once on different streams;
-no path of the port does that.  `scatter_add_span_planned.launches` and
-`scatter_add_span_rank1.launches` count kernel launches.
+with kernels 6, 7 and 8), so two calls must not run at once on different
+streams; no path of the port does that.
+`scatter_add_span_planned.launches` and `scatter_add_span_rank1.launches`
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -136,9 +137,9 @@ _WORKSPACE: dict = {}
 
 def workspace(device: torch.device, n_part: int, n_count: int):
     """The tiled scatter kernels' workspace on `device` (csrc/w2b_tiles.cuh:
-    kernels 2, 3 and 7): n_part float32 partials (2 per tile of the sorted
-    stream, C wide) and n_count int32 arrival counters (1 per tile and
-    column group), allocated zero once and grown when a call needs more;
+    kernels 2, 3, 6, 7 and 8): n_part float32 partials (2 per tile of the
+    sorted stream, C wide) and n_count int32 arrival counters (1 per tile
+    and column group), allocated zero once and grown when a call needs more;
     each call leaves the counters zero.  Every call on the device shares
     it, so two calls must not run at once on different streams (no path of
     the port does that)."""
@@ -149,6 +150,14 @@ def workspace(device: torch.device, n_part: int, n_count: int):
         count = torch.zeros(n_count, dtype=torch.int32, device=device)
     _WORKSPACE[device] = (part, count)
     return part, count
+
+
+def tile_constants(config_fn) -> dict:
+    """The tile constants a tiled scatter kernel was built with, read
+    through its C `..._config` entry point."""
+    out = (ctypes.c_int * 5)()
+    config_fn(out)
+    return dict(zip(("L", "THREADS", "SUB", "IB", "GROUP"), out))
 
 
 def _check(fn: str, table, plan: SpanPlan, rows, C: int, *others) -> None:

@@ -1,29 +1,41 @@
-"""Time build variants of the score kernel (5) and the group-RMW scatter (7)
-side by side on the card, at the shapes of the paths that run them.
+"""Time build variants of the score kernel (5) and of the tiled scatters
+(6, 7 and 8) side by side on the card, at the shapes of the paths that
+run them.
 
-    python3 -m word2bits_tpu_torch.tools.tune_kernels [--kernel score|grmw|all]
+    python3 -m word2bits_tpu_torch.tools.tune_kernels \
+        [--kernel score|grmw|hot|rmw|all]
 
-Each variant is csrc/score.cu or csrc/group_rmw.cu built with `-D`
-overrides of its constants (one nvcc per variant, all at once), loaded
-beside the others and called through its C entry point:
+Each variant is csrc/score.cu, csrc/group_rmw.cu or csrc/hot_slice.cu
+built with `-D` overrides of its constants (one nvcc per variant, all at
+once), loaded beside the others and called through its C entry point:
 
   score  CTA threads (W2B_SCORE_THREADS) x the unrolling of the product
          loops (W2B_SCORE_UNROLL) x the cluster size, CTAs a tile (a launch
          argument), at the shipped shape: T = 128 tiles
          of G = 64 centers sharing P*K = 48 negatives (P = 2), D = 200,
          float32, bitlevel 1;
-  grmw   the tile constants of csrc/w2b_tiles.cuh (W2B_GRMW_L, _THREADS,
-         _SUB, _IB, _GROUP), at the flagship step: 22,544 float32 rows of
-         1,600 columns (subsampled Zipf(1.05) slab ids, unigram^0.75
-         negatives, 64 drop sentinels) into a 3,699,941 x 1,600 bf16 table.
+  grmw   kernel 7's tile constants of csrc/w2b_tiles.cuh (W2B_GRMW_L,
+         _THREADS, _SUB, _IB, _GROUP), at the flagship step: 22,544
+         float32 rows of 1,600 columns (subsampled Zipf(1.05) slab ids,
+         unigram^0.75 negatives, 64 drop sentinels) into a 3,699,941 x
+         1,600 bf16 table;
+  hot    kernel 6's (W2B_HOT_*), at chip_smoke.py's [hotk] shape: one
+         step's 8,208 float32 slab rows (subsampled Zipf(1.05) ids) into
+         the H = 2,048 head of a 70,000 x 400 bf16 table, without and
+         with a float32 `extra` (timed both ways);
+  rmw    kernel 8's (W2B_RMW_*), at [rmwk]'s shape: one step's two calls,
+         16,400 slab and 6,144 negative float32 rows (64 drop sentinels
+         each) into a 3,699,941 x 1,600 bf16 table.
 
-Builds that stop after a phase (W2B_SCORE_STOP) are only timed.  Every
+Builds that stop after a phase (W2B_SCORE_STOP, W2B_TILE_STOP) are only
+timed.  Every
 other variant is first held against the plain version (score: atol 1e-5 +
-rtol 1e-4 on rows with no pair within 2e-5 of a LUT edge; grmw: atol 1e-5
-+ rtol 2^-7 on the touched rows) and run twice for bit-equal outputs, then
-timed with CUDA events over 20 launches queued behind a sleep kernel.
-Prints one line per variant, the card's name and power limit first.
-Needs a CUDA card.
+rtol 1e-4 on rows with no pair within 2e-5 of a LUT edge; grmw and hot:
+atol 1e-5 + rtol 2^-7 on the touched rows; rmw: two bf16 roundings,
+2^-6 (|want| + A) + 1e-6 with A the per-id sum of |rows|) and run twice
+for bit-equal outputs, then timed with CUDA events over 20 launches queued
+behind a sleep kernel.  Prints one line per variant, the card's name and
+power limit first.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -52,6 +64,27 @@ GRMW_VARIANTS = ((64, 128, 4, 2, 128), (64, 128, 4, 2, 256),
                  (64, 128, 4, 1, 256), (64, 128, 4, 2, 400),
                  (32, 256, 4, 2, 800), (64, 256, 4, 4, 256))
 GRMW_NAMES = ("L", "THREADS", "SUB", "IB", "GROUP")
+# kernel 6's (L, THREADS, SUB, IB, GROUP); the first is kernel 2's own
+HOT_VARIANTS = ((64, 128, 4, 2, 128), (32, 128, 2, 1, 128),
+                (32, 128, 2, 2, 128), (64, 256, 4, 1, 128),
+                (64, 256, 4, 2, 128), (64, 256, 2, 2, 128),
+                (64, 512, 4, 1, 128), (64, 512, 2, 1, 128),
+                (128, 512, 4, 1, 128), (32, 128, 2, 2, 32),
+                (32, 128, 4, 2, 32), (32, 128, 2, 1, 32),
+                (32, 128, 2, 2, 64), (64, 256, 2, 2, 64),
+                (64, 256, 4, 2, 64), (32, 256, 2, 1, 64),
+                (64, 128, 2, 4, 64), (32, 128, 2, 4, 128))
+# kernel 8's; the first is kernel 7's own
+RMW_VARIANTS = ((32, 128, 4, 2, 256), (32, 128, 4, 2, 512),
+                (32, 128, 4, 4, 512), (32, 256, 4, 2, 512),
+                (32, 128, 2, 2, 512), (32, 128, 2, 4, 512),
+                (64, 256, 4, 2, 512), (32, 256, 4, 1, 512),
+                (32, 128, 4, 1, 512), (32, 256, 4, 2, 800),
+                (32, 128, 4, 2, 800), (64, 128, 4, 2, 256),
+                (32, 128, 4, 2, 128), (64, 512, 4, 2, 512))
+# builds of kernel 6's kept constants that return after phase 1 (staging,
+# the runs), 2 (step 1: the chunks) or 3 (step 2: the longer runs)
+TILE_STOPS = (1, 2, 3)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -171,9 +204,7 @@ def _step_ids(rng, V: int, n_slab: int, n_neg: int, n_sentinel: int):
 def tune_grmw(dev) -> None:
     from word2bits_tpu_torch.kernels.group_rmw import group_plan, group_rows
     from word2bits_tpu_torch.kernels.span_scatter import workspace
-    libs = _build("group_rmw", [
-        (v, tuple(f"W2B_GRMW_{k}={x}" for k, x in zip(GRMW_NAMES, v)))
-        for v in GRMW_VARIANTS])
+    libs = _build("group_rmw", _variant_defines("GRMW", GRMW_VARIANTS))
     V, C, B, W = 3_699_941, 1600, 16384, 8
     n_slab = B + 2 * W
     N = n_slab + (B // 64) * 24
@@ -227,10 +258,151 @@ def tune_grmw(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def _tile_lib(lib, entry: str):
+    """The C entry point of a tiled scatter and its workspace sizes."""
+    fn = getattr(lib, entry)
+    n_ptr = 8 if entry == "w2b_hot_slice" else 6
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    sizes = []
+    for suffix in ("partials", "counters"):
+        f = getattr(lib, f"{entry}_{suffix}")
+        f.argtypes = [ctypes.c_int, ctypes.c_int]
+        f.restype = ctypes.c_longlong
+        sizes.append(f)
+    return fn, sizes
+
+
+def _variant_defines(prefix: str, variants):
+    return [(v, tuple(f"W2B_{prefix}_{k}={x}"
+                      for k, x in zip(GRMW_NAMES, v))) for v in variants]
+
+
+def tune_hot(dev) -> None:
+    from word2bits_tpu_torch.kernels.hot_pallas import (hot_plan,
+                                                        hot_slice_add_plain)
+    from word2bits_tpu_torch.kernels.span_scatter import workspace
+    libs = _build("hot_slice", _variant_defines("HOT", HOT_VARIANTS) + [
+        (("stop", k), (f"W2B_TILE_STOP={k}",)) for k in TILE_STOPS])
+    V, C, H, N = 70_000, 400, 2048, 8192 + 16
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    table0 = (torch.rand((V, C), generator=gen, device=dev) - 0.5).to(
+        torch.bfloat16)
+    ids = torch.from_numpy(_step_ids(rng, V, N, 0, 0)).to(dev)
+    rows = torch.randn((N, C), generator=gen, device=dev) * 0.01
+    ext = torch.randn((H, C), generator=gen, device=dev) * 0.01
+    plan = hot_plan(ids, H)
+    want = {e: hot_slice_add_plain(table0.clone(), ids, rows, H, x)[:H]
+            for e, x in (("no extra", None), ("extra", ext))}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for v, lib in libs.items():
+        fn, (n_part, n_count) = _tile_lib(lib, "w2b_hot_slice")
+        part, count = workspace(dev, n_part(N, C), n_count(N, C))
+        stop = v[1] if v[0] == "stop" else 0
+        line = []
+        for e, x in (("no extra", None), ("extra", ext)):
+            table = table0[:H].clone()
+
+            def call():
+                err = fn(table.data_ptr(), rows.data_ptr(),
+                         None if x is None else x.data_ptr(),
+                         plan.sids.data_ptr(), plan.order.data_ptr(),
+                         plan.starts.data_ptr(), part.data_ptr(),
+                         count.data_ptr(), N, H, C, 1, 0, stream)
+                if err:
+                    raise RuntimeError(f"w2b_hot_slice {v}: cudaError_t "
+                                       f"{err}")
+            if stop:
+                line.append(f"{e} {time_ms(call):.5f} ms")
+                continue
+            got = []
+            for _ in range(2):
+                table.copy_(table0[:H])
+                call()
+                got.append(table.clone())
+            torch.cuda.synchronize()
+            ok = torch.equal(got[0], got[1])
+            err = float((got[0].float() - want[e].float()).abs().max())
+            close = torch.allclose(got[0].float(), want[e].float(),
+                                   atol=1e-5, rtol=2 ** -7)
+            ms = time_ms(call)
+            line.append(f"{e} {ms:.5f} ms (max abs err {err:.3e}, within "
+                        f"tolerance: {close}, two launches bit-equal: {ok})")
+        what = (f"kept constants, stopped after phase {stop}" if stop
+                else dict(zip(GRMW_NAMES, v)))
+        print(f"[tune hot] {what}: " + "; ".join(line))
+
+
+def tune_rmw(dev) -> None:
+    from word2bits_tpu_torch.kernels.scatter_pallas import (
+        rmw_plan, scatter_add_rmw_plain)
+    from word2bits_tpu_torch.kernels.span_scatter import SENTINEL, workspace
+    libs = _build("group_rmw", _variant_defines("RMW", RMW_VARIANTS))
+    V, C, B, W = 3_699_941, 1600, 16384, 8
+    n_slab, n_neg = B + 2 * W, (B // 64) * 24
+    rng = np.random.default_rng(SEED + 8)
+    both = _step_ids(rng, V, n_slab, n_neg, 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    calls = []
+    for ids in (both[:n_slab].copy(), both[n_slab:].copy()):
+        ids[rng.choice(ids.size, 64, replace=False)] = SENTINEL
+        ids = torch.from_numpy(ids).to(dev)
+        rows = torch.randn((ids.numel(), C), generator=gen, device=dev) * 0.01
+        calls.append((ids, rows, *rmw_plan(ids)))
+    table = torch.empty((V, C), dtype=torch.bfloat16, device=dev)
+    table.uniform_(-0.5, 0.5, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 9))
+    all_ids = torch.cat([c[0] for c in calls])
+    touched = torch.unique(all_ids[all_ids < V])
+    before = table[touched].clone()
+    # the plain version on the touched rows alone, ids as their slots
+    want = before.clone()
+    mags = torch.zeros((touched.numel(), C), device=dev)
+    for ids, rows, _, _ in calls:
+        slot = torch.where(ids < V, torch.searchsorted(touched, ids),
+                           touched.numel())
+        scatter_add_rmw_plain(want, slot, rows)
+        keep = ids < V
+        mags.index_add_(0, slot[keep], rows[keep].abs())
+    allowed = 2 ** -6 * (want.float().abs() + mags) + 1e-6
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for v, lib in libs.items():
+        fn, (n_part, n_count) = _tile_lib(lib, "w2b_scatter_rmw")
+        N = max(c[0].numel() for c in calls)
+        part, count = workspace(dev, n_part(N, C), n_count(N, C))
+
+        def call():
+            for ids, rows, sids, order in calls:
+                err = fn(table.data_ptr(), rows.data_ptr(), sids.data_ptr(),
+                         order.data_ptr(), part.data_ptr(), count.data_ptr(),
+                         ids.numel(), V, C, 1, 0, stream)
+                if err:
+                    raise RuntimeError(f"w2b_scatter_rmw {v}: cudaError_t "
+                                       f"{err}")
+        got = []
+        for _ in range(2):
+            table[touched] = before
+            call()
+            got.append(table[touched].clone())
+        torch.cuda.synchronize()
+        ok = torch.equal(got[0], got[1])
+        diff = (got[0].float() - want.float()).abs()
+        close = bool((diff <= allowed).all())
+        ms = time_ms(call)
+        table[touched] = before
+        print(f"[tune rmw] {dict(zip(GRMW_NAMES, v))}: {ms:.5f} ms for the "
+              f"two calls, max abs err {float(diff.max()):.3e} (within "
+              f"tolerance: {close}), two launches bit-equal: {ok}")
+    del table
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("score", "grmw", "all"),
-                    default="all")
+    ap.add_argument("--kernel", choices=("score", "grmw", "hot", "rmw",
+                                         "all"), default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tune_kernels: no CUDA device", file=sys.stderr)
@@ -245,6 +417,10 @@ def main(argv=None) -> int:
         tune_score(dev)
     if args.kernel in ("grmw", "all"):
         tune_grmw(dev)
+    if args.kernel in ("hot", "all"):
+        tune_hot(dev)
+    if args.kernel in ("rmw", "all"):
+        tune_rmw(dev)
     return 0
 
 
