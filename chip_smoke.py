@@ -30,7 +30,7 @@ kernels' launch counts set to 0 just before and read just after:
   [train]       the shipped throughput configuration (the JAX package's
                 bench.py CFG plus ctx_span_banded256_S256: size 200, span
                 scatter) through `cli train`, one epoch of a 17M-token
-                corpus;
+                corpus, built on the card (the auto -device-epoch);
   [flagship]    the full-Wikipedia capacity configuration of
                 docs/large_vocab.md:19-25 (V = 3,699,941, size 800,
                 B = 16384, grmw scatter, -loop-mode fori, -packed 1)
@@ -63,10 +63,28 @@ kernels' launch counts set to 0 just before and read just after:
   [rmw]         the capacity configuration with `-rmw-scatter 1
                 -steps-per-chunk 1` (docs/large_vocab.md:34), 16 steps,
                 kernel 8 twice a step, peak device memory against the table;
+  [native]      the C++ tokenizer built with g++ (use_native=True: a failed
+                build fails the run), [train]'s corpus counted and encoded
+                and the flagship's alias table built both ways, equal;
+  [device epoch] the card's epoch build bit-equal to the host's on the
+                same float32 uniforms, on the flagship's corpus and (after
+                [quickstart]) on [train]'s, each timed both ways;
   [sweep]       one 256-step fused chunk at the shipped flags with
                 scatter_impl="sweep" (kernel 9; the config rejects the
                 flag, as the JAX package's does), against the same chunk
                 with "span";
+  [skipgram]    the skip-gram step and chunk card vs CPU, then the Quick
+                start's flags with -model skipgram for 2,048 steps, and
+                with -hot-rows 2048 -neg-dense-hot 1 on bf16, vectors
+                written (kernel 4) and read back;
+  [tune]        `cli tune -tune-seconds 2 -json 1` on [train]'s corpus at
+                the shipped flags with -scatter-impl add: every variant
+                measured, kernels 1, 2 and 6 launched;
+  [profile]     one chunk of the shipped flags with -profile-dir, the
+                Chrome trace naming kernels 1 and 2;
+  [parity]      per-center bitlevel 0 and skip-gram bitlevel 1 on the
+                30,000-sentence structured corpus, each analogy accuracy
+                at or above the JAX package's mean - 3 sd;
   [convert]     `cli convert` of a seeded 70,000 x 200 float32 file at
                 three flag sets, card against W2B_FORCE_CPU=1, the files
                 byte-identical; [nearest] `cli nearest` of 20 words at
@@ -192,6 +210,21 @@ CONVERT_CASES = (["-bitlevel", "1", "-packed", "1"],
                  ["-bitlevel", "2"])
 NEAREST_QUERIES = 20
 RESUME_STEPS = 32                # [resume]: one 32-step chunk of epoch 1
+# [skipgram]: the Quick start's flags with -model skipgram, cut to 2,048
+# steps (eight 256-step chunks) of [quickstart]'s corpus
+SG_FLAGS = ["-model", "skipgram"]
+SG_STEPS = 2048
+# [tune]: the shipped flags with -scatter-impl add, where every overlay of
+# tune.variants validates (at -scatter-impl span the hot-rows and dense-hot
+# overlays fail the config's check in both packages: span does not compose
+# with -hot-rows); its span-banded and ctx-span-banded variants run
+# kernels 1 and 2, hot-rows kernel 6
+TUNE_FLAGS = list(ADD_FLAGS)
+# [parity]: (floor, mean, sd) of the JAX package's analogy accuracy on the
+# 30,000-sentence structured corpus, 5 epochs, seeds 1-5, on the CPU
+# (tests/test_torch_parity.py --jax-floors); the floor is mean - 3 sd
+PARITY_FLOORS = {"per-center-b0": (70.04, 76.68, 2.2118),
+                 "skipgram-b1": (52.93, 61.60, 2.8914)}
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 SEED = 0
@@ -1905,6 +1938,11 @@ def train_main_path(work: str):
     steps = int(m.group(1))
     if steps < S:
         _fail(f"trained {steps} steps, fewer than one {S}-step chunk")
+    path = re.search(r"Epochs built on the (\w+)", log)
+    epochs = re.search(r"Epoch arrays \(\w+\): ([0-9.]+) s", log)
+    if not path or path.group(1) != "device" or not epochs:
+        _fail("the shipped flags did not build the epoch on the device "
+              "(the auto -device-epoch resolves on, as in the JAX package)")
     for name in ("fused_context_pallas", "scatter_add_span"):
         if launches[name] <= 0:
             _fail(f"{name} was not launched on the main path")
@@ -1918,6 +1956,8 @@ def train_main_path(work: str):
         _fail(f"vector file holds {vecs.shape}, expected ({V}, {D})")
     if not np.all(np.abs(vecs) == third):
         _fail("bitlevel-1 vectors are not all +-1/3")
+    print(f"[train] epochs built on the {path.group(1)} in "
+          f"{float(epochs.group(1)):.2f} s")
     print(f"[train] {steps} steps, V={V}, epoch loss {losses[-1]:.4f}, "
           f"{float(m.group(3)):.1f} words/sec, {float(m.group(4)):.1f} "
           f"us/step; launches {launches}; vectors file {V} x {D} of +-1/3")
@@ -2726,6 +2766,322 @@ def check_accuracy(dev, path: str, threshold: int, n_q: int,
           f"card {t_card:.1f} s (cli, reading included), CPU {t_cpu:.1f} s")
 
 
+# --------------------------------------------- [native]: the C++ tokenizer
+def check_native(corpus: str, flag_vocab) -> None:
+    """The native library built with g++ from native/tokenizer.cpp (a
+    failed build fails the run: use_native=True), then count_words and
+    encode_corpus on [train]'s 17M-token corpus equal to the Python
+    path's, build_alias_table at the flagship's V = 3,699,941 bit-equal
+    both ways, and 16M draws of the LCG fill equal; each timed both
+    ways."""
+    from word2bits_tpu_torch import native
+    from word2bits_tpu_torch.data.corpus import count_words, encode_corpus
+    from word2bits_tpu_torch.data.vocab import Vocab
+    from word2bits_tpu_torch.sampling.unigram import build_alias_table
+    from word2bits_tpu_torch.utils.lcg import lcg_uniform_block
+
+    t0 = time.perf_counter()
+    native.build(fresh=True)
+    native._cache.clear()
+    native.load()
+    t_build = time.perf_counter() - t0
+    times = {}
+
+    def both(name, fn):
+        out = []
+        for way in (True, False):
+            t0 = time.perf_counter()
+            out.append(fn(way))
+            times[(name, way)] = time.perf_counter() - t0
+        return out
+
+    cn, cp = both("count", lambda w: count_words(corpus, use_native=w))
+    if cn != cp:
+        _fail("native count_words differs from the Python path's")
+    vocab = Vocab.from_counts(cp, min_count=5)
+    en, ep = both("encode", lambda w: encode_corpus(corpus, vocab,
+                                                    use_native=w))
+    if en.dtype != ep.dtype or not np.array_equal(en, ep):
+        _fail("native encode_corpus differs from the Python path's")
+    weights = flag_vocab.unigram_weights()
+    an, ap = both("alias", lambda w: build_alias_table(weights,
+                                                       use_native=w))
+    if not (torch.equal(an.prob, ap.prob) and torch.equal(an.alias,
+                                                          ap.alias)):
+        _fail("native alias table differs from the Python path's at "
+              f"V = {weights.shape[0]}")
+    ln, lp = both("lcg", lambda w: lcg_uniform_block(12_345, 1 << 24,
+                                                     use_native=w))
+    if not np.array_equal(ln, lp):
+        _fail("native LCG fill differs from the numpy path's")
+    t = {k: f"{v:.3f}" for k, v in times.items()}
+    print(f"[native] g++ build {t_build:.2f} s; count_words of "
+          f"{CORPUS_TOKENS} tokens ({len(cp)} types) native "
+          f"{t[('count', True)]} s, Python {t[('count', False)]} s; "
+          f"encode_corpus ({en.size} ids) native {t[('encode', True)]} s, "
+          f"Python {t[('encode', False)]} s; alias table at V = "
+          f"{weights.shape[0]} native {t[('alias', True)]} s, Python "
+          f"{t[('alias', False)]} s; LCG fill of {1 << 24} draws native "
+          f"{t[('lcg', True)]} s, numpy {t[('lcg', False)]} s; all equal "
+          f"({_card_line()})")
+
+
+# ------------------------------------ [device epoch]: epochs on the card
+def check_device_epoch(dev, vocab, encoded, B_: int, S_: int,
+                       tag: str) -> None:
+    """build_with_uniforms on the card bit-equal to the host
+    build_epoch_arrays on the same float32 uniforms (numpy, seeded), at
+    the capacity train.segment_capacity gives (B_, S_); the card's build
+    (CUDA events, uniforms given and drawn from a card generator) timed
+    beside the host's."""
+    from word2bits_tpu_torch.data.device_pipeline import (
+        build_with_uniforms, make_device_epoch_builder)
+    from word2bits_tpu_torch.data.pipeline import (build_epoch_arrays,
+                                                   subsample_keep_probs)
+    n = encoded.size
+    cap = ((n + S_ * B_ + 8 + 1023) // 1024) * 1024
+    uni = np.random.default_rng(SEED + 7).random(n, dtype=np.float32)
+    kp = subsample_keep_probs(vocab.counts, 1e-3, vocab.train_words)
+    t0 = time.perf_counter()
+    host = build_epoch_arrays(encoded, vocab.counts, 1e-3,
+                              vocab.train_words, W, None, capacity=cap,
+                              uniforms=uni)
+    t_host = time.perf_counter() - t0
+    enc_d = torch.from_numpy(np.asarray(encoded, np.int32)).to(dev)
+    kp_d = torch.from_numpy(kp.astype(np.float32)).to(dev)
+    uni_d = torch.from_numpy(uni).to(dev)
+    tok, sen, nt = build_with_uniforms(cap, W, enc_d, kp_d, uni_d,
+                                       device=dev)
+    if (int(nt) != host.n_tokens
+            or not np.array_equal(tok.cpu().numpy(), host.tokens)
+            or not np.array_equal(sen.cpu().numpy(), host.sent_ids)):
+        bad = int((tok.cpu().numpy() != host.tokens).sum())
+        _fail(f"{tag}: the device epoch differs from the host build "
+              f"({int(nt)} vs {host.n_tokens} kept, {bad} tokens differ)")
+    ms = _time_ms(lambda: build_with_uniforms(cap, W, enc_d, kp_d, uni_d,
+                                              device=dev), reps=5, warmup=1)
+    build = make_device_epoch_builder(cap, W)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ms_gen = _time_ms(lambda: build(enc_d, kp_d, gen), reps=5, warmup=1)
+    print(f"[device epoch] {tag}: {n} tokens over V = {vocab.size}, "
+          f"{host.n_tokens} kept, capacity {cap}: bit-equal to the host "
+          f"build; card {ms:.3f} ms (uniforms given), {ms_gen:.3f} ms "
+          f"(drawn on the card), host {t_host * 1e3:.1f} ms "
+          f"({_card_line()})")
+
+
+# ------------------------------------------------ [skipgram]: skip-gram
+def check_skipgram_step(dev) -> None:
+    """One skip-gram step and a 3-step chunk on the card against the same
+    calls on the CPU, at a small shape with injected draws, float32
+    tables: atol 1e-4 + rtol 1e-4, loss rtol 1e-5 (as [step]); per-center,
+    shared with 2 pools, and dense-hot."""
+    from word2bits_tpu_torch.models import cbow_slab as cs
+    from word2bits_tpu_torch.models import skipgram as sg
+    from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
+    from word2bits_tpu_torch.sampling.unigram import (build_alias_table,
+                                                      build_stratified_tables)
+    rng = np.random.default_rng(SEED + 11)
+    v, d, b, w, k, h, s = 300, 16, 64, 3, 5, 32, 3
+    n = s * b + 2 * w + 10
+    tokens = torch.from_numpy(rng.integers(0, v, n))
+    tokens[:w] = -1
+    sents = torch.arange(n) // 23
+    sents[:w] = -1
+    shrinks = torch.from_numpy(rng.integers(0, w, (s, b)))
+    u0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (v, d)).astype(np.float32))
+    v0 = torch.from_numpy(rng.uniform(-0.5, 0.5, (v, d)).astype(np.float32))
+    sc = ChunkScalars(base0=w, alpha0=0.05, wca_start=100.0,
+                      wca_per_step=float(b), denom=1e4)
+    st = build_stratified_tables(np.arange(v, 0, -1.0) ** 0.75, h)
+    dense = st.dense_split(k)
+    for name, gg, pp, dh in (("per-center", 0, 1, False),
+                             ("shared, 2 pools", 8, 2, False),
+                             ("dense-hot", 0, 1, True)):
+        kk = dense[0] if dh else k
+        hyper = CBOWHyper(bitlevel=1, size=d, window=w, negative=kk)
+        rows = b // gg if gg else b
+        negs = torch.from_numpy(rng.integers(h if dh else 1, v,
+                                             (s, rows, pp * kk)))
+        outs = {}
+        for where in ("cpu", dev):
+            step_dense = ((dense[1], torch.from_numpy(dense[2]).to(where))
+                          if dh else None)
+            st_in = cs.SlabInputs(
+                tokens[:b + 2 * w].to(where), sents[:b + 2 * w].to(where),
+                shrinks[0].to(where), negs[0].to(where))
+            su, sv, loss = sg.skipgram_slab_step(
+                u0.clone().to(where), v0.clone().to(where), st_in,
+                torch.tensor(0.05, device=where), hyper, b, gg,
+                neg_pool=pp, dense_hot=step_dense)
+            chunk = sg.make_skipgram_train_chunk(
+                hyper, v, b, s, neg_sharing=gg, neg_pool=pp,
+                hot_rows=h if dh else 0, dense_hot=dense if dh else None)
+            atab = (st.cold if dh else build_alias_table(np.ones(v))
+                    ).to(where)
+            cu, cv, closs = chunk(u0.clone().to(where), v0.clone().to(where),
+                                  tokens.to(where), sents.to(where), atab,
+                                  sc, shrinks=shrinks.to(where),
+                                  negs=negs.to(where))
+            outs[str(where)] = ([su.cpu(), sv.cpu()], float(loss),
+                                [cu.cpu(), cv.cpu()], float(closs))
+        (t0_, l0, c0, cl0), (t1, l1, c1, cl1) = outs["cpu"], outs[str(dev)]
+        errs = []
+        for what, a, bb in (("step", t1, t0_), ("chunk", c1, c0)):
+            for x, y in zip(a, bb):
+                if not torch.allclose(x, y, atol=1e-4, rtol=1e-4):
+                    _fail(f"skipgram {name} {what} on the card vs the CPU: "
+                          f"max abs err {_max_err(x, y):.3e}")
+                errs.append(_max_err(x, y))
+        for what, a, bb in (("step loss", l1, l0), ("chunk loss", cl1, cl0)):
+            if abs(a - bb) > 1e-5 * abs(bb) + 1e-6:
+                _fail(f"skipgram {name} {what} on the card {a} vs the CPU "
+                      f"{bb}")
+        print(f"[skipgram] {name} card vs CPU: step and chunk max abs err "
+              f"{max(errs):.3e}, losses {l1:.6f}/{l0:.6f}, "
+              f"{cl1:.6f}/{cl0:.6f}")
+
+
+def run_skipgram(work: str, dev, vocab, encoded) -> dict:
+    """The Quick start's flags with -model skipgram (size 200, window 8,
+    negative 24, bitlevel 1, B auto = 256, float32) through train.train on
+    [quickstart]'s corpus, SG_STEPS steps, its vectors written (kernel 4)
+    and read back; then the same with -hot-rows 2048 -neg-dense-hot 1 on
+    bf16.  Prints µs/step on the card's clock and the per-step loss of
+    each chunk."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.config import config_from_argv
+    from word2bits_tpu_torch.io.vectors import read_vectors
+    by_path = {}
+    out = os.path.join(work, "skipgram.bin")
+    for tag, extra in (("skipgram", []),
+                       ("skipgram_densehot",
+                        ["-hot-rows", str(HOT), "-neg-dense-hot", "1",
+                         "-dtype", "bfloat16"])):
+        cfg = config_from_argv(QUICKSTART_FLAGS + SG_FLAGS + extra
+                               + ["-output", out, "-debug", "1"])
+        _zero_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = T.train(cfg, vocab=vocab, encoded=encoded,
+                          max_steps=SG_STEPS, device=dev)
+        launches = _read_launches()
+        if res.steps != SG_STEPS or len(res.tables) != 2:
+            _fail(f"{tag} trained {res.steps} steps on {len(res.tables)} "
+                  f"tables, not {SG_STEPS} on split tables")
+        per_step = [x / cfg.steps_per_chunk for x in res.chunk_losses]
+        if not all(math.isfinite(x) for x in per_step + res.epoch_losses):
+            _fail(f"{tag} loss not finite: {per_step}")
+        if launches["quantize_pallas"] <= 0:
+            _fail(f"{tag}: the export did not launch kernel 4")
+        words, vecs = read_vectors(out)
+        third = np.float32(1.0) / np.float32(3.0)
+        if (vecs.shape != (vocab.size, D) or words != vocab.words
+                or not np.all(np.abs(vecs) == third)):
+            _fail(f"{tag} vectors file holds {vecs.shape}, not "
+                  f"({vocab.size}, {D}) rows of +-1/3")
+        us, wps = _steady(res)
+        print(f"[skipgram] {' '.join(extra) or 'the Quick start flags'}: "
+              f"{res.steps} steps of B={cfg.batch_size}, {cfg.dtype}, "
+              f"{us:.1f} us/step, {wps:.1f} words/sec (card clock, chunks "
+              f"after the first); loss per step by chunk "
+              f"{[round(x, 1) for x in per_step]}; launches {launches}; "
+              f"vectors file {vocab.size} x {D} of +-1/3 ({_card_line()})")
+        by_path[tag] = launches
+        del res
+    return by_path
+
+
+# ------------------------------------------------------ [tune]: cli tune
+def run_tune(corpus: str) -> dict:
+    """`cli tune` on [train]'s corpus at TUNE_FLAGS with -tune-seconds 2
+    -json 1: every variant measured (none reports an error), kernels 1, 2
+    and 6 launched on the way."""
+    from word2bits_tpu_torch import cli
+    _zero_launches()
+    rc, out, sec = _cli(cli.tune_main, ["-train", corpus] + TUNE_FLAGS
+                        + ["-tune-seconds", "2", "-json", "1"], cpu=False)
+    launches = _read_launches()
+    if rc != 0:
+        _fail(f"cli tune returned {rc}:\n{out[-2000:]}")
+    result = json.loads(out.strip().splitlines()[-1])
+    rows = result["rows"]
+    bad = [r for r in rows if "words_per_sec" not in r]
+    if bad or len(rows) < 2:
+        _fail(f"cli tune measured {len(rows) - len(bad)} of {len(rows)} "
+              f"variants: {bad}")
+    for name in ("fused_context_pallas", "scatter_add_span",
+                 "hot_slice_add_pallas"):
+        if launches[name] <= 0:
+            _fail(f"cli tune launched {name} no time")
+    rates = ", ".join(f"{r['name']} {r['words_per_sec']:.1f}" for r in rows)
+    print(f"[tune] {len(rows)} variants in {sec:.1f} s, words/sec on the "
+          f"card's clock: {rates}; recommended {result['recommended']} "
+          f"({result['flags'] or 'as given'}); launches {launches} "
+          f"({_card_line()})")
+    return launches
+
+
+# --------------------------------------------- [profile]: -profile-dir
+def run_profile(work: str, dev, vocab, encoded) -> dict:
+    """One S-step chunk of the shipped flags through train.train with
+    -profile-dir: the Chrome trace must be written and name kernels 1 and
+    2 (context_kernel, tile_scatter_kernel)."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.config import config_from_argv
+    pdir = os.path.join(work, "profile")
+    cfg = config_from_argv(TRAIN_FLAGS + ["-profile-dir", pdir])
+    _zero_launches()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        res = T.train(cfg, vocab=vocab, encoded=encoded, max_steps=S,
+                      device=dev)
+    launches = _read_launches()
+    files = [f for f in os.listdir(pdir) if f.endswith(".json")]
+    if res.steps != S or len(files) != 1:
+        _fail(f"profile: {res.steps} steps, trace files {files}:\n"
+              f"{log.getvalue()[-2000:]}")
+    path = os.path.join(pdir, files[0])
+    with open(path) as f:
+        trace = f.read()
+    named = [k for k in ("context_kernel", "tile_scatter_kernel")
+             if k in trace]
+    if not named:
+        _fail("profile: the trace names none of the port's kernels")
+    print(f"[profile] one {S}-step chunk traced to {files[0]} "
+          f"({os.path.getsize(path)} bytes), naming {named}; launches "
+          f"{launches}")
+    return launches
+
+
+# ------------------------------------------- [parity]: run-level accuracy
+def run_parity(dev) -> dict:
+    """Per-center bitlevel 0 and skip-gram bitlevel 1, seed 1, on the
+    30,000-sentence structured corpus (5 epochs), trained on the card by
+    word2bits_tpu_torch/tools/accuracy_parity.py's run_port and scored by
+    the port's evaluator: each accuracy at or above PARITY_FLOORS (the
+    JAX package's mean - 3 sd on that corpus, on the CPU)."""
+    from word2bits_tpu_torch.tools import accuracy_parity as AP
+    corpus, questions = AP.ensure_corpus(fast=True)
+    by_path = {}
+    for row, (floor, jm, js) in PARITY_FLOORS.items():
+        bitlevel, mode, fields, *_ = AP.ROWS[row]
+        out = os.path.join(os.path.dirname(corpus), f"smoke_{row}.bin")
+        _zero_launches()
+        sec = AP.run_port(corpus, out, bitlevel, mode, fields, 1,
+                          AP.HYPER["iters"], dev)
+        by_path[f"parity_{row}"] = _read_launches()
+        acc, cov = AP.evaluate(out, questions, dev)
+        os.unlink(out)
+        if not acc >= floor:
+            _fail(f"parity {row}: accuracy {acc:.1f} below the floor "
+                  f"{floor:.1f} (JAX {jm:.2f}±{js:.2f})")
+        print(f"[parity] {row}, seed 1, 30,000 sentences, 5 epochs: "
+              f"{acc:.1f}% (coverage {cov:.1f}%) in {sec:.1f} s, floor "
+              f"{floor:.1f} (the JAX package on the CPU {jm:.2f}±{js:.2f}, "
+              f"seeds 1-5) ({_card_line()})")
+    return by_path
+
+
 def report_ptxas() -> None:
     """Each kernel's registers, static shared memory and spills as ptxas
     reported them in this run's build; kernels 1, 5 and 9 and every
@@ -2848,13 +3204,21 @@ def main() -> int:
         by_path["resume"] = run_resume(dev, *flag_corpus, ckdir)
         shutil.rmtree(ckdir)
         by_path["rmw"] = run_rmw(dev, *flag_corpus)
+        check_native(corpus, flag_corpus[0])
+        check_device_epoch(dev, *flag_corpus, FLAG_B, 32, "flagship")
         del flag_corpus
         check_accuracy(dev, vec_path, 0, 2000, "train.bin")
         by_path["quickstart"], prepared = train_quickstart(work, corpus, dev)
+        check_device_epoch(dev, *prepared, B, S, "train")
         by_path["exact"], _ = run_exact(dev, *prepared)
         by_path["sweep"] = run_sweep(dev, *prepared)
         by_path.update(run_pallas(dev, *prepared))
         by_path.update(run_hot(work, dev, *prepared))
+        check_skipgram_step(dev)
+        by_path.update(run_skipgram(work, dev, *prepared))
+        by_path["tune"] = run_tune(corpus)
+        by_path["profile"] = run_profile(work, dev, *prepared)
+        by_path.update(run_parity(dev))
         by_path.update(run_convert_nearest(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -10,7 +10,10 @@ route (-hot-rows, -neg-stratify, -neg-dense-hot, -rmw-scatter,
 every port module pulls in neither JAX nor the JAX package.
 """
 
+import contextlib
 import dataclasses
+import io
+import json
 import os
 import warnings
 import re
@@ -152,10 +155,6 @@ def test_config_rejects_what_jax_rejects(argv):
 
 @pytest.mark.parametrize("flag,argv", [
     ("-mesh-shape", FUSED_ADD + ["-mesh-shape", "data=2,vocab=4"]),
-    ("-model", ["-model", "skipgram"]),
-    ("-model", ["-cbow", "0"]),
-    ("-device-epoch", ["-device-epoch", "1"]),
-    ("-profile-dir", ["-profile-dir", "prof"]),
     ("-dtype", ["-dtype", "float16"]),
 ])
 def test_unported_flags_rejected_by_name(flag, argv):
@@ -197,17 +196,47 @@ def test_formerly_unported_checkpoint_flags_train_on_cpu(tmp_path, argv):
     assert (tmp_path / "v.bin").exists()
 
 
-@pytest.mark.parametrize("argv,flag", [
-    (["-model", "skipgram"], "-model"),
+@pytest.mark.parametrize("argv", [
+    ["-model", "skipgram"],
+    ["-cbow", "0", "-neg-sharing", "8", "-neg-pool", "2"],
+    ["-model", "skipgram", "-hot-rows", "4", "-neg-dense-hot", "1",
+     "-dtype", "bfloat16"],
+    ["-device-epoch", "1"],
+    ["-device-epoch", "1", "-segment-tokens", "150"],
+    FUSED_ADD + ["-device-epoch", "1", "-hot-rows", "4", "-neg-dense-hot",
+                 "1"],
+    ["-profile-dir", "prof"],
+    ["-model", "skipgram", "-profile-dir", "prof", "-device-epoch", "0"],
 ])
-def test_unported_engines_rejected_by_name(tmp_path, argv, flag):
-    """The engine still without code (skip-gram) is rejected by name
-    before anything trains."""
-    (tmp_path / "c.txt").write_text("a b c a b c\n" * 20)
-    with pytest.raises(ValueError, match=re.escape(flag)):
-        tconfig.config_from_argv(argv + ["-train", str(tmp_path / "c.txt"),
-                                         "-min-count", "1", "-debug", "0",
-                                         "-size", "8"])
+def test_formerly_unported_flags_train_on_cpu(tmp_path, argv):
+    """Skip-gram (-model skipgram, -cbow 0), the device epoch
+    (-device-epoch 1, also over several segments) and -profile-dir, each
+    rejected by name before they were ported, train a few steps on the
+    CPU: the tables move, the epoch is built where device_epoch_on says,
+    and -profile-dir writes one Chrome trace of the first chunk."""
+    (tmp_path / "c.txt").write_text("a b c d e f a b c d\n" * 40)
+    argv = [str(tmp_path / a) if a == "prof" else a for a in argv]
+    jcfg = jconfig.config_from_argv(argv)     # a valid configuration for JAX
+    cfg = tconfig.config_from_argv(argv + ["-train", str(tmp_path / "c.txt"),
+                                           "-min-count", "1", "-debug", "1",
+                                           "-size", "8", "-batch-size", "32",
+                                           "-steps-per-chunk", "4"])
+    assert cfg.device_epoch_on == jcfg.device_epoch_on
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        res = ttrain.train(cfg, device="cpu", max_steps=8)
+    assert res.steps == 8 and np.isfinite(res.epoch_losses).all()
+    where = "device" if cfg.device_epoch_on else "host"
+    assert f"Epochs built on the {where}" in log.getvalue()
+    assert len(res.tables) == 2 or cfg.model == "cbow"
+    u, v = ttrain.table_halves(res.tables)
+    from word2bits_tpu_torch.models.init import init_params
+    u0, v0 = init_params(res.vocab.size, 8, device="cpu",
+                         dtype=getattr(torch, cfg.dtype))
+    assert not torch.equal(u, u0) and not torch.equal(v, v0)
+    if cfg.profile_dir:
+        traces = os.listdir(cfg.profile_dir)
+        assert len(traces) == 1 and traces[0].endswith(".json")
 
 
 @pytest.mark.parametrize("argv", [
@@ -286,17 +315,22 @@ def test_dense_hot_needs_a_cold_stratum():
 
 
 def test_public_functions_default_to_the_card(monkeypatch):
-    """init_params, init_fused_table and analogy_predictions run on the
-    card unless asked for the CPU: without one they raise the
-    resolve_device error instead of dropping to the CPU."""
+    """init_params, init_fused_table, analogy_predictions and the device
+    epoch's build_with_uniforms run on the card unless asked for the CPU:
+    without one they raise the resolve_device error instead of dropping
+    to the CPU."""
     from word2bits_tpu_torch.eval import analogy as TA
     from word2bits_tpu_torch.models.init import init_fused_table, init_params
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     qs = TA.AnalogyQuestions(sections=["s"], questions=[(0, "A", "B", "C",
                                                          "D")])
+    from word2bits_tpu_torch.data.device_pipeline import \
+        build_with_uniforms
     calls = (lambda: init_params(10, 4), lambda: init_fused_table(10, 4),
              lambda: TA.analogy_predictions(["a", "b", "c", "d"],
-                                            np.eye(4, dtype=np.float32), qs))
+                                            np.eye(4, dtype=np.float32), qs),
+             lambda: build_with_uniforms(8, 2, np.ones(4, np.int32),
+                                         np.ones(2), np.zeros(4)))
     for call in calls:
         with pytest.raises(RuntimeError, match="W2B_FORCE_CPU"):
             call()
@@ -441,10 +475,20 @@ def test_cli_vocab_only_without_output(tmp_path, monkeypatch):
     assert (tmp_path / "v.txt").read_text().startswith("</s> ")
 
 
-def test_cli_other_subcommands_not_ported(monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["cli", "tune", "-train", "c.txt"])
-    with pytest.raises(SystemExit, match="tune"):
-        cli.main()
+def test_cli_tune_subcommand_runs(tmp_path, monkeypatch, capsys):
+    """`cli tune` (rejected by name before it was ported) measures the
+    variants on the CPU and prints its recommendation as JSON."""
+    (tmp_path / "c.txt").write_text("a b c d e f a b c d\n" * 60)
+    monkeypatch.setenv("W2B_FORCE_CPU", "1")
+    monkeypatch.setattr(sys, "argv", [
+        "cli", "tune", "-train", str(tmp_path / "c.txt"), "-min-count", "1",
+        "-size", "8", "-batch-size", "32", "-steps-per-chunk", "2",
+        "-debug", "0", "-tune-seconds", "0.01", "-tune-max-variants", "2",
+        "-json", "1"])
+    assert cli.main() == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [r["name"] for r in result["rows"]] == ["as-given", "fused-pool"]
+    assert all(r["words_per_sec"] > 0 for r in result["rows"])
 
 
 def test_port_imports_neither_jax_nor_jax_package():
@@ -469,11 +513,14 @@ def test_port_imports_neither_jax_nor_jax_package():
                 "kernels.score_pallas", "models.cbow_slab", "models.cbow",
                 "kernels.hot_pallas", "kernels.scatter_pallas",
                 "ops.scatter", "kernels.quantize_pallas",
-                "kernels.sweep_scatter"):
+                "kernels.sweep_scatter", "models.skipgram",
+                "data.device_pipeline", "native", "tune", "data.structured",
+                "data.wikifil", "tools.accuracy_parity"):
         assert f"word2bits_tpu_torch.{new}" in mods
     pattern = re.compile(r"import jax|from jax|word2bits_tpu(?!_torch)")
     sources = [p for p in (REPO / "word2bits_tpu_torch").rglob("*")
-               if p.suffix in (".py", ".cu", ".cuh")]
+               if p.suffix in (".py", ".cu", ".cuh", ".cpp")]
+    assert any(p.suffix == ".cpp" for p in sources)
     assert len(sources) > 20
     for src in sources:
         assert not pattern.search(src.read_text()), src

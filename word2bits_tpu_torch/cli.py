@@ -11,13 +11,15 @@ reference src/word2bits.cpp:591-621 and src/compute-accuracy.c:73-79):
     python -m word2bits_tpu_torch.cli convert vec.bin vec.pack \\
         -bitlevel 1 -packed 1
     python -m word2bits_tpu_torch.cli nearest vec.bin king queen -topk 5
+    python -m word2bits_tpu_torch.cli tune -train text8 -size 200 \
+        -tune-seconds 4 -json 1
 
 The JAX package's extensions `convert` (re-quantize, re-format, bit-pack
-a vector file) and `nearest` (cosine neighbours) have the same usage,
-messages and output.  All four run on the CUDA device; W2B_FORCE_CPU=1
+a vector file), `nearest` (cosine neighbours) and `tune` (measure the
+step variants on the user's corpus, tune.py) have the same usage,
+messages and output.  All five run on the CUDA device; W2B_FORCE_CPU=1
 runs them on the CPU instead.  They read binary, text or gzip'd text
-vector files and `.pack` files.  The JAX package's `tune` is not ported
-and is rejected by name.
+vector files and `.pack` files.
 """
 
 from __future__ import annotations
@@ -49,12 +51,14 @@ def train_main(argv=None) -> int:
               "-seed]\n"
               "Update routes: [-rmw-scatter 0|1 -dedup-block M -hot-rows H "
               "-hot-pallas 0|1 -neg-stratify 0|1 -neg-dense-hot 0|1 "
-              "-device-epoch 0]\n"
+              "-device-epoch 0|1]\n"
+              "Model: [-model cbow|skipgram (-cbow 1|0)]\n"
               "Checkpoints: [-checkpoint-dir DIR -resume 0|1 "
-              "-checkpoint-every-epoch 0|1]\n"
+              "-checkpoint-every-epoch 0|1] Trace: [-profile-dir DIR]\n"
               "Subcommands: train (default) | accuracy FILE [bitlevel "
               "threshold] [-questions FILE] | convert IN OUT | nearest FILE "
-              "[words...]")
+              "[words...] | tune -train FILE [flags...] [-tune-seconds S] "
+              "[-tune-max-variants N] [-json 1]")
         return 0
     from word2bits_tpu_torch.train import prepare, train
 
@@ -272,6 +276,46 @@ def nearest_main(argv=None) -> int:
     return 0
 
 
+def tune_main(argv=None) -> int:
+    """Throughput auto-tuner (the JAX package's extension; tune.py).
+
+    Usage: tune -train FILE [reference/extension flags...]
+                [-tune-seconds S] [-tune-max-variants N] [-json 1]
+
+    Measures the quality-safe step variants (fused/pooled negatives,
+    hot/cold scatter split, dense-hot negatives, banded windowed sums,
+    the span scatter and the context kernel, bf16) on YOUR corpus and
+    device for a few seconds each and prints the flags worth adding to
+    the train command.
+    """
+    argv = list(sys.argv[1:] if argv is None else argv)
+
+    def take(flag, parse, default):
+        if flag not in argv:
+            return default
+        i = argv.index(flag)
+        if i + 1 >= len(argv):
+            sys.exit(f"Argument missing for {flag}")
+        try:
+            val = parse(argv[i + 1])
+        except ValueError:
+            sys.exit(f"Bad value for {flag}: {argv[i + 1]!r}")
+        del argv[i:i + 2]
+        return val
+
+    seconds = take("-tune-seconds", float, 4.0)
+    as_json = bool(take("-json", int, 0))
+    max_variants = take("-tune-max-variants", int, 0) or None
+    cfg = config_from_argv(argv)
+    if cfg.train_file is None:
+        print("Usage: tune -train FILE [flags...] [-tune-seconds S] "
+              "[-tune-max-variants N] [-json 1]")
+        return 0
+    from word2bits_tpu_torch.tune import run_tune
+    return run_tune(cfg, seconds=seconds, as_json=as_json,
+                    max_variants=max_variants, device=_device())
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args and args[0] == "train":
@@ -283,8 +327,7 @@ def main() -> int:
     if args and args[0] in ("nearest", "distance"):
         return nearest_main(args[1:])
     if args and args[0] == "tune":
-        raise SystemExit(f"the {args[0]!r} subcommand is not implemented by "
-                         "word2bits_tpu_torch yet")
+        return tune_main(args[1:])
     return train_main(args)
 
 

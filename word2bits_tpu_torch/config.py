@@ -7,23 +7,24 @@ defaults, validation, `auto_lr` and `config_from_argv`, so one argv
 resolves to equal fields in both packages.  What each extension does is
 documented there.
 
-The port implements the two single-device CBOW engines: the split-table
-slab engine (the reference default: per-center negatives; or shared ones,
-models/cbow_slab.py) with the `add` or `span` scatter or the block dedup
-(`-dedup-block`), and the fused-table engine (`-fused-tables 1
--neg-sharing G`, models/cbow_fused.py) with the `add`, `span`, `grmw` or
-in-place RMW (`-rmw-scatter`) scatter, the block dedup, and the hot/cold
-split (`-hot-rows`, `-hot-pallas`, `-neg-stratify`, `-neg-dense-hot`);
-either with shifted-sum or banded windowed sums, optionally the fused
-context kernel (`-context-pallas`) and the fused score kernel
-(`-use-pallas`); any `-loop-mode` (all three run the same in-place loop);
-the `-packed 1` export; and checkpoint/resume (`-checkpoint-dir`,
-`-resume`, `-checkpoint-every-epoch`, train.save_checkpoint).  Epochs are
-built on the host only
-(`-device-epoch 1` is rejected), but `device_epoch_on` resolves the flag as
-the JAX package does, because it decides whether the hot/cold split gets
-its cold-position map.  A flag that selects anything else is rejected by
-name with a ValueError, never ignored: see UNSUPPORTED below.
+The port implements everything the JAX package runs on one device: the
+two CBOW engines, the split-table slab engine (the reference default:
+per-center negatives; or shared ones, models/cbow_slab.py) with the `add`
+or `span` scatter or the block dedup (`-dedup-block`), and the fused-table
+engine (`-fused-tables 1 -neg-sharing G`, models/cbow_fused.py) with the
+`add`, `span`, `grmw` or in-place RMW (`-rmw-scatter`) scatter, the block
+dedup, and the hot/cold split (`-hot-rows`, `-hot-pallas`,
+`-neg-stratify`, `-neg-dense-hot`), either with shifted-sum or banded
+windowed sums, optionally the fused context kernel (`-context-pallas`) and
+the fused score kernel (`-use-pallas`); skip-gram (`-model skipgram`,
+`-cbow 0`, models/skipgram.py) on split tables; any `-loop-mode` (all
+three run the same in-place loop); the epoch built on the device
+(`-device-epoch`, resolved by `device_epoch_on` as in the JAX package) or
+on the host; the `-packed 1` export; checkpoint/resume (`-checkpoint-dir`,
+`-resume`, `-checkpoint-every-epoch`, train.save_checkpoint); and a
+profiler trace of the first chunk (`-profile-dir`).  `-mesh-shape` (the
+JAX package's parallel/) is not ported yet and is rejected by name with a
+ValueError, never ignored: see UNSUPPORTED below.
 """
 
 from __future__ import annotations
@@ -315,13 +316,19 @@ class Word2BitsConfig:
     def device_epoch_on(self) -> bool:
         """Resolved -device-epoch, as in the JAX package: AUTO (None) is on
         unless the config needs host-precomputed cold positions (-hot-rows
-        without -neg-dense-hot).  The port builds every epoch on the host;
-        this decides only whether the hot/cold split gets its cold map
-        (train.build_engine): under AUTO, -hot-rows -neg-dense-hot 1 has
-        none, and its step keeps the plain slab scatter."""
+        without -neg-dense-hot).  On, each epoch is built on the training
+        device (data/device_pipeline.py) and no cold map is built: under
+        AUTO, -hot-rows -neg-dense-hot 1 keeps the plain slab scatter."""
         if self.device_epoch is None:
             return not (self.hot_rows and not self.neg_dense_hot)
         return bool(self.device_epoch)
+
+    @property
+    def fused_on(self) -> bool:
+        """The fused (V, 2D) table engine runs: -fused-tables 1 on CBOW
+        (skip-gram keeps split tables, as in the JAX package)."""
+        return bool(self.fused_tables and self.neg_sharing
+                    and self.model == "cbow")
 
     @property
     def lr_scale(self) -> float:
@@ -348,11 +355,7 @@ DTYPES = ("float32", "bfloat16")
 # (flag, field, selects-unported-code) — each rejected by name
 UNSUPPORTED = (
     ("-mesh-shape", "mesh_shape", bool),
-    ("-model", "model", lambda m: m == "skipgram"),
-    ("-device-epoch", "device_epoch", lambda d: d is True),
-    ("-profile-dir", "profile_dir", bool),
 )
-
 
 # The reference flag spellings, for the CLI layer.
 REFERENCE_FLAGS = {

@@ -1,19 +1,26 @@
-"""Corpus tokenization and encoding (pure-Python path).
+"""Corpus tokenization and encoding.
 
 Tokenization matches the reference ReadWord (reference
 src/word2bits.cpp:131-155): words split on space, tab and newline; '\\r' is
 ignored; a newline emits `</s>` after the word it ends; a final word with
 no separator before EOF is dropped; words of MAX_STRING-1 or more bytes
-keep their first MAX_STRING-2 bytes.  The JAX package's C++ tokenizer
-produces the same stream; it is not ported yet.
+keep their first MAX_STRING-2 bytes.
+
+Two implementations, as in the JAX package: the C++ streaming tokenizer
+(native/, built at first use) and the pure-Python path below, which give
+the same counts and ids.  `use_native`: None uses the C++ one when it
+builds and falls back to Python otherwise, True raises where it cannot
+run, False runs Python.
 """
 
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+
+from word2bits_tpu_torch import native
 
 from word2bits_tpu_torch.data.vocab import (
     REDUCE_THRESHOLD,
@@ -50,10 +57,18 @@ def split_tokens(data: bytes) -> List[bytes]:
     return out
 
 
-def count_words(path: str) -> Dict[str, int]:
+def count_words(path: str,
+                use_native: Optional[bool] = None) -> Dict[str, int]:
     """Single-pass word-frequency count (reference LearnVocabFromTrainFile,
     src/word2bits.cpp:265-301), with the emergency ReduceVocab pruning when
     distinct words exceed 21M (:292)."""
+    lib = native.native_for(use_native)
+    if lib is not None:
+        counts = lib.count_words(path)
+        if counts is not None:
+            return counts
+    if use_native:
+        raise RuntimeError("native tokenizer requested but not available")
     with open(path, "rb") as f:
         data = f.read()
     counts: Counter = Counter(split_tokens(data))
@@ -67,9 +82,17 @@ def count_words(path: str) -> Dict[str, int]:
     return out
 
 
-def encode_corpus(path: str, vocab: Vocab) -> np.ndarray:
+def encode_corpus(path: str, vocab: Vocab,
+                  use_native: Optional[bool] = None) -> np.ndarray:
     """int32 id array of the corpus: OOV words dropped (reference :398),
     newlines as id 0 (`</s>`)."""
+    lib = native.native_for(use_native)
+    if lib is not None:
+        ids = lib.encode_corpus(path, vocab.words)
+        if ids is not None:
+            return ids
+    if use_native:
+        raise RuntimeError("native tokenizer requested but not available")
     index = {w.encode("utf-8", errors="surrogateescape"): i
              for i, w in enumerate(vocab.words)}
     with open(path, "rb") as f:
@@ -79,6 +102,8 @@ def encode_corpus(path: str, vocab: Vocab) -> np.ndarray:
     return np.asarray(ids, dtype=np.int32)
 
 
-def build_vocab(path: str, min_count: int = 5) -> Vocab:
+def build_vocab(path: str, min_count: int = 5,
+                use_native: Optional[bool] = None) -> Vocab:
     """Corpus scan -> sorted, pruned Vocab."""
-    return Vocab.from_counts(count_words(path), min_count=min_count)
+    return Vocab.from_counts(count_words(path, use_native=use_native),
+                             min_count=min_count)

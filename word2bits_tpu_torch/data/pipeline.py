@@ -51,6 +51,15 @@ class EpochArrays:
     source_len: int = 0  # encoded tokens this segment was built from
 
 
+def expected_kept_fraction(counts: np.ndarray, sample: float,
+                           train_words: int) -> float:
+    """E[kept tokens] / train_words under the subsampling distribution."""
+    if train_words <= 0:
+        return 1.0
+    probs = np.minimum(subsample_keep_probs(counts, sample, train_words), 1.0)
+    return float((probs * counts).sum() / max(train_words, 1))
+
+
 def iter_epoch_segments(encoded: np.ndarray, counts: np.ndarray, sample: float,
                         train_words: int, window: int,
                         rng: np.random.Generator, segment_tokens: int,
@@ -105,13 +114,17 @@ def cold_positions(tokens: np.ndarray, batch_size: int, window: int,
 
 def build_epoch_arrays(encoded: np.ndarray, counts: np.ndarray, sample: float,
                        train_words: int, window: int, rng: np.random.Generator,
-                       capacity: int | None = None) -> EpochArrays:
-    """One epoch's subsampled, sentence-segmented, halo-padded arrays."""
+                       capacity: int | None = None,
+                       uniforms: np.ndarray | None = None) -> EpochArrays:
+    """One epoch's subsampled, sentence-segmented, halo-padded arrays.
+    `uniforms` injects the subsampling draws (one per token, as the JAX
+    package's argument: the device build of data/device_pipeline.py is
+    held bit-equal to this one on the same float32 draws)."""
     encoded = np.asarray(encoded, dtype=np.int32)
     is_sent = encoded == 0
 
     keep_probs = subsample_keep_probs(counts, sample, train_words)
-    u = rng.random(encoded.shape[0])
+    u = rng.random(encoded.shape[0]) if uniforms is None else uniforms
     keep = (u <= keep_probs[encoded]) | is_sent  # `</s>` never subsampled
 
     kept = encoded[keep]

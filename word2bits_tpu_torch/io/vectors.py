@@ -130,3 +130,13 @@ def read_vectors(path: str, binary: bool | None = None,
                 words.append(parts[0].decode("utf-8", errors="surrogateescape"))
                 out[i] = np.asarray(parts[1:D + 1], dtype=np.float32)
     return words, out
+
+
+def output_vectors(u: np.ndarray, v: np.ndarray, bitlevel: int) -> np.ndarray:
+    """The exported representation quantize(u + v, bitlevel) of host arrays
+    (reference src/word2bits.cpp:548-550), in numpy.  Training exports on
+    the tables' device in row blocks instead (train.write_output)."""
+    from word2bits_tpu_torch.ops.quantize import quantize_np
+
+    s = np.asarray(u, np.float32) + np.asarray(v, np.float32)
+    return np.asarray(quantize_np(s, bitlevel), np.float32)

@@ -95,3 +95,9 @@ def quantize_ste(x: torch.Tensor, bitlevel: int) -> torch.Tensor:
     """quantize() with a straight-through-estimator gradient (identity VJP)."""
     _check_bitlevel(bitlevel)
     return _QuantizeSTE.apply(x, bitlevel)
+
+
+def quantized_storage_bits(bitlevel: int) -> int:
+    """Bits per weight of the logical quantized representation (the 8x-16x
+    storage compression, reference README.md:3-5)."""
+    return 32 if bitlevel == 0 else bitlevel

@@ -18,6 +18,9 @@ on 0/1 masks and run with `allow_tf32` off, as on the whole training path).
   `index_add_` into a float32 [H, C] buffer (the same sums in another
   order).  Kernel 6 (kernels/hot_pallas.py) computes the same function.
 - `add_rows_where`: `table[ids[keep]] += rows[keep]` without a host sync.
+- `scatter_add_sorted`: the plain scatter-add with the ids sorted first
+  (the JAX package's probe of XLA's sorted-scatter path; no route of the
+  trainer takes it).
 """
 
 from __future__ import annotations
@@ -98,3 +101,11 @@ def hot_slice_add(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
         head = head + extra.to(torch.float32)
     table[:H] = head.to(table.dtype)
     return table
+
+
+def scatter_add_sorted(table: torch.Tensor, ids: torch.Tensor,
+                       rows: torch.Tensor) -> torch.Tensor:
+    """table[ids] += rows in place, the rows rounded to the table dtype and
+    added in the order of the sorted ids (duplicates stay separate adds)."""
+    order = torch.argsort(ids)
+    return table.index_add_(0, ids[order], rows[order].to(table.dtype))

@@ -4,9 +4,10 @@ The reference draws from a 10^8-entry int table where word i occupies a
 span proportional to count(i)^0.75 (reference src/word2bits.cpp:112-128,
 draw at :456).  An alias table holds the same distribution exactly in two
 V-length arrays; a draw is one uniform bucket, one uniform accept test and
-one gather.  The table is built host-side (pure Python, bit-identical to
-the JAX package's construction); draws run on the table's device from an
-explicit torch.Generator.
+one gather.  The table is built host-side (by the C++ library of native/
+where it builds, else in pure Python; both bit-identical to the JAX
+package's construction); draws run on the table's device from an explicit
+torch.Generator.
 
 Reference quirks kept at draw time (:455-458): a drawn 0 (`</s>`) is
 remapped uniformly to [1, V-1]; a draw equal to the center is skipped by
@@ -26,8 +27,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from typing import Optional
+
 import numpy as np
 import torch
+
+from word2bits_tpu_torch import native
 
 
 @dataclass
@@ -42,8 +47,11 @@ class AliasTable:
                           alias=self.alias.to(device))
 
 
-def build_alias_table(weights: np.ndarray) -> AliasTable:
-    """O(V) Walker alias construction from unnormalized weights (CPU)."""
+def build_alias_table(weights: np.ndarray,
+                      use_native: Optional[bool] = None) -> AliasTable:
+    """O(V) Walker alias construction from unnormalized weights (CPU):
+    the native library's (`use_native` as in data/corpus.count_words),
+    or the pure-Python loop, which gives the same bits."""
     w = np.asarray(weights, dtype=np.float64)
     if w.ndim != 1 or w.shape[0] == 0:
         raise ValueError("weights must be a non-empty 1D array")
@@ -52,6 +60,15 @@ def build_alias_table(weights: np.ndarray) -> AliasTable:
         raise ValueError("weights must have positive sum")
     V = w.shape[0]
     scaled = w * (V / total)  # mean 1
+
+    lib = native.native_for(use_native)
+    if lib is not None:
+        out = lib.alias_build(np.array(scaled, np.float64, order="C"))
+        if out is not None:
+            return AliasTable(prob=torch.from_numpy(out[0].astype(np.float32)),
+                              alias=torch.from_numpy(out[1]))
+    if use_native:
+        raise RuntimeError("native alias build requested but not available")
 
     prob = np.ones(V, dtype=np.float64)
     alias = np.arange(V, dtype=np.int64)

@@ -2,17 +2,24 @@
 (reference src/word2bits.cpp:518-577) on one CUDA device (or the CPU).
 
 Per run: vocab build (or cached read), reference LCG init, alias table;
-per epoch a host-built subsampled epoch array (fresh randomness each epoch),
-then chunks of S synchronous steps, with the JAX package's words-consumed
-accounting for the LR schedule and words/sec.  Two engines, chosen as the
-JAX package's train.build_engine chooses them: the fused (V, 2D) table
-(`-fused-tables 1 -neg-sharing G`, models/cbow_fused.py) and the split
+per epoch a subsampled epoch array (fresh randomness each epoch), then
+chunks of S synchronous steps, with the JAX package's words-consumed
+accounting for the LR schedule and words/sec.  Three engines, chosen as
+the JAX package's train.build_engine chooses them: the fused (V, 2D) table
+(`-fused-tables 1 -neg-sharing G` on CBOW, models/cbow_fused.py), skip-gram
+on split tables (`-model skipgram`, models/skipgram.py) and the split
 (u, v) slab engine (every other CBOW configuration, the reference default
-among them: per-center negatives, models/cbow_slab.py).  With `-hot-rows`
-on the fused engine each segment also gets its cold-position map
-(data/pipeline.cold_positions), unless the config resolves to the JAX
-package's device epoch (`device_epoch_on`: -neg-dense-hot under the auto
--device-epoch), whose step has none.
+among them: per-center negatives, models/cbow_slab.py).
+
+The epoch is built where the JAX package builds it (`device_epoch_on`):
+under the auto -device-epoch on the training device from the encoded
+corpus uploaded once (data/device_pipeline.py, its draws from a generator
+seeded by (seed, epoch[, segment]), so a resumed run subsamples as the
+first run did), else on the host (data/pipeline.py, numpy draws seeded
+the same way).  With `-hot-rows` on the fused engine a host-built segment
+also gets its cold-position map (data/pipeline.cold_positions); the
+device epoch has none, as in the JAX package (-neg-dense-hot under the
+auto -device-epoch keeps the plain slab scatter).
 
 The tables are stored unpadded (the JAX package pads rows and columns only
 for its TPU DMA tiles), allocated once on the training device and filled
@@ -24,7 +31,9 @@ capacity configuration the host never holds a copy of them.  With
 streamed in the same row blocks, and -resume 1 reads them back the same
 way into tables allocated once (`save_checkpoint`, `load_checkpoint`).
 The loss accumulates on the device and is fetched once per epoch (and for
-progress lines at -debug > 1).
+progress lines at -debug > 1).  `on_epoch_end(epoch, u, v, loss)` gets
+each epoch's tables as host arrays; `-profile-dir` traces the first chunk
+with torch.profiler into a Chrome trace there.
 """
 
 from __future__ import annotations
@@ -42,8 +51,11 @@ import torch
 
 from word2bits_tpu_torch.config import Word2BitsConfig
 from word2bits_tpu_torch.data.corpus import build_vocab, encode_corpus
+from word2bits_tpu_torch.data.device_pipeline import \
+    make_device_epoch_builder
 from word2bits_tpu_torch.data.pipeline import (cold_positions,
-                                               iter_epoch_segments)
+                                               iter_epoch_segments,
+                                               subsample_keep_probs)
 from word2bits_tpu_torch.data.vocab import Vocab
 from word2bits_tpu_torch.io.packed import PackedWriter, pack_codes
 from word2bits_tpu_torch.io.vectors import VectorWriter
@@ -53,6 +65,7 @@ from word2bits_tpu_torch.models.cbow_fused import (deinterleave,
                                                    make_fused_train_chunk)
 from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
 from word2bits_tpu_torch.models.init import init_fused_table, init_params
+from word2bits_tpu_torch.models.skipgram import make_skipgram_train_chunk
 from word2bits_tpu_torch.sampling.unigram import (AliasTable,
                                                   build_alias_table,
                                                   build_stratified_tables)
@@ -75,6 +88,7 @@ class TrainResult:
     # per chunk: (steps, words consumed, seconds on the device's clock —
     # CUDA events — or the host's on the CPU)
     chunks: List[Tuple[int, float, float]] = field(default_factory=list)
+    chunk_losses: List[float] = field(default_factory=list)  # per chunk
     # seconds of the set-up phases: init (or load, when resumed), alias,
     # epoch_build, upload, cold_map, checkpoint (the saves), export
     seconds: Dict[str, float] = field(default_factory=dict)
@@ -138,22 +152,24 @@ class Engine:
 
 def init_tables(cfg: Word2BitsConfig, vocab_size: int, device) -> Tables:
     """The engine's tables, filled on `device`: (the fused (V, 2D) table,)
-    with -fused-tables 1, else (u, v)."""
+    with -fused-tables 1 on CBOW, else (u, v)."""
     kw = dict(init=cfg.init, seed=cfg.seed, dtype=getattr(torch, cfg.dtype),
               device=device)
-    if cfg.fused_tables:
+    if cfg.fused_on:
         return (init_fused_table(vocab_size, cfg.size, **kw),)
     return init_params(vocab_size, cfg.size, **kw)
 
 
 def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
                  hyper: CBOWHyper) -> Engine:
-    """The JAX package's train.build_engine for CBOW on one device: the
-    fused-table engine with -fused-tables 1 (shared negatives; the `add`,
+    """The JAX package's train.build_engine on one device: the fused-table
+    engine with -fused-tables 1 on CBOW (shared negatives; the `add`,
     `span`, `grmw` or RMW scatter, the block dedup, the hot/cold split;
-    optional context and score kernels), else the split-table slab engine
-    (per-center or shared negatives; the `add` or `span` scatter or the
-    block dedup; optional context and score kernels)."""
+    optional context and score kernels), skip-gram with -model skipgram
+    (per-center or shared negatives, dense-hot, the block dedup), else the
+    split-table slab engine (per-center or shared negatives; the `add` or
+    `span` scatter or the block dedup; optional context and score
+    kernels)."""
     B, S, V = cfg.batch_size, cfg.steps_per_chunk, vocab.size
     dev = tables[0].device
     strat_lanes = dense_hot = None
@@ -169,7 +185,7 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
         alias = st.cold.to(dev)
     else:
         alias = build_alias_table(vocab.unigram_weights()).to(dev)
-    if cfg.fused_tables:
+    if cfg.fused_on:
         chunk_fn = make_fused_train_chunk(
             hyper, V, B, S, neg_sharing=cfg.neg_sharing,
             neg_pool=cfg.neg_pool, banded=cfg.banded_tile,
@@ -179,6 +195,11 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
             dedup_block=cfg.dedup_block, hot_rows=cfg.hot_rows,
             strat_lanes=strat_lanes, dense_hot=dense_hot,
             hot_pallas=cfg.hot_pallas, rmw_scatter=cfg.rmw_scatter)
+    elif cfg.model == "skipgram":
+        chunk_fn = make_skipgram_train_chunk(
+            hyper, V, B, S, neg_sharing=cfg.neg_sharing,
+            dedup_block=cfg.dedup_block, neg_pool=cfg.neg_pool,
+            hot_rows=cfg.hot_rows, dense_hot=dense_hot)
     else:
         chunk_fn = make_slab_train_chunk(
             hyper, V, B, S, neg_sharing=cfg.neg_sharing,
@@ -187,7 +208,7 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
             scatter_impl=cfg.scatter_impl,
             context_pallas=cfg.context_pallas)
     return Engine(chunk_fn=chunk_fn, tables=tuple(tables), alias=alias,
-                  cold_split=bool(cfg.fused_tables and cfg.hot_rows
+                  cold_split=bool(cfg.fused_on and cfg.hot_rows
                                   and not cfg.device_epoch_on))
 
 
@@ -235,12 +256,97 @@ class _ChunkClock:
         return [(n, w, b - a) for n, w, a, b in self.marks]
 
 
+_EPOCH_STREAM = 0x65706F63   # keeps the epoch draws apart from resume_seed's
+
+
+def epoch_seed(seed: int, epoch: int, segment: Optional[int] = None) -> int:
+    """The seed of the device epoch's generator: (seed, epoch) for a corpus
+    of one segment, (seed, epoch, segment) for several."""
+    # segment + 1: numpy's SeedSequence treats a trailing 0 as absent
+    key = [_EPOCH_STREAM, seed, epoch] + ([] if segment is None
+                                          else [segment + 1])
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
+
+
+class DeviceCorpus:
+    """The encoded corpus on the training device as [nseg, seg_len] int32
+    (the tail segment padded with `</s>`, which is never subsampled and
+    keeps no token), with the float32 keep probabilities and the builder
+    of each epoch's arrays (data/device_pipeline.py)."""
+
+    def __init__(self, cfg: Word2BitsConfig, vocab: Vocab,
+                 encoded: np.ndarray, seg_tokens: int, capacity: int, dev):
+        self.seg_len = int(max(min(len(encoded), seg_tokens), 1))
+        self.nseg = max(1, -(-len(encoded) // self.seg_len))
+        self.pad = self.nseg * self.seg_len - len(encoded)
+        enc = np.asarray(encoded, np.int32)
+        if self.pad:
+            enc = np.concatenate([enc, np.zeros(self.pad, np.int32)])
+        self.encoded = torch.from_numpy(enc.reshape(self.nseg, self.seg_len)
+                                        ).to(dev)
+        self.keep_probs = torch.from_numpy(subsample_keep_probs(
+            vocab.counts, cfg.sample, vocab.train_words).astype(np.float32)
+        ).to(dev)
+        self.build = make_device_epoch_builder(capacity, cfg.window)
+        self.seed, self.dev = cfg.seed, dev
+
+    def segments(self, epoch: int):
+        """Yield (tokens int64, sents int64, n_tokens, source_len): one
+        scalar fetched per segment."""
+        gen = torch.Generator(device=self.dev)
+        for si in range(self.nseg):
+            gen.manual_seed(epoch_seed(self.seed, epoch,
+                                       None if self.nseg == 1 else si))
+            t, s, n = self.build(self.encoded[si], self.keep_probs, gen)
+            src = self.seg_len - (self.pad if si == self.nseg - 1 else 0)
+            yield t.long(), s.long(), int(n), src
+
+
+class _Profile:
+    """-profile-dir: a torch.profiler trace (CPU and, on the card, CUDA
+    activities) of exactly the first chunk, written as a Chrome trace into
+    the directory; a warning where the profiler is unavailable."""
+
+    def __init__(self, cfg: Word2BitsConfig, dev: torch.device):
+        self.cfg, self.prof = cfg, None
+        if not cfg.profile_dir:
+            return
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+        except Exception as e:
+            self.prof = None
+            _log(cfg, f"WARNING: profiler unavailable ({e})")
+
+    def stop(self, dev: torch.device) -> None:
+        if self.prof is None:
+            return
+        _sync(dev)
+        prof, self.prof = self.prof, None
+        try:
+            prof.__exit__(None, None, None)
+            os.makedirs(self.cfg.profile_dir, exist_ok=True)
+            path = os.path.join(self.cfg.profile_dir,
+                                f"trace_{os.getpid()}.json")
+            prof.export_chrome_trace(path)
+            _log(self.cfg, f"Wrote profiler trace to {path}")
+        except Exception as e:
+            _log(self.cfg, f"WARNING: profiler unavailable ({e})")
+
+
 def train(cfg: Word2BitsConfig,
           vocab: Optional[Vocab] = None,
           encoded: Optional[np.ndarray] = None,
           max_steps: Optional[int] = None,
-          device=None) -> TrainResult:
-    """Full training run on `device` (default cuda)."""
+          device=None,
+          on_epoch_end: Optional[Callable] = None) -> TrainResult:
+    """Full training run on `device` (default cuda).  on_epoch_end(epoch,
+    u, v, epoch_loss) is called after each epoch with the tables as host
+    numpy arrays, trimmed as the export is (float32 for bf16 tables)."""
     dev = resolve_device(device)
     # float32 products stay float32: no TF32 on the port's path
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -296,44 +402,67 @@ def train(cfg: Word2BitsConfig,
     denom = float(cfg.iter) * train_words + 1.0
     seg_tokens, capacity = segment_capacity(cfg, len(encoded))
     total_len = max(len(encoded), 1)
+    device_corpus = None
+    if cfg.device_epoch_on:
+        t0 = time.perf_counter()
+        device_corpus = DeviceCorpus(cfg, vocab, encoded, seg_tokens,
+                                     capacity, dev)
+        _sync(dev)
+        seconds["upload"] += time.perf_counter() - t0
+    _log(cfg, "Epochs built on the "
+              f"{'device' if device_corpus else 'host'}")
 
-    epoch_losses: List[float] = []
-    cold_width = 0     # grows monotonically: a stable map width
-    total_steps = 0
-    words_at_start = words_done  # a resumed run reports its own rate
-    t_train0 = time.perf_counter()
-    t_print = 0.0
-    stop = False
-    for epoch in range(start_epoch, cfg.iter):
-        _log(cfg, f"Starting epoch: {epoch}")
-        epoch_rng = np.random.default_rng([cfg.seed, epoch])
-        loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
-        segments = iter_epoch_segments(encoded, vocab.counts, cfg.sample,
-                                       train_words, W, epoch_rng, seg_tokens,
-                                       capacity=capacity)
-        while True:
-            t0 = time.perf_counter()
-            ea = next(segments, None)
-            seconds["epoch_build"] += time.perf_counter() - t0
-            if ea is None:
-                break
+    def segments(epoch: int):
+        """(tokens, sents, n_tokens, source_len, host tokens or None)."""
+        if device_corpus is not None:
+            for t, s_, n, src in device_corpus.segments(epoch):
+                yield t, s_, n, src, None
+            return
+        for ea in iter_epoch_segments(encoded, vocab.counts, cfg.sample,
+                                      train_words, W,
+                                      np.random.default_rng([cfg.seed,
+                                                             epoch]),
+                                      seg_tokens, capacity=capacity):
             t0 = time.perf_counter()
             tokens = torch.from_numpy(ea.tokens).to(dev, torch.int64)
             sents = torch.from_numpy(ea.sent_ids).to(dev, torch.int64)
             _sync(dev)
             seconds["upload"] += time.perf_counter() - t0
+            yield tokens, sents, ea.n_tokens, ea.source_len, ea.tokens
+
+    epoch_losses: List[float] = []
+    chunk_losses: List[torch.Tensor] = []   # fetched once, after the loop
+    cold_width = 0     # grows monotonically: a stable map width
+    total_steps = 0
+    words_at_start = words_done  # a resumed run reports its own rate
+    profile = _Profile(cfg, dev)
+    t_train0 = time.perf_counter()
+    t_print = 0.0
+    stop = False
+    for epoch in range(start_epoch, cfg.iter):
+        _log(cfg, f"Starting epoch: {epoch}")
+        loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
+        segs = segments(epoch)
+        while True:
+            t0, up0 = time.perf_counter(), seconds["upload"]
+            seg = next(segs, None)   # a host segment's upload is its own
+            seconds["epoch_build"] += (time.perf_counter() - t0
+                                       - (seconds["upload"] - up0))
+            if seg is None:
+                break
+            tokens, sents, seg_n_tokens, source_len, host_tokens = seg
             cold = {}
             if engine.cold_split:
                 t0 = time.perf_counter()
-                cp = cold_map(cfg, ea.tokens, capacity, cold_width)
+                cp = cold_map(cfg, host_tokens, capacity, cold_width)
                 cold_width = cp.shape[1]
                 cold["cold_pos"] = torch.from_numpy(cp).to(dev, torch.int64)
                 seconds["cold_map"] += time.perf_counter() - t0
-            n_centers = max(ea.n_tokens, 1)
+            n_centers = max(seg_n_tokens, 1)
             # this segment accounts for its share of the epoch's words
-            seg_words = train_words * ea.source_len / total_len
+            seg_words = train_words * source_len / total_len
             wca_per_step = B * seg_words / n_centers
-            n_steps = math.ceil(ea.n_tokens / B)
+            n_steps = math.ceil(seg_n_tokens / B)
             for ci in range(max(1, math.ceil(n_steps / S))):
                 # only the steps that hold centers run: a trailing
                 # all-padding step updates nothing
@@ -350,7 +479,9 @@ def train(cfg: Word2BitsConfig,
                            chunk_steps * wca_per_step)
                 words_done += chunk_steps * wca_per_step
                 loss_acc = loss_acc + loss
+                chunk_losses.append(loss)
                 total_steps += max(chunk_steps, 1)
+                profile.stop(dev)    # the trace covers the first chunk
                 if cfg.debug > 1 and time.perf_counter() - t_print > 0.5:
                     t_print = time.perf_counter()
                     a0 = cfg.effective_alpha
@@ -389,13 +520,18 @@ def train(cfg: Word2BitsConfig,
             seconds["checkpoint"] += dt
             _log(cfg, f"Checkpoint: epoch {epoch} to {ckpt_path} in "
                       f"{dt:.2f} s")
+        if on_epoch_end is not None:
+            u_h, v_h = (_host_half(h) for h in table_halves(tables))
+            on_epoch_end(epoch, u_h, v_h, epoch_loss)
         if stop:
             break
+    profile.stop(dev)
     _sync(dev)
     # the words/sec of this run's own epochs, checkpoint writes excluded
     wall = time.perf_counter() - t_train0 - seconds["checkpoint"]
     wps = (words_done - words_at_start) / max(wall, 1e-9)
-    _log(cfg, f"Epoch arrays: {seconds['epoch_build']:.2f} s, upload "
+    _log(cfg, f"Epoch arrays ({'device' if device_corpus else 'host'}): "
+              f"{seconds['epoch_build']:.2f} s, upload "
               f"{seconds['upload']:.2f} s, cold maps "
               f"{seconds['cold_map']:.2f} s")
     _log(cfg, f"Trained {total_steps} steps in {wall:.6f} s: "
@@ -417,8 +553,18 @@ def train(cfg: Word2BitsConfig,
     return TrainResult(vocab=vocab, tables=tuple(tables),
                        epoch_losses=epoch_losses,
                        words_per_sec=wps, steps=total_steps,
-                       chunks=clock.chunks(), seconds=seconds,
+                       chunks=clock.chunks(),
+                       chunk_losses=(torch.stack(chunk_losses).tolist()
+                                     if chunk_losses else []),
+                       seconds=seconds,
                        start_epoch=start_epoch, words_done=words_done)
+
+
+def _host_half(half: torch.Tensor) -> np.ndarray:
+    """A (V, D) table half as a host numpy array (float32 for bf16)."""
+    if half.dtype == torch.bfloat16:
+        half = half.to(torch.float32)
+    return half.contiguous().cpu().numpy()
 
 
 def table_halves(tables: Tables) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -588,7 +734,7 @@ def load_checkpoint(path: str, cfg: Word2BitsConfig,
             (V, D), _ = _read_member_header(f)
         if D != cfg.size:
             raise ValueError(f"{path} holds size {D}, the config {cfg.size}")
-        if cfg.fused_tables:
+        if cfg.fused_on:
             table = torch.empty((V, 2 * D), dtype=dtype, device=device)
             tables: Tables = (table,)
         else:

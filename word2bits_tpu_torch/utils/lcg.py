@@ -15,9 +15,12 @@ add wrap mod 2^64 in two's complement, which gives the uint64 bits.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
+
+from word2bits_tpu_torch import native
 
 LCG_A = np.uint64(25214903917)
 LCG_C = np.uint64(11)
@@ -69,13 +72,23 @@ _LANE_BITS = 16
 _LANES = 1 << _LANE_BITS
 
 
-def lcg_uniform_block(start_draw: int, n: int, seed: int = 1) -> np.ndarray:
+def lcg_uniform_block(start_draw: int, n: int, seed: int = 1,
+                      use_native: Optional[bool] = None) -> np.ndarray:
     """Values of draws [start_draw, start_draw+n) of the reference init
     stream: draw i is ((state_{i+1} & 0xFFFF) / 65536) - 0.5 in float32
-    (reference src/word2bits.cpp:350-360).  Lane-strided: one skip-ahead
-    for 65536 lane heads, then each row advances by f^65536."""
+    (reference src/word2bits.cpp:350-360).  The native library's threaded
+    fill (`use_native` as in data/corpus.count_words), else lane-strided
+    numpy: one skip-ahead for 65536 lane heads, then each row advances by
+    f^65536."""
     if n <= 0:
         return np.empty(0, dtype=np.float32)
+    lib = native.native_for(use_native)
+    if lib is not None:
+        out = lib.lcg_fill(int(start_draw), int(n), int(seed))
+        if out is not None:
+            return out
+    if use_native:
+        raise RuntimeError("native LCG fill requested but not available")
     heads = lcg_states_at(
         np.arange(start_draw + 1, start_draw + 1 + _LANES, dtype=np.uint64),
         seed=seed)
