@@ -63,6 +63,21 @@ kernels' launch counts set to 0 just before and read just after:
   [rmw]         the capacity configuration with `-rmw-scatter 1
                 -steps-per-chunk 1` (docs/large_vocab.md:34), 16 steps,
                 kernel 8 twice a step, peak device memory against the table;
+  [mesh]        the (data, vocab) mesh trainer (parallel/): (a) the
+                shipped flags on split tables (no context kernel, which is
+                single-chip) through `cli train -mesh-shape
+                data=1,vocab=1`, a one-rank NCCL group, one epoch of
+                [train]'s corpus, kernel 2 twice a step on the shard's
+                local ids; (b) after [quickstart], LocalMesh 2 x 2 and
+                1 x 4 (every shard in this process) at those widths, a
+                256-step bf16 chunk held by its loss to the single-device
+                chunk on the same draws and every step of it held from the
+                single device's state in float32 and bf16, kernel 2's time
+                on one shard beside the single card's; (c) after [rmw],
+                the capacity form with -mesh-shape vocab=1, 16 steps,
+                kernel 8 twice a step, peak device memory against the
+                table; (d) LocalMesh vocab=4 at the capacity width against
+                (c)'s chunk over 8 steps, kernel 8's time on one shard;
   [native]      the C++ tokenizer built with g++ (use_native=True: a failed
                 build fails the run), [train]'s corpus counted and encoded
                 and the flagship's alias table built both ways, equal;
@@ -321,6 +336,22 @@ def _step_ids(rng, V: int, n_slab: int, n_neg: int,
                           rng.choice(V, n_neg, p=p_neg / p_neg.sum())])
     ids[rng.choice(ids.size, n_sentinel, replace=False)] = SENTINEL
     return ids.astype(np.int64)
+
+
+class _Tee(io.TextIOBase):
+    """A stream writing to several: the phase's log shown and kept."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
 
 
 # ---------------------------------------------------------------- kernel 1
@@ -1909,19 +1940,6 @@ def train_main_path(work: str):
     print(f"[train] corpus of {CORPUS_TOKENS} tokens written in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    class _Tee(io.TextIOBase):
-        def __init__(self, *streams):
-            self.streams = streams
-
-        def write(self, s):
-            for st in self.streams:
-                st.write(s)
-            return len(s)
-
-        def flush(self):
-            for st in self.streams:
-                st.flush()
-
     captured = io.StringIO()
     _zero_launches()
     with contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
@@ -3082,6 +3100,492 @@ def run_parity(dev) -> dict:
     return by_path
 
 
+# ------------------------------------------------ [mesh]: parallel/
+def _drop_flags(flags: list, names: tuple) -> list:
+    """`flags` (flag, value pairs) without the pairs of `names`."""
+    return [f for i in range(0, len(flags), 2)
+            if flags[i] not in names for f in flags[i:i + 2]]
+
+
+# The slice's path: the shipped flags on the (data, vocab) mesh trainer, on
+# split tables (the JAX trainer ignores -fused-tables on a mesh) without
+# the context kernel (-context-pallas is single-chip): kernel 2 once per
+# table per step on each shard's local ids.  (a) runs it through `cli
+# train` as a mesh of one shard, on a one-rank NCCL group.
+MESH_FLAGS = (_drop_flags(TRAIN_FLAGS, ("-fused-tables", "-context-pallas"))
+              + ["-mesh-shape", "data=1,vocab=1"])
+# (b): meshes larger than the card, every shard in this process
+MESH_LOCAL = ((2, 2), (1, 4))
+# (c): the capacity form, docs/large_vocab.md:34 on the mesh: kernel 8
+# twice a step on the shard (no -context-pallas, as above)
+MESH_RMW_FLAGS = (_drop_flags(RMW_FLAGS, ("-context-pallas",))
+                  + ["-mesh-shape", "vocab=1", "-debug", "1"])
+MESH_RMW_STEPS = 16
+MESH_CAP_NV, MESH_CAP_STEPS = 4, 8      # (d): vocab = 4 at capacity
+# (d)'s hold, (|d|_F / |ref|_F of each table, loss relative): the same
+# update rows, an id's bf16-rounded sum flipping by an ulp here and there
+MESH_CAP_TOL = (1e-3, 1e-4)
+
+
+@contextlib.contextmanager
+def _kept_results():
+    """train.train wrapped to keep its TrainResult (cli.train_main, which
+    calls it, returns only an exit code)."""
+    from word2bits_tpu_torch import train as T
+    orig, kept = T.train, []
+
+    def keep(*args, **kw):
+        kept.append(orig(*args, **kw))
+        return kept[-1]
+
+    T.train = keep
+    try:
+        yield kept
+    finally:
+        T.train = orig
+
+
+def _mesh_backend(log: str, nd: int, nv: int) -> str:
+    m = re.search(rf"Mesh: data={nd} x vocab={nv}, rank 0 of {nd * nv}, "
+                  r"backend (\w+)", log)
+    if not m:
+        _fail("the mesh run printed no Mesh: line")
+    if torch.distributed.is_initialized():
+        _fail("the mesh run left its process group alive")
+    return m.group(1)
+
+
+def run_mesh_train(work: str, corpus: str) -> tuple:
+    """(a) `cli train` at MESH_FLAGS for one epoch of [train]'s corpus, a
+    mesh of one shard on a one-rank NCCL group: kernel 2 twice a step,
+    the vectors read back; words/sec and us/step on the card's clock."""
+    from word2bits_tpu_torch import cli
+    from word2bits_tpu_torch.io.vectors import read_vectors
+    out = os.path.join(work, "mesh.bin")
+    captured = io.StringIO()
+    _zero_launches()
+    with _kept_results() as kept, \
+            contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+        rc = cli.train_main(["-train", corpus, "-output", out] + MESH_FLAGS)
+    launches = _read_launches()
+    if rc != 0 or len(kept) != 1:
+        _fail(f"mesh cli train returned {rc}")
+    backend = _mesh_backend(captured.getvalue(), 1, 1)
+    if backend != "nccl":
+        _fail(f"the mesh ran on {backend}, not nccl")
+    res = kept[0]
+    if launches["scatter_add_span"] != 2 * res.steps or res.steps < S:
+        _fail(f"mesh: kernel 2 launched {launches['scatter_add_span']} "
+              f"times in {res.steps} steps (twice a step expected)")
+    if not all(math.isfinite(x) for x in res.epoch_losses):
+        _fail(f"mesh epoch loss not finite: {res.epoch_losses}")
+    words, vecs = read_vectors(out)
+    V = res.vocab.size
+    third = np.float32(1.0) / np.float32(3.0)
+    if (vecs.shape != (V, D) or words != res.vocab.words
+            or not np.all(np.abs(vecs) == third)):
+        _fail(f"mesh vectors file holds {vecs.shape}, not ({V}, {D}) "
+              "rows of +-1/3")
+    us, wps = _steady(res)
+    print(f"[mesh] (a) cli train -mesh-shape data=1,vocab=1 on {backend}: "
+          f"{res.steps} steps of B={B}, V={V}, loss "
+          f"{res.epoch_losses[-1]:.4f}; card clock {us:.1f} us/step, "
+          f"{wps:.1f} words/sec (chunks after the first); whole loop "
+          f"{res.words_per_sec:.1f} words/sec; launches {launches}; vectors "
+          f"file {V} x {D} of +-1/3")
+    return launches, dict(us_per_step=us, words_per_sec=wps,
+                          steps=res.steps)
+
+
+def _epoch(vocab, encoded, dev, B_: int, S_: int, W_: int):
+    """One host-built epoch of `encoded` ((tokens, sents) int64 on dev)
+    covering S_ steps of B_ centers."""
+    from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
+    cap = ((len(encoded) + S_ * B_ + 8 + 1023) // 1024) * 1024
+    ep = build_epoch_arrays(encoded, vocab.counts, 1e-3, vocab.train_words,
+                            W_, np.random.default_rng(SEED), capacity=cap)
+    if ep.n_tokens < S_ * B_:
+        _fail(f"epoch of {ep.n_tokens} centers, fewer than {S_} steps")
+    return (torch.from_numpy(ep.tokens).to(dev, torch.int64),
+            torch.from_numpy(ep.sent_ids).to(dev, torch.int64))
+
+
+def _errs(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(max |a - b|, |a - b|_F / |b|_F), in row blocks."""
+    mx, num, den = 0.0, 0.0, 0.0
+    for r0 in range(0, a.shape[0], 1 << 18):
+        x, y = a[r0:r0 + (1 << 18)].float(), b[r0:r0 + (1 << 18)].float()
+        d = x - y
+        mx = max(mx, float(d.abs().max()))
+        num += float((d * d).sum())
+        den += float((y * y).sum())
+    return mx, math.sqrt(num / max(den, 1e-30))
+
+
+def _shard_rows(t: torch.Tensor, nv: int, vi: int) -> torch.Tensor:
+    """Vocab shard vi's rows of table t (padded to a multiple of nv), a
+    copy on t's device."""
+    Vs = -(-t.shape[0] // nv)
+    out = torch.zeros((Vs, t.shape[1]), dtype=t.dtype, device=t.device)
+    rows = t[vi * Vs:(vi + 1) * Vs]
+    out[:rows.shape[0]] = rows
+    return out
+
+
+def _local_mesh_chunk(dev, nd: int, nv: int, u0, v0, steps: int, kw: dict,
+                      hyper, V: int, B_: int, inputs, chunk_steps: int):
+    """The sharded chunk on a LocalMesh of nd x nv shards on the card, from
+    (u0, v0), `steps` steps in chunks of chunk_steps with the injected
+    draws: whole (u, v) (each vocab shard's rows), the loss sum, the
+    launches of the run and its ms on the card's clock."""
+    from word2bits_tpu_torch.parallel.chunk import make_sharded_chunk
+    from word2bits_tpu_torch.parallel.mesh import LocalMesh
+    from word2bits_tpu_torch.parallel.sharded_slab import _sharded_slab_body
+    tokens, sents, atab, scalars, shrinks, negs = inputs
+    Vp = -(-V // nv) * nv
+    chunk = make_sharded_chunk(_sharded_slab_body, hyper, LocalMesh(nd, nv),
+                               Vp, V, B_, chunk_steps, **kw)
+    shards = [(_shard_rows(u0, nv, r % nv), _shard_rows(v0, nv, r % nv))
+              for r in range(nd * nv)]
+
+    def shard(comm):
+        ul, vl = shards[comm.rank]
+        loss = torch.zeros((), device=dev)
+        for c in range(0, steps, chunk_steps):
+            sc = scalars._replace(base0=scalars.base0 + c * B_,
+                                  wca_start=scalars.wca_start
+                                  + c * scalars.wca_per_step)
+            ul, vl, part = chunk(comm, ul, vl, tokens, sents, atab, sc,
+                                 shrinks=shrinks[c:c + chunk_steps],
+                                 negs=negs[c:c + chunk_steps])
+            loss = loss + part
+        return ul, vl, loss
+
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    _zero_launches()
+    start.record()
+    res = LocalMesh(nd, nv, dev).run(shard)
+    stop.record()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    ms = start.elapsed_time(stop)
+    u = torch.cat([res[vi][0] for vi in range(nv)])[:V]
+    v = torch.cat([res[vi][1] for vi in range(nv)])[:V]
+    return u, v, float(res[0][2]), launches, ms
+
+
+# (b)'s holds against the single-device chunk.  Bitlevel-1 training is
+# chaotic in the signs of the table entries: two runs whose sums differ in
+# their last bits (the single device's own `add` and `span` scatters, or
+# a mesh's per-shard partial sums) follow each other until an entry near
+# zero takes another sign, after which the tables part by 10-50% of their
+# norms within ~50 steps (PERF.md section 6; tools/mesh_divergence.py).
+# So every step of the chunk is held from the single device's state (the
+# shards refilled from it before the step): float32 to 1e-5 of the table
+# scale, bf16 to 2^-8 of the tables' norm (the per-shard rounding of
+# partial update rows, about a bf16 ulp); the loss to 1e-5 and 1e-4.  The
+# 256-step bf16 chunk (the path, its launches counted) is held by its
+# loss, to 1%.
+RESYNC_TOL = {torch.float32: (1e-5, None, 1e-5),
+              torch.bfloat16: (None, 2.0 ** -8, 1e-4)}
+CHUNK_LOSS_TOL = 1e-2
+
+
+def _resync_hold(dev, nd: int, nv: int, dtype, hyper, V: int, inputs,
+                 kw: dict) -> tuple:
+    """Every step of the chunk through the LocalMesh from the single
+    device's state: (worst max |d| over the table scale, worst |d|_F /
+    |ref|_F, worst loss relative difference) over the steps."""
+    from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
+    from word2bits_tpu_torch.models.init import init_params
+    from word2bits_tpu_torch.parallel.chunk import make_sharded_chunk
+    from word2bits_tpu_torch.parallel.mesh import LocalMesh
+    from word2bits_tpu_torch.parallel.sharded_slab import _sharded_slab_body
+    tokens, sents, atab, scalars, shrinks, negs = inputs
+    n = shrinks.shape[0]
+    Vs = -(-V // nv)
+    single = make_slab_train_chunk(hyper, V, B, 1, **kw)
+    lm = LocalMesh(nd, nv, dev)
+    chunk = make_sharded_chunk(_sharded_slab_body, hyper, lm, Vs * nv, V, B,
+                               1, **kw)
+    ru, rv = init_params(V, D, dtype=dtype, device=dev)
+    shards = [(torch.empty((Vs, D), dtype=dtype, device=dev),
+               torch.empty((Vs, D), dtype=dtype, device=dev))
+              for _ in range(nd * nv)]
+    worst = [0.0, 0.0, 0.0]
+    for s in range(n):
+        sc = scalars._replace(base0=W + s * B,
+                              wca_start=s * scalars.wca_per_step)
+        for r, (su, sv) in enumerate(shards):
+            vi = r % nv
+            su.copy_(_shard_rows(ru, nv, vi))
+            sv.copy_(_shard_rows(rv, nv, vi))
+
+        def step(comm):
+            su, sv = shards[comm.rank]
+            return chunk(comm, su, sv, tokens, sents, atab, sc,
+                         shrinks=shrinks[s:s + 1], negs=negs[s:s + 1])[2]
+
+        m_loss = float(lm.run(step)[0])
+        ru, rv, r_loss = single(ru, rv, tokens, sents, atab, sc,
+                                shrinks=shrinks[s:s + 1],
+                                negs=negs[s:s + 1])
+        scale = max(1.0, float(ru.float().abs().max()),
+                    float(rv.float().abs().max()))
+        for i, ref in ((0, ru), (1, rv)):
+            got = torch.cat([shards[vi][i] for vi in range(nv)])[:V]
+            mx, rel = _errs(got, ref)
+            worst[0] = max(worst[0], mx / scale)
+            worst[1] = max(worst[1], rel)
+        worst[2] = max(worst[2], abs(m_loss - float(r_loss))
+                       / abs(float(r_loss)))
+    return tuple(worst)
+
+
+def check_local_mesh(dev, vocab, encoded) -> dict:
+    """(b) LocalMesh 2 x 2 and 1 x 4 on the card at the path's widths
+    (MESH_FLAGS: B = 8192, D = 200, 2 pools, banded 256, span), every
+    shard's kernel 2 on its local ids: one 256-step bf16 chunk (the path:
+    its launches and time), its loss held to the single-device chunk's on
+    the same draws; every step of it held from the single device's state
+    in float32 and bf16 (RESYNC_TOL); kernel 2's time on one shard's
+    step-0 lists beside the single card's."""
+    from word2bits_tpu_torch.kernels.span_scatter import (
+        scatter_add_span_planned, span_plan)
+    from word2bits_tpu_torch.models.cbow import (CBOWHyper, ChunkScalars,
+                                                 chunk_slabs)
+    from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
+    from word2bits_tpu_torch.models.init import init_params
+    from word2bits_tpu_torch.parallel.chunk import gathered_update_ids
+    from word2bits_tpu_torch.parallel.sharded_slab import to_local
+    from word2bits_tpu_torch.sampling.unigram import (build_alias_table,
+                                                      draw_negatives)
+    V = vocab.size
+    tokens, sents = _epoch(vocab, encoded, dev, B, S, W)
+    atab = build_alias_table(vocab.unigram_weights()).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shrinks = torch.randint(0, W, (S, B), generator=gen, device=dev)
+    negs = draw_negatives(gen, atab, (S, B // G, P * K), V)
+    scalars = ChunkScalars(base0=W, alpha0=0.1, wca_start=0.0,
+                           wca_per_step=float(B),
+                           denom=float(vocab.train_words) + 1.0)
+    hyper = CBOWHyper(bitlevel=1, size=D, window=W, negative=K)
+    kw = dict(neg_sharing=G, neg_pool=P, banded=TILE, scatter_impl="span")
+    inputs = (tokens, sents, atab, scalars, shrinks, negs)
+    out = {"launches": {}}
+    u, v = init_params(V, D, dtype=torch.bfloat16, device=dev)
+    chunk = make_slab_train_chunk(hyper, V, B, S, **kw)
+    ru, rv, rloss = chunk(u, v, tokens, sents, atab, scalars,
+                          shrinks=shrinks, negs=negs)
+    rloss = float(rloss)
+    for nd, nv in MESH_LOCAL:
+        tag = f"{nd}x{nv}"
+        u0, v0 = init_params(V, D, dtype=torch.bfloat16, device=dev)
+        mu, mv, loss, launches, ms = _local_mesh_chunk(
+            dev, nd, nv, u0, v0, S, kw, hyper, V, B, inputs, S)
+        del u0, v0
+        eu, ev = _errs(mu, ru), _errs(mv, rv)
+        el = abs(loss - rloss) / abs(rloss)
+        del mu, mv
+        if launches["scatter_add_span"] != 2 * S * nd * nv:
+            _fail(f"mesh {tag}: kernel 2 launched "
+                  f"{launches['scatter_add_span']} times, not "
+                  f"{2 * S * nd * nv} (twice a step on each shard)")
+        print(f"[mesh] (b) LocalMesh {tag}: {S} bf16 steps of B={B} in "
+              f"{ms:.1f} ms on the card ({ms / S * 1e3:.1f} us/step, all "
+              f"{nd * nv} shards), loss {loss:.4f}, {el:.6g} from the single "
+              f"device's (tolerance {CHUNK_LOSS_TOL}); tables after the "
+              f"chunk (chaotic, not held): u max {eu[0]:.6g} rel {eu[1]:.6g},"
+              f" v max {ev[0]:.6g} rel {ev[1]:.6g}; launches {launches}")
+        if not el <= CHUNK_LOSS_TOL:
+            _fail(f"mesh {tag}: chunk loss {el} from the single device's")
+        out["launches"][tag] = launches
+        out[tag] = dict(us_per_step=ms / S * 1e3, chunk_err=(eu, ev, el))
+        for dtype, (t_max, t_rel, t_loss) in RESYNC_TOL.items():
+            worst = _resync_hold(dev, nd, nv, dtype, hyper, V, inputs, kw)
+            dname = str(dtype).split(".")[-1]
+            print(f"[mesh] (b) LocalMesh {tag}, every step from the single "
+                  f"device's state, {dname}: worst max/scale {worst[0]:.6g},"
+                  f" rel {worst[1]:.6g}, loss rel {worst[2]:.6g}; tolerance "
+                  f"({t_max}, {t_rel}, {t_loss})")
+            if ((t_max is not None and worst[0] > t_max)
+                    or (t_rel is not None and worst[1] > t_rel)
+                    or worst[2] > t_loss):
+                _fail(f"mesh {tag} {dname}: a step outside its tolerance")
+            out[tag][f"resync_{dname}"] = worst
+    del ru, rv
+    # kernel 2 on the step-0 lists of vocab shards 0 (the Zipf head) and
+    # nv - 1 against the single card's
+    slab = chunk_slabs(tokens, sents, W, 1, B, W)[0].clamp_min(0)
+    single_ids = gathered_update_ids(slab, negs[:1], 1, W, G)
+    for nd, nv in MESH_LOCAL:
+        tag, Vs = f"{nd}x{nv}", -(-V // nv)
+        times = {}
+        for name, ids_m, ids_1 in zip(
+                ("u", "v"), gathered_update_ids(slab, negs[:1], nd, W, G),
+                single_ids):
+            plan_1 = span_plan(ids_1[0], V)
+            tab_1 = torch.zeros((V, D), dtype=torch.bfloat16, device=dev)
+            rows_1 = torch.randn((ids_1.shape[1], D), device=dev) * 1e-3
+            t = times[name] = dict(single_ms=_time_ms(
+                lambda: scatter_add_span_planned(tab_1, plan_1, rows_1)),
+                single_slots=int(ids_1.shape[1]))
+            for vi in (0, nv - 1):
+                loc = to_local(ids_m[0], vi, Vs)
+                plan_s = span_plan(loc, Vs)
+                tab_s = torch.zeros((Vs, D), dtype=torch.bfloat16,
+                                    device=dev)
+                rows_s = torch.randn((loc.shape[0], D), device=dev) * 1e-3
+                t[f"shard{vi}_ms"] = _time_ms(
+                    lambda: scatter_add_span_planned(tab_s, plan_s, rows_s))
+                t[f"shard{vi}_sentinels"] = int((loc >= Vs).sum())
+                t["slots"] = int(loc.shape[0])
+            print(f"[mesh] (b) {tag} kernel 2, {name} table, step 0: vocab "
+                  f"shard 0 {t['shard0_ms']:.5f} ms ({t['slots']} slots, "
+                  f"{t['shard0_sentinels']} sentinels), shard {nv - 1} "
+                  f"{t[f'shard{nv - 1}_ms']:.5f} ms "
+                  f"({t[f'shard{nv - 1}_sentinels']} sentinels); the single "
+                  f"card {t['single_ms']:.5f} ms ({t['single_slots']} slots)")
+        out[tag]["kernel2"] = times
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_mesh_capacity(dev, vocab, encoded) -> tuple:
+    """(c) MESH_RMW_FLAGS through train.train for MESH_RMW_STEPS steps, a
+    mesh of one shard on a one-rank NCCL group: kernel 8 twice a step,
+    peak device memory <= 1.25 x the table.  (d) LocalMesh vocab = 4 at the
+    capacity width for MESH_CAP_STEPS one-step chunks, held to (c)'s mesh
+    chunk (the one-rank NCCL group, vocab = 1) over the same steps and
+    draws (MESH_CAP_TOL); kernel 8's time on one shard's step-0 lists
+    beside the single card's."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.config import config_from_argv
+    from word2bits_tpu_torch.kernels.scatter_pallas import scatter_add_rmw
+    from word2bits_tpu_torch.models.cbow import (CBOWHyper, ChunkScalars,
+                                                 chunk_slabs)
+    from word2bits_tpu_torch.models.init import init_params
+    from word2bits_tpu_torch.parallel.chunk import make_sharded_chunk
+    from word2bits_tpu_torch.parallel.sharded_slab import (_sharded_slab_body,
+                                                           to_local)
+    from word2bits_tpu_torch.parallel.trainer import mesh_session
+    from word2bits_tpu_torch.sampling.unigram import (build_alias_table,
+                                                      draw_negatives)
+    cfg = config_from_argv(MESH_RMW_FLAGS)
+    V, Dd, Bc = vocab.size, FLAG_D, FLAG_B
+    table_bytes = V * 2 * Dd * 2
+    captured = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+        res = T.train(cfg, vocab=vocab, encoded=encoded,
+                      max_steps=MESH_RMW_STEPS, device=dev)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    backend = _mesh_backend(captured.getvalue(), 1, 1)
+    if backend != "nccl" or res.steps != MESH_RMW_STEPS:
+        _fail(f"mesh rmw ran {res.steps} steps on {backend}")
+    if launches["scatter_add_rmw"] != 2 * res.steps:
+        _fail(f"mesh rmw: launches {launches} in {res.steps} steps (kernel "
+              "8 twice a step expected)")
+    if not all(math.isfinite(x) for x in res.epoch_losses):
+        _fail(f"mesh rmw epoch loss not finite: {res.epoch_losses}")
+    if peak > 1.25 * table_bytes:
+        _fail(f"mesh rmw peak device memory {peak} > 1.25 x the table's "
+              f"{table_bytes} bytes")
+    us, wps = _steady(res)
+    print(f"[mesh] (c) capacity on the mesh ({backend}, vocab=1): V={V}, "
+          f"{res.steps} steps of B={Bc}, loss {res.epoch_losses[-1]:.4f}; "
+          f"steady {us:.1f} us/step, {wps:.1f} words/sec (card clock); "
+          f"peak device memory {peak} bytes = {peak / table_bytes:.4f} x "
+          f"the table; launches {launches}")
+    del res
+    torch.cuda.empty_cache()
+
+    # (d): the same draws through the one-rank NCCL chunk (R) and
+    # LocalMesh vocab = MESH_CAP_NV (M).  A pure vocab split gives every
+    # shard the same update rows as R; kernel 8 sums an id's rows in
+    # float32 cut at other tile edges and rounds the sum once, so M and R
+    # differ where a sum's bf16 rounding flips: held to MESH_CAP_TOL
+    n = MESH_CAP_STEPS
+    tokens, sents = _epoch(vocab, encoded[:4_000_000], dev, Bc, n, W)
+    atab = build_alias_table(vocab.unigram_weights()).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    Gc = cfg.neg_sharing
+    shrinks = torch.randint(0, W, (n, Bc), generator=gen, device=dev)
+    negs = draw_negatives(gen, atab, (n, Bc // Gc, K), V)
+    scalars = ChunkScalars(base0=W, alpha0=cfg.effective_alpha,
+                           wca_start=0.0, wca_per_step=float(Bc),
+                           denom=float(vocab.train_words) + 1.0)
+    hyper = CBOWHyper(bitlevel=1, size=Dd, window=W, negative=K)
+    inputs = (tokens, sents, atab, scalars, shrinks, negs)
+    u0, v0 = init_params(V, Dd, dtype=torch.bfloat16, device=dev)
+    ru, rv = u0.clone(), v0.clone()
+    r_loss = 0.0
+    with mesh_session(cfg, dev.type) as comm:
+        chunk = make_sharded_chunk(_sharded_slab_body, hyper, comm, V, V, Bc,
+                                   1, neg_sharing=Gc, rmw=True)
+        for s in range(n):
+            sc = scalars._replace(base0=W + s * Bc,
+                                  wca_start=s * scalars.wca_per_step)
+            ru, rv, part = chunk(comm, ru, rv, tokens, sents, atab, sc,
+                                 shrinks=shrinks[s:s + 1],
+                                 negs=negs[s:s + 1])
+            r_loss += float(part)
+    mu, mv, m_loss, m_launches, ms = _local_mesh_chunk(
+        dev, 1, MESH_CAP_NV, u0, v0, n, dict(neg_sharing=Gc, rmw=True),
+        hyper, V, Bc, inputs, 1)
+    del u0, v0
+    if m_launches["scatter_add_rmw"] != 2 * n * MESH_CAP_NV:
+        _fail(f"mesh vocab={MESH_CAP_NV}: kernel 8 launched "
+              f"{m_launches['scatter_add_rmw']} times, not "
+              f"{2 * n * MESH_CAP_NV}")
+    em = (_errs(mu, ru), _errs(mv, rv), abs(m_loss - r_loss) / abs(r_loss))
+    del mu, mv
+    torch.cuda.empty_cache()
+    print(f"[mesh] (d) LocalMesh vocab={MESH_CAP_NV} at V={V}, D={Dd}: {n} "
+          f"steps of B={Bc} in {ms:.1f} ms ({ms / n * 1e3:.1f} us/step, all "
+          f"shards); against the vocab=1 chunk: u max {em[0][0]:.6g} rel "
+          f"{em[0][1]:.6g}, v max {em[1][0]:.6g} rel {em[1][1]:.6g}, loss "
+          f"rel {em[2]:.6g}; tolerance (rel, loss) {MESH_CAP_TOL}; launches "
+          f"{m_launches}")
+    if (max(em[0][1], em[1][1]) > MESH_CAP_TOL[0]
+            or em[2] > MESH_CAP_TOL[1]):
+        _fail(f"mesh vocab={MESH_CAP_NV} at capacity: outside its tolerance")
+    # kernel 8 on the step-0 lists of vocab shards 0 (the Zipf head) and
+    # nv - 1 against the single card's
+    slab = chunk_slabs(tokens, sents, W, 1, Bc, W)[0][0].clamp_min(0)
+    Vs = -(-V // MESH_CAP_NV)
+    times = {}
+    for name, ids, tab in (("u", slab, ru),
+                           ("v", torch.cat([slab[W:W + Bc],
+                                            negs[0].reshape(-1)]), rv)):
+        rows = torch.randn((ids.shape[0], Dd), device=dev) * 1e-3
+        t = times[name] = dict(
+            single_ms=_time_ms(lambda: scatter_add_rmw(tab, ids, rows)),
+            slots=int(ids.shape[0]))
+        for vi in (0, MESH_CAP_NV - 1):
+            loc = to_local(ids, vi, Vs)
+            shard = tab[vi * Vs:(vi + 1) * Vs]
+            t[f"shard{vi}_ms"] = _time_ms(
+                lambda: scatter_add_rmw(shard, loc, rows))
+            t[f"shard{vi}_sentinels"] = int((loc >= Vs).sum())
+        last = MESH_CAP_NV - 1
+        print(f"[mesh] (d) kernel 8, {name} table, step 0 ({t['slots']} "
+              f"slots): vocab shard 0 {t['shard0_ms']:.5f} ms "
+              f"({t['shard0_sentinels']} sentinels), shard {last} "
+              f"{t[f'shard{last}_ms']:.5f} ms ({t[f'shard{last}_sentinels']}"
+              f" sentinels); the single card {t['single_ms']:.5f} ms")
+    del ru, rv
+    torch.cuda.empty_cache()
+    return launches, m_launches, dict(us_per_step=us, words_per_sec=wps,
+                                      peak_over_table=peak / table_bytes,
+                                      local_us_per_step=ms / n * 1e3,
+                                      kernel8=times, err=em)
+
+
 def report_ptxas() -> None:
     """Each kernel's registers, static shared memory and spills as ptxas
     reported them in this run's build; kernels 1, 5 and 9 and every
@@ -3197,6 +3701,7 @@ def main() -> int:
     by_path = {}
     try:
         by_path["train"], vec_path, corpus = train_main_path(work)
+        by_path["mesh"], mesh = run_mesh_train(work, corpus)
         by_path["flagship"], pack, flag_corpus, ckdir = train_flagship(
             work, dev)
         check_accuracy(dev, pack, ACC_THRESHOLD, ACC_QUESTIONS,
@@ -3204,11 +3709,16 @@ def main() -> int:
         by_path["resume"] = run_resume(dev, *flag_corpus, ckdir)
         shutil.rmtree(ckdir)
         by_path["rmw"] = run_rmw(dev, *flag_corpus)
+        (by_path["mesh rmw"], by_path[f"mesh rmw vocab={MESH_CAP_NV}"],
+         mesh["capacity"]) = run_mesh_capacity(dev, *flag_corpus)
         check_native(corpus, flag_corpus[0])
         check_device_epoch(dev, *flag_corpus, FLAG_B, 32, "flagship")
         del flag_corpus
         check_accuracy(dev, vec_path, 0, 2000, "train.bin")
         by_path["quickstart"], prepared = train_quickstart(work, corpus, dev)
+        mesh["local"] = check_local_mesh(dev, *prepared)
+        for tag, launches in mesh["local"].pop("launches").items():
+            by_path[f"mesh {tag}"] = launches
         check_device_epoch(dev, *prepared, B, S, "train")
         by_path["exact"], _ = run_exact(dev, *prepared)
         by_path["sweep"] = run_sweep(dev, *prepared)
@@ -3226,6 +3736,9 @@ def main() -> int:
     ctx["at_d200"] = {k: ctx200[k] for k in at}
     ctx["at_exact"] = {k: ctx_exact[k] for k in at}
     span["at_exact"] = rank1.pop("span_at_exact")
+    span["mesh"] = {t: m["kernel2"] for t, m in mesh["local"].items()
+                    if "kernel2" in m}
+    rmw["mesh"] = {f"vocab={MESH_CAP_NV}": mesh["capacity"]["kernel8"]}
     kernels = [ctx, span, rank1, score, hot, grmw, rmw, quant, sweep]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
@@ -3237,7 +3750,8 @@ def main() -> int:
             "config", "at_widths",
             "plan_ms", "stratified_extra_ms", "stratified_extra_bound_ms",
             "stratified_extra_library_ms", "bf16", "whole_ms",
-            "whole_bound_ms", "export_blocks_ms", "export_blocks_plain_ms")
+            "whole_bound_ms", "export_blocks_ms", "export_blocks_plain_ms",
+            "mesh")
     print(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys if k in kd}
                                   for kd in kernels]}))

@@ -154,7 +154,6 @@ def test_config_rejects_what_jax_rejects(argv):
 
 
 @pytest.mark.parametrize("flag,argv", [
-    ("-mesh-shape", FUSED_ADD + ["-mesh-shape", "data=2,vocab=4"]),
     ("-dtype", ["-dtype", "float16"]),
 ])
 def test_unported_flags_rejected_by_name(flag, argv):
@@ -515,7 +514,11 @@ def test_port_imports_neither_jax_nor_jax_package():
                 "ops.scatter", "kernels.quantize_pallas",
                 "kernels.sweep_scatter", "models.skipgram",
                 "data.device_pipeline", "native", "tune", "data.structured",
-                "data.wikifil", "tools.accuracy_parity"):
+                "data.wikifil", "tools.accuracy_parity", "parallel",
+                "parallel.mesh", "parallel.layout", "parallel.multihost",
+                "parallel.sharded", "parallel.sharded_slab",
+                "parallel.sharded_skipgram", "parallel.chunk",
+                "parallel.trainer"):
         assert f"word2bits_tpu_torch.{new}" in mods
     pattern = re.compile(r"import jax|from jax|word2bits_tpu(?!_torch)")
     sources = [p for p in (REPO / "word2bits_tpu_torch").rglob("*")

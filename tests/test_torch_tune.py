@@ -71,11 +71,25 @@ def test_variants_skipgram_branch():
     assert [n for n, _, _ in ttune.variants(dense, 81)] == ["as-given"]
 
 
-def test_variants_mesh_branch_measures_as_given():
-    """The port's config rejects -mesh-shape, so this branch is reached
-    only by a config-shaped object; it offers the flags as given."""
+def test_variants_mesh_branch_measures_as_given(tmp_path, monkeypatch,
+                                               capsys):
+    """With -mesh-shape both packages offer the flags as given, and `cli
+    tune` measures them on the mesh (here one shard: a one-rank gloo
+    group of its own)."""
     assert ttune.variants(SimpleNamespace(mesh_shape={"data": 2}), 81) == [
         ("as-given", {}, "your flags unchanged")]
+    kw = dict(train_file="x", mesh_shape={"data": 2, "vocab": 4}, **BASE)
+    assert ttune.variants(TConfig(**kw), 81) == jtune.variants(
+        JConfig(**kw), 81)
+    monkeypatch.setenv("W2B_FORCE_CPU", "1")
+    assert cli.tune_main(["-train", _corpus(tmp_path), "-size", "16",
+                          "-min-count", "1", "-batch-size", "64",
+                          "-steps-per-chunk", "2", "-debug", "0",
+                          "-mesh-shape", "data=1,vocab=1", "-tune-seconds",
+                          "0.01", "-json", "1"]) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert [r["name"] for r in result["rows"]] == ["as-given"]
+    assert result["rows"][0]["words_per_sec"] > 0
 
 
 def test_run_tune_max_variants_and_json(tmp_path, capsys):

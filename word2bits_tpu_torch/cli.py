@@ -62,7 +62,8 @@ def train_main(argv=None) -> int:
         return 0
     from word2bits_tpu_torch.train import prepare, train
 
-    print(f"Starting training using file {cfg.train_file}")
+    if os.environ.get("RANK", "0") == "0":      # a mesh's rank 0 speaks
+        print(f"Starting training using file {cfg.train_file}")
     if not cfg.output_file:
         # reference: vocab build (and optional -save-vocab) only
         prepare(cfg)

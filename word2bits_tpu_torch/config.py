@@ -7,7 +7,7 @@ defaults, validation, `auto_lr` and `config_from_argv`, so one argv
 resolves to equal fields in both packages.  What each extension does is
 documented there.
 
-The port implements everything the JAX package runs on one device: the
+The port implements everything the JAX package runs: the
 two CBOW engines, the split-table slab engine (the reference default:
 per-center negatives; or shared ones, models/cbow_slab.py) with the `add`
 or `span` scatter or the block dedup (`-dedup-block`), and the fused-table
@@ -21,10 +21,11 @@ the fused score kernel (`-use-pallas`); skip-gram (`-model skipgram`,
 three run the same in-place loop); the epoch built on the device
 (`-device-epoch`, resolved by `device_epoch_on` as in the JAX package) or
 on the host; the `-packed 1` export; checkpoint/resume (`-checkpoint-dir`,
-`-resume`, `-checkpoint-every-epoch`, train.save_checkpoint); and a
-profiler trace of the first chunk (`-profile-dir`).  `-mesh-shape` (the
-JAX package's parallel/) is not ported yet and is rejected by name with a
-ValueError, never ignored: see UNSUPPORTED below.
+`-resume`, `-checkpoint-every-epoch`, train.save_checkpoint); a
+profiler trace of the first chunk (`-profile-dir`); and the (data, vocab)
+mesh trainer (`-mesh-shape`, `-hot-interleave`, parallel/), one process a
+device.  A flag whose code the port lacks is rejected by name with a
+ValueError, never ignored: see UNSUPPORTED below (now empty).
 """
 
 from __future__ import annotations
@@ -326,9 +327,10 @@ class Word2BitsConfig:
     @property
     def fused_on(self) -> bool:
         """The fused (V, 2D) table engine runs: -fused-tables 1 on CBOW
-        (skip-gram keeps split tables, as in the JAX package)."""
+        off a mesh (skip-gram and the mesh trainer keep split tables, as
+        in the JAX package)."""
         return bool(self.fused_tables and self.neg_sharing
-                    and self.model == "cbow")
+                    and self.model == "cbow" and not self.mesh_shape)
 
     @property
     def lr_scale(self) -> float:
@@ -353,9 +355,7 @@ class Word2BitsConfig:
 DTYPES = ("float32", "bfloat16")
 
 # (flag, field, selects-unported-code) — each rejected by name
-UNSUPPORTED = (
-    ("-mesh-shape", "mesh_shape", bool),
-)
+UNSUPPORTED: tuple = ()
 
 # The reference flag spellings, for the CLI layer.
 REFERENCE_FLAGS = {

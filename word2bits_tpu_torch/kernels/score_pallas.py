@@ -50,20 +50,24 @@ _MAX_CLUSTER = 8
 
 
 def pool_mask(G: int, K: int, P: int, dtype=torch.float32,
-              device=None) -> torch.Tensor:
-    """[G, P*K] mask: center g of a tile uses only negative pool g % P."""
+              device=None, offset: int = 0) -> torch.Tensor:
+    """[G, P*K] mask: center g of a tile uses only negative pool g % P.
+    `offset` shifts the member index: a data shard of a mesh holding tile
+    members [offset, offset+G) passes its first member, so its routing of
+    centers to pools matches the whole tile's (parallel/sharded_slab.py)."""
     pool_of_neg = torch.arange(P * K, device=device) // K
-    pool_of_ctr = torch.arange(G, device=device) % P
+    pool_of_ctr = (offset + torch.arange(G, device=device)) % P
     return (pool_of_ctr[:, None] == pool_of_neg[None, :]).to(dtype)
 
 
 def quantized_scores_plain(cavg3, v_rows, centers3, negs, af3, scalars,
                            bitlevel: int, reg: float, neg_pool: int = 1,
-                           lane_weight=None):
+                           lane_weight=None, pool_offset: int = 0):
     """(cavge [T, G, D], dv [T, P*K, D], loss []) — the plain version.
     `lane_weight` ([P*K] float32, optional) scales each negative lane's
     mask: the importance weights of the stratified and dense-hot samplers
-    (models/cbow_fused.py), which the kernel does not take."""
+    (models/cbow_fused.py), which the kernel does not take.
+    `pool_offset`: pool_mask's offset (a mesh's data shard)."""
     G, PK = cavg3.shape[1], v_rows.shape[1]
     P = neg_pool if neg_pool > 1 else 1
     alpha = scalars.reshape(())
@@ -72,7 +76,8 @@ def quantized_scores_plain(cavg3, v_rows, centers3, negs, af3, scalars,
     m = ((negs[:, None, :] != centers3[:, :, None]).to(f.dtype)
          * af3[:, :, None])
     if P > 1:
-        m = m * pool_mask(G, PK // P, P, f.dtype, f.device)[None]
+        m = m * pool_mask(G, PK // P, P, f.dtype, f.device,
+                           pool_offset)[None]
     if lane_weight is not None:
         m = m * lane_weight[None, None, :]
     g = (0.0 - sigmoid_lut(f)) * alpha * m

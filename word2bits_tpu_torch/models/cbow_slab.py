@@ -183,15 +183,17 @@ def u_update_rows(pos: Positive, cavge: torch.Tensor, alpha: torch.Tensor,
 
 def shared_negative_phase(cavg, af, centers, negs, v_n, alpha,
                           hyper: CBOWHyper, B: int, G: int, P: int,
-                          use_pallas: bool, lane_weight=None):
+                          use_pallas: bool, lane_weight=None,
+                          pool_offset: int = 0):
     """(cavge_neg [B, D], dv_neg [T*P*K, D], loss) of the negatives shared
     by strided tiles of G centers: the fused score kernel
     (kernels/score_pallas.py) with `use_pallas`, else its plain version,
-    whose mask `lane_weight` ([P*K], optional) scales per lane."""
-    if use_pallas and lane_weight is not None:
-        raise ValueError("the score kernel takes no lane weights (the "
-                         "stratified and dense-hot samplers exclude "
-                         "use_pallas)")
+    whose mask `lane_weight` ([P*K], optional) scales per lane and whose
+    pool routing starts at member `pool_offset` (a mesh's data shard)."""
+    if use_pallas and (lane_weight is not None or pool_offset):
+        raise ValueError("the score kernel takes no lane weights and no "
+                         "pool offset (the stratified and dense-hot "
+                         "samplers and the mesh exclude use_pallas)")
     T = B // G
     args = [to_tiles(cavg, T, G), v_n, to_tiles(centers, T, G), negs,
             to_tiles(af, T, G)]
@@ -204,8 +206,25 @@ def shared_negative_phase(cavg, af, centers, negs, v_n, alpha,
         cavge_neg, dv_neg, nloss = quantized_scores_pallas(*args)
     else:
         cavge_neg, dv_neg, nloss = quantized_scores_plain(
-            *args, lane_weight=lane_weight)
+            *args, lane_weight=lane_weight, pool_offset=pool_offset)
     return from_tiles(cavge_neg, B), dv_neg.reshape(-1, hyper.size), nloss
+
+
+def per_center_negative_phase(cavg, af, centers, negs, v_n, alpha,
+                              hyper: CBOWHyper, weight=None):
+    """(g_neg [B, K], mask [B, K], cavge_neg [B, D], loss) of per-center
+    negatives negs [B, K] with float32 rows v_n [B, K, D]; `weight`
+    (optional) scales the mask (the dense-hot sampler's cold weight)."""
+    q_vn = quantize(v_n, hyper.bitlevel)
+    f_neg = torch.bmm(q_vn, cavg[:, :, None])[..., 0]            # [B, K]
+    m2 = (negs != centers[:, None]).to(torch.float32) * af[:, None]
+    if weight is not None:
+        m2 = m2 * weight
+    g_neg = (0.0 - sigmoid_lut(f_neg)) * alpha * m2
+    reg = hyper.reg
+    neg_reg = (reg * (q_vn * q_vn).sum(dim=-1)) if reg else 0.0
+    loss = ((torch.log(sigmoid_exact(-f_neg)) - neg_reg) * m2).sum()
+    return g_neg, m2, torch.bmm(g_neg[:, None, :], q_vn)[:, 0], loss
 
 
 def scatter_add_hot(table: torch.Tensor, ids: torch.Tensor,
@@ -285,14 +304,10 @@ def slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs, alpha,
         cavge = pos.cavge + cavge_neg
         scat(v, ids_v, torch.cat([pos.dv_center, dv_neg]), plan_v)
     else:
-        q_vn = quantize(v_n, hyper.bitlevel)
-        f_neg = torch.bmm(q_vn, pos.cavg[:, :, None])[..., 0]     # [B, K]
-        m2 = (negs != centers[:, None]).to(torch.float32) * pos.af[:, None]
-        g_neg = (0.0 - sigmoid_lut(f_neg)) * alpha * m2
-        neg_reg = (reg * (q_vn * q_vn).sum(dim=-1)) if reg else 0.0
-        loss = loss + ((torch.log(sigmoid_exact(-f_neg)) - neg_reg)
-                       * m2).sum()
-        cavge = pos.cavge + torch.bmm(g_neg[:, None, :], q_vn)[:, 0]
+        g_neg, m2, cavge_neg, nloss = per_center_negative_phase(
+            pos.cavg, pos.af, centers, negs, v_n, alpha, hyper)
+        loss = loss + nloss
+        cavge = pos.cavge + cavge_neg
         if spanning and reg == 0.0 and span_rank1:
             # rows centers: dv_center; negative (b, k): g_neg[b, k]*cavg[b]
             if plan_v is None:

@@ -11,7 +11,8 @@ in row blocks: the reference stream is computed on the device
 (utils/lcg.lcg_uniform_torch), so the host never holds a table.
 `init_params` fills the split tables (u, v) of the slab engine,
 `init_fused_table` the fused (V, 2D) table [u | v]; both hold the same
-values.
+values.  `init_param_rows` fills only given row ranges of the split
+tables: a mesh shard's (parallel/trainer.py).
 """
 
 from __future__ import annotations
@@ -25,26 +26,31 @@ from word2bits_tpu_torch.utils.lcg import lcg_uniform_torch
 _BLOCK = 1 << 24  # draws per half per device block
 
 
-def _fill(u: torch.Tensor, v: torch.Tensor, init: str, seed: int) -> None:
-    """Fill u and v ([V, D] each, possibly column views of one table) in
-    place.  Reference: row blocks of about _BLOCK draws per half, v from
-    draw 0 and u from draw V*D as the reference stream runs, each block
-    rounded to the tables' dtype on their device.  Uniform: u, then v, from
-    a torch.Generator seeded with `seed` on the host."""
-    V, D = u.shape
+def _fill(u: torch.Tensor, v: torch.Tensor, init: str, seed: int,
+          row0: int = 0, vocab_size: int | None = None) -> None:
+    """Fill u and v ([R, D] each, possibly column views of one table) in
+    place with rows [row0, row0 + R) of the [vocab_size, D] tables
+    (default: all of them).  Reference: row blocks of about _BLOCK draws
+    per half, v from draw 0 and u from draw V*D as the reference stream
+    runs, each block rounded to the tables' dtype on their device.
+    Uniform: u, then v, from a torch.Generator seeded with `seed` on the
+    host."""
+    R, D = u.shape
+    V = R if vocab_size is None else vocab_size
     if init == "uniform":
         gen = torch.Generator().manual_seed(seed)
-        u.copy_(torch.rand((V, D), generator=gen) - 0.5)
-        v.copy_(torch.rand((V, D), generator=gen) - 0.5)
+        u.copy_((torch.rand((V, D), generator=gen) - 0.5)[row0:row0 + R])
+        v.copy_((torch.rand((V, D), generator=gen) - 0.5)[row0:row0 + R])
         return
     if init != "reference":
         raise ValueError(f"unknown init {init!r}")
     rows = max(1, _BLOCK // max(D, 1))
-    for r0 in range(0, V, rows):
-        r1 = min(V, r0 + rows)
+    for r0 in range(0, R, rows):
+        r1 = min(R, r0 + rows)
         n = (r1 - r0) * D
-        v[r0:r1] = lcg_uniform_torch(r0 * D, n, v.device).view(-1, D)
-        u[r0:r1] = lcg_uniform_torch(V * D + r0 * D, n, u.device).view(-1, D)
+        g0 = (row0 + r0) * D
+        v[r0:r1] = lcg_uniform_torch(g0, n, v.device).view(-1, D)
+        u[r0:r1] = lcg_uniform_torch(V * D + g0, n, u.device).view(-1, D)
 
 
 def _device(device) -> torch.device:
@@ -75,3 +81,22 @@ def init_fused_table(vocab_size: int, size: int, init: str = "reference",
     table = torch.empty((vocab_size, 2 * size), dtype=dtype, device=device)
     _fill(table[:, :size], table[:, size:], init, seed)
     return table
+
+
+def init_param_rows(vocab_size: int, size: int, ranges, init: str = "reference",
+                    seed: int = 1, dtype=torch.float32,
+                    device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u, v) rows of init_params' tables: the global row ranges `ranges`
+    ((r0, r1) pairs) one after another, rows at or past vocab_size zero
+    (a mesh shard's padding).  The same values as init_params' rows."""
+    device = _device(device)
+    n = sum(r1 - r0 for r0, r1 in ranges)
+    u = torch.zeros((n, size), dtype=dtype, device=device)
+    v = torch.zeros((n, size), dtype=dtype, device=device)
+    o = 0
+    for r0, r1 in ranges:
+        m = max(0, min(r1, vocab_size) - r0)
+        if m:
+            _fill(u[o:o + m], v[o:o + m], init, seed, r0, vocab_size)
+        o += r1 - r0
+    return u, v

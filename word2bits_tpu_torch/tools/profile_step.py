@@ -1,7 +1,8 @@
 """Where a training step's time goes on the card.
 
     python3 -m word2bits_tpu_torch.tools.profile_step
-        [--config shipped|flagship|rmw|quickstart|exact|pallas|hot]
+        [--config shipped|flagship|rmw|quickstart|exact|pallas|hot|split|
+                  mesh|mesh-rmw]
         [--tokens N] [--steps S]
 
 `--config shipped` (the default) is the shipped throughput configuration
@@ -13,14 +14,18 @@ mode at the JAX package's exact-mode throughput flags (B = 4096, banded
 `-scatter-impl add -use-pallas 1` (the score kernel); `hot` the shipped
 flags with `-scatter-impl add -hot-rows 2048 -hot-pallas 1` (the hot/cold
 split through kernel 6; each segment's cold map is built as train.train
-builds it).  These five run on a synthetic text8-like corpus (written
-inside the checkout, removed afterwards).  `--config flagship` is the
+builds it); `split` the shipped flags on split tables without the context
+kernel (the slab engine), and `mesh` the same on the mesh trainer
+(parallel/) as a mesh of one shard on a one-rank NCCL group, kernel 2 on
+the shard's local ids.  These eight run on a synthetic text8-like corpus
+(written inside the checkout, removed afterwards).  `--config flagship` is the
 full-Wikipedia capacity configuration of docs/large_vocab.md:19-25
 (3,699,941 types, size 800, B = 16384, grmw scatter) on the in-memory
 synthetic vocabulary of that shape (data/synthetic.zipf_vocab_corpus);
 `rmw` the same with `-rmw-scatter 1 -steps-per-chunk 1` in place of
 `-scatter-impl grmw -loop-mode fori -steps-per-chunk 32`
-(docs/large_vocab.md:34, kernel 8).  Builds the port's kernels,
+(docs/large_vocab.md:34, kernel 8), and `mesh-rmw` that on the mesh
+trainer (vocab = 1, without the context kernel, which is single-chip).  Builds the port's kernels,
 warms the engine's chunk up for one full chunk, then times `--steps` steps
 with the host clock and profiles the same number of steps with
 torch.profiler.  Prints the step time, the
@@ -65,7 +70,16 @@ RMW = [f for f in FLAGSHIP if f not in ("-loop-mode", "fori",
                                         "-scatter-impl", "grmw")]
 RMW[RMW.index("-steps-per-chunk") + 1] = "1"
 RMW += ["-rmw-scatter", "1"]
-CAPACITY = {"flagship": FLAGSHIP, "rmw": RMW}
+
+def _without(flags, names):
+    return [f for i in range(0, len(flags), 2) if flags[i] not in names
+            for f in flags[i:i + 2]]
+
+
+SPLIT = _without(SHIPPED, ("-fused-tables", "-context-pallas"))
+CAPACITY = {"flagship": FLAGSHIP, "rmw": RMW,
+            "mesh-rmw": _without(RMW, ("-context-pallas",))
+            + ["-mesh-shape", "vocab=1"]}
 FLAGSHIP_TYPES = 3_699_941
 QUICKSTART = ["-size", "200", "-window", "8", "-negative", "24",
               "-min-count", "5", "-bitlevel", "1"]
@@ -80,6 +94,8 @@ CONFIGS = {
     + ["-use-pallas", "1"],
     "hot": [("add" if f == "span" else f) for f in SHIPPED]
     + ["-hot-rows", "2048", "-hot-pallas", "1"],
+    "split": SPLIT,
+    "mesh": SPLIT + ["-mesh-shape", "data=1,vocab=1"],
 }
 
 
@@ -117,11 +133,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
-    from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
     from word2bits_tpu_torch.kernels._build import build_all
-    from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-    from word2bits_tpu_torch.train import (build_engine, cold_map,
-                                           init_tables, segment_capacity)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -131,11 +143,23 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     build_all()
     cfg, vocab, encoded = _prepare(args.config, args.tokens)
+    if not cfg.mesh_shape:
+        return _profile(args, cfg, vocab, encoded, torch.device("cuda", 0))
+    from word2bits_tpu_torch.parallel.trainer import mesh_session
+    with mesh_session(cfg, "cuda") as comm:
+        return _profile(args, cfg, vocab, encoded, comm.device, comm)
+
+
+def _profile(args, cfg, vocab, encoded, dev, comm=None) -> int:
+    from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
+    from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
+    from word2bits_tpu_torch.train import (build_engine, cold_map,
+                                           init_tables, segment_capacity)
     B, S, W = cfg.batch_size, cfg.steps_per_chunk, cfg.window
     hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=cfg.size, window=W,
                       negative=cfg.negative, reg=cfg.reg)
-    dev = torch.device("cuda", 0)
-    eng = build_engine(cfg, vocab, init_tables(cfg, vocab.size, dev), hyper)
+    eng = build_engine(cfg, vocab, init_tables(cfg, vocab.size, dev, comm),
+                       hyper, comm)
     _, capacity = segment_capacity(cfg, len(encoded))
     ea = build_epoch_arrays(encoded, vocab.counts, cfg.sample,
                             vocab.train_words, W, np.random.default_rng(0),

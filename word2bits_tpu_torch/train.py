@@ -34,10 +34,20 @@ The loss accumulates on the device and is fetched once per epoch (and for
 progress lines at -debug > 1).  `on_epoch_end(epoch, u, v, loss)` gets
 each epoch's tables as host arrays; `-profile-dir` traces the first chunk
 with torch.profiler into a Chrome trace there.
+
+With `-mesh-shape` the run is one rank of a (data, vocab) mesh
+(parallel/): `train` joins the process group (torchrun's, or a one-rank
+group it starts for a mesh of one shard, parallel/trainer.mesh_session),
+the tables are this rank's rows (initialized or read from the checkpoint
+for those rows alone), the engine is parallel/trainer.ShardedTrainer, rank
+0 builds each epoch's arrays and broadcasts them, and only rank 0 logs and
+writes the vector, checkpoint and per-epoch files, from the tables
+`ShardedTrainer.params` gathers to it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import time
@@ -81,7 +91,9 @@ Tables = Tuple[torch.Tensor, ...]   # (fused (V, 2D) table,) or (u, v)
 @dataclass
 class TrainResult:
     vocab: Vocab
-    tables: Tables           # the trained tables, on their device
+    tables: Tables           # the trained tables, on their device (on a
+    #                          mesh: rank 0's the whole gathered (u, v),
+    #                          the other ranks' their own rows)
     epoch_losses: List[float]
     words_per_sec: float     # words consumed per wall-second of the loop
     steps: int               # steps executed
@@ -148,11 +160,17 @@ class Engine:
     tables: Tables
     alias: AliasTable | Tuple[AliasTable, AliasTable]
     cold_split: bool = False
+    sharded: Optional[object] = None   # the mesh's ShardedTrainer
 
 
-def init_tables(cfg: Word2BitsConfig, vocab_size: int, device) -> Tables:
+def init_tables(cfg: Word2BitsConfig, vocab_size: int, device,
+                comm=None) -> Tables:
     """The engine's tables, filled on `device`: (the fused (V, 2D) table,)
-    with -fused-tables 1 on CBOW, else (u, v)."""
+    with -fused-tables 1 on CBOW, else (u, v); on a mesh (`comm`, a
+    parallel.mesh.Collectives) this shard's rows of (u, v)."""
+    if comm is not None:
+        from word2bits_tpu_torch.parallel.trainer import init_local_tables
+        return init_local_tables(cfg, vocab_size, comm)
     kw = dict(init=cfg.init, seed=cfg.seed, dtype=getattr(torch, cfg.dtype),
               device=device)
     if cfg.fused_on:
@@ -161,15 +179,16 @@ def init_tables(cfg: Word2BitsConfig, vocab_size: int, device) -> Tables:
 
 
 def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
-                 hyper: CBOWHyper) -> Engine:
-    """The JAX package's train.build_engine on one device: the fused-table
-    engine with -fused-tables 1 on CBOW (shared negatives; the `add`,
-    `span`, `grmw` or RMW scatter, the block dedup, the hot/cold split;
-    optional context and score kernels), skip-gram with -model skipgram
-    (per-center or shared negatives, dense-hot, the block dedup), else the
-    split-table slab engine (per-center or shared negatives; the `add` or
-    `span` scatter or the block dedup; optional context and score
-    kernels)."""
+                 hyper: CBOWHyper, comm=None) -> Engine:
+    """The JAX package's train.build_engine: with -mesh-shape the sharded
+    trainer on this rank's rows (`comm`: its parallel.mesh.Collectives;
+    parallel/trainer.py); else, on one device, the fused-table engine with
+    -fused-tables 1 on CBOW (shared negatives; the `add`, `span`, `grmw` or
+    RMW scatter, the block dedup, the hot/cold split; optional context and
+    score kernels), skip-gram with -model skipgram (per-center or shared
+    negatives, dense-hot, the block dedup), else the split-table slab
+    engine (per-center or shared negatives; the `add` or `span` scatter or
+    the block dedup; optional context and score kernels)."""
     B, S, V = cfg.batch_size, cfg.steps_per_chunk, vocab.size
     dev = tables[0].device
     strat_lanes = dense_hot = None
@@ -185,6 +204,21 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
         alias = st.cold.to(dev)
     else:
         alias = build_alias_table(vocab.unigram_weights()).to(dev)
+    if cfg.mesh_shape:
+        from word2bits_tpu_torch.parallel.trainer import ShardedTrainer
+        if comm is None:
+            raise ValueError("-mesh-shape needs the rank's collectives "
+                             "(parallel/trainer.mesh_session)")
+        sharded = ShardedTrainer(cfg, V, comm, *tables, dense_hot=dense_hot)
+
+        def sharded_chunk(u, v, tokens, sents, atab, scalars, gen=None,
+                          n_steps=None, shrinks=None, negs=None):
+            loss = sharded.run_chunk(tokens, sents, atab, scalars, gen,
+                                     n_steps, shrinks, negs)
+            return sharded.u, sharded.v, loss
+
+        return Engine(chunk_fn=sharded_chunk, tables=tuple(tables),
+                      alias=alias, sharded=sharded)
     if cfg.fused_on:
         chunk_fn = make_fused_train_chunk(
             hyper, V, B, S, neg_sharing=cfg.neg_sharing,
@@ -346,8 +380,26 @@ def train(cfg: Word2BitsConfig,
           on_epoch_end: Optional[Callable] = None) -> TrainResult:
     """Full training run on `device` (default cuda).  on_epoch_end(epoch,
     u, v, epoch_loss) is called after each epoch with the tables as host
-    numpy arrays, trimmed as the export is (float32 for bf16 tables)."""
+    numpy arrays, trimmed as the export is (float32 for bf16 tables); on a
+    mesh, on rank 0 only.  With -mesh-shape this process is one rank of
+    the mesh, on cuda:LOCAL_RANK (or the CPU, for device 'cpu')."""
     dev = resolve_device(device)
+    if not cfg.mesh_shape:
+        return _train(cfg, vocab, encoded, max_steps, dev, on_epoch_end)
+    from word2bits_tpu_torch.parallel.trainer import mesh_session
+    with mesh_session(cfg, dev.type) as comm:
+        return _train(cfg, vocab, encoded, max_steps, comm.device,
+                      on_epoch_end, comm)
+
+
+def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
+           encoded: Optional[np.ndarray], max_steps: Optional[int],
+           dev: torch.device, on_epoch_end: Optional[Callable],
+           comm=None) -> TrainResult:
+    """train() on `dev`; `comm` is the rank's mesh collectives, or None."""
+    root = comm is None or comm.rank == 0
+    if not root:
+        cfg = dataclasses.replace(cfg, debug=0)   # rank 0 logs
     # float32 products stay float32: no TF32 on the port's path
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -364,11 +416,19 @@ def train(cfg: Word2BitsConfig,
     ckpt_path = (os.path.join(cfg.checkpoint_dir, CHECKPOINT_FILE)
                  if cfg.checkpoint_dir else None)
     start_epoch, words_done = 0, 0.0
+    ranges = None
+    if comm is not None:
+        from word2bits_tpu_torch.parallel.trainer import local_ranges
+        ranges = local_ranges(cfg, V, comm)
+        _log(cfg, f"Mesh: data={comm.nd} x vocab={comm.nv}, rank "
+                  f"{comm.rank} of {comm.nd * comm.nv}, backend "
+                  f"{torch.distributed.get_backend()}, device {dev}, rows "
+                  f"{ranges}")
     t0 = time.perf_counter()
     if ckpt_path and cfg.resume and os.path.exists(ckpt_path):
-        ck = load_checkpoint(ckpt_path, cfg, dev)
-        if ck.tables[0].shape[0] != V:
-            raise ValueError(f"{ckpt_path} holds {ck.tables[0].shape[0]} "
+        ck = load_checkpoint(ckpt_path, cfg, dev, ranges)
+        if ck.vocab_rows != V:
+            raise ValueError(f"{ckpt_path} holds {ck.vocab_rows} "
                              f"rows, the vocabulary {V}")
         tables = ck.tables
         start_epoch, words_done = ck.epoch + 1, ck.words_done
@@ -384,7 +444,7 @@ def train(cfg: Word2BitsConfig,
         _log(cfg, f"Resumed from {ckpt_path} at epoch {start_epoch} "
                   f"(loaded in {seconds['load']:.2f} s)")
     else:
-        tables = init_tables(cfg, V, dev)
+        tables = init_tables(cfg, V, dev, comm)
         _sync(dev)
         seconds["init"] = time.perf_counter() - t0
         shape = " x ".join(str(n) for n in tables[0].shape)
@@ -392,7 +452,7 @@ def train(cfg: Word2BitsConfig,
                   f"{'table' if len(tables) == 1 else 'tables u, v'} "
                   f"({2 * V * D} draws) in {seconds['init']:.2f} s")
     t0 = time.perf_counter()
-    engine = build_engine(cfg, vocab, tables, hyper)
+    engine = build_engine(cfg, vocab, tables, hyper, comm)
     seconds["alias"] = time.perf_counter() - t0
     _log(cfg, f"Alias table: {seconds['alias']:.2f} s")
     chunk_fn = engine.chunk_fn
@@ -403,7 +463,7 @@ def train(cfg: Word2BitsConfig,
     seg_tokens, capacity = segment_capacity(cfg, len(encoded))
     total_len = max(len(encoded), 1)
     device_corpus = None
-    if cfg.device_epoch_on:
+    if cfg.device_epoch_on and root:
         t0 = time.perf_counter()
         device_corpus = DeviceCorpus(cfg, vocab, encoded, seg_tokens,
                                      capacity, dev)
@@ -413,7 +473,17 @@ def train(cfg: Word2BitsConfig,
               f"{'device' if device_corpus else 'host'}")
 
     def segments(epoch: int):
-        """(tokens, sents, n_tokens, source_len, host tokens or None)."""
+        """(tokens, sents, n_tokens, source_len, host tokens or None); on
+        a mesh rank 0's, broadcast to every rank."""
+        if comm is not None:
+            from word2bits_tpu_torch.parallel.trainer import \
+                replicate_segments
+            yield from replicate_segments(
+                built_segments(epoch) if root else None, dev)
+            return
+        yield from built_segments(epoch)
+
+    def built_segments(epoch: int):
         if device_corpus is not None:
             for t, s_, n, src in device_corpus.segments(epoch):
                 yield t, s_, n, src, None
@@ -432,6 +502,8 @@ def train(cfg: Word2BitsConfig,
 
     epoch_losses: List[float] = []
     chunk_losses: List[torch.Tensor] = []   # fetched once, after the loop
+    final = None       # a mesh's gathered tables after the last epoch
+    gathered = False   # (None off rank 0)
     cold_width = 0     # grows monotonically: a stable map width
     total_steps = 0
     words_at_start = words_done  # a resumed run reports its own rate
@@ -506,22 +578,31 @@ def train(cfg: Word2BitsConfig,
         epoch_loss = float(loss_acc)   # host fetch = device sync
         _log(cfg, f"Epoch Loss: {epoch_loss:.6f}")
         epoch_losses.append(epoch_loss)
-        if cfg.save_every_epoch and cfg.output_file and cfg.classes == 0:
-            write_output(f"{cfg.output_file}_epoch{epoch}", vocab, tables,
-                         cfg)
+        last = stop or epoch == cfg.iter - 1
+        save_epoch = bool(cfg.save_every_epoch and cfg.output_file
+                          and cfg.classes == 0)
         # -checkpoint-every-epoch 0: only after the last epoch (a run cut
         # by max_steps counts its epoch as done, as in the JAX package)
-        if ckpt_path and (cfg.checkpoint_every_epoch or stop
-                          or epoch == cfg.iter - 1):
+        want_ckpt = bool(ckpt_path) and (cfg.checkpoint_every_epoch or last)
+        full = tables
+        if engine.sharded is not None and (save_epoch or want_ckpt or last
+                                           or on_epoch_end is not None):
+            full = engine.sharded.params()     # every rank; None off rank 0
+            if last:
+                final, gathered = full, True
+        if save_epoch and root:
+            write_output(f"{cfg.output_file}_epoch{epoch}", vocab, full,
+                         cfg)
+        if want_ckpt and root:
             t0 = time.perf_counter()
             os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-            save_checkpoint(ckpt_path, tables, epoch, gen, words_done)
+            save_checkpoint(ckpt_path, full, epoch, gen, words_done)
             dt = time.perf_counter() - t0
             seconds["checkpoint"] += dt
             _log(cfg, f"Checkpoint: epoch {epoch} to {ckpt_path} in "
                       f"{dt:.2f} s")
-        if on_epoch_end is not None:
-            u_h, v_h = (_host_half(h) for h in table_halves(tables))
+        if on_epoch_end is not None and root:
+            u_h, v_h = (_host_half(h) for h in table_halves(full))
             on_epoch_end(epoch, u_h, v_h, epoch_loss)
         if stop:
             break
@@ -538,7 +619,12 @@ def train(cfg: Word2BitsConfig,
               f"{wps:.1f} words/sec, "
               f"{wall / max(total_steps, 1) * 1e6:.1f} us/step")
 
-    if cfg.output_file:
+    if engine.sharded is not None:
+        if not gathered:
+            final = engine.sharded.params()
+        if root:
+            tables = final
+    if cfg.output_file and root:
         t0 = time.perf_counter()
         if cfg.classes == 0:
             write_output(cfg.output_file, vocab, tables, cfg)
@@ -610,6 +696,7 @@ def write_output(path: str, vocab: Vocab, tables: Tables,
 
 class Checkpoint(NamedTuple):
     tables: Tables                     # in the engine's layout, on device
+    vocab_rows: int                    # the checkpoint's V
     epoch: int                         # the last epoch done
     words_done: float
     generator: Optional[torch.Tensor]  # torch.Generator state, or None
@@ -694,61 +781,83 @@ def _read_small(zf: zipfile.ZipFile, name: str):
         return np.lib.format.read_array(f)
 
 
-def _read_half(zf: zipfile.ZipFile, name: str, dest: torch.Tensor) -> None:
+def _read_half(zf: zipfile.ZipFile, name: str, dest: torch.Tensor,
+               ranges=None) -> None:
     """Stream member `name` ((V, D), its tag applied) into dest in row
-    blocks, through one host buffer."""
+    blocks, through one host buffer: all of it, or with `ranges` the rows
+    [r0, r1) of each range one after another (rows at or past V left as
+    they are: a mesh shard's padding)."""
     tag = (str(_read_small(zf, name + "_dtype"))
            if name + "_dtype.npy" in zf.namelist() else "float32")
     with zf.open(name + ".npy") as f:
         shape, dt = _read_member_header(f)
-        if tuple(shape) != tuple(dest.shape):
-            raise ValueError(f"checkpoint {name} is {tuple(shape)}, the "
-                             f"table half {tuple(dest.shape)}")
         V, D = shape
+        if ranges is None:
+            ranges = [(0, V)]
+            if tuple(shape) != tuple(dest.shape):
+                raise ValueError(f"checkpoint {name} is {tuple(shape)}, the "
+                                 f"table half {tuple(dest.shape)}")
+        elif D != dest.shape[1]:
+            raise ValueError(f"checkpoint {name} is {tuple(shape)}, the "
+                             f"table rows {tuple(dest.shape)}")
+        data0 = f.tell()
         rows = max(1, _EXPORT_VALUES // max(D, 1))
         buf = np.empty((min(rows, V), D), dt)
-        for r0 in range(0, V, rows):
-            n = min(rows, V - r0)
-            blk = buf[:n]
-            if f.readinto(memoryview(blk.reshape(-1).view(np.uint8))) != \
-                    blk.nbytes:
-                raise ValueError(f"checkpoint {name} ends early")
-            if tag == "bfloat16":
-                t = torch.from_numpy(blk.view(np.int16)).view(torch.bfloat16)
-            else:
-                t = torch.from_numpy(blk)
-            dest[r0:r0 + n].copy_(t)
+        o = 0
+        for g0, g1 in ranges:
+            if g0 < V:
+                f.seek(data0 + g0 * D * dt.itemsize)
+            for r0 in range(g0, min(g1, V), rows):
+                n = min(rows, min(g1, V) - r0)
+                blk = buf[:n]
+                if f.readinto(memoryview(blk.reshape(-1).view(np.uint8))) \
+                        != blk.nbytes:
+                    raise ValueError(f"checkpoint {name} ends early")
+                if tag == "bfloat16":
+                    t = torch.from_numpy(blk.view(np.int16)).view(
+                        torch.bfloat16)
+                else:
+                    t = torch.from_numpy(blk)
+                dest[o + r0 - g0:o + r0 - g0 + n].copy_(t)
+            o += g1 - g0
 
 
-def load_checkpoint(path: str, cfg: Word2BitsConfig,
-                    device) -> Checkpoint:
+def load_checkpoint(path: str, cfg: Word2BitsConfig, device,
+                    ranges=None) -> Checkpoint:
     """Read a state.npz of either package into tables allocated once on
     `device` in the config's layout and dtype (a fused checkpoint resumes
     on split tables and the other way round, as in the JAX package),
     streaming each half in row blocks: no initialization runs first, and
-    the host holds one block.  A JAX checkpoint carries a JAX key, which
-    cannot be continued: `generator` is None then."""
+    the host holds one block.  `ranges` ((r0, r1) global row ranges, a
+    mesh shard's: parallel/trainer.local_ranges): split tables of those
+    rows alone, rows past the vocabulary zero.  A JAX checkpoint carries a
+    JAX key, which cannot be continued: `generator` is None then."""
     dtype = getattr(torch, cfg.dtype)
     with zipfile.ZipFile(path) as zf:
         with zf.open("u.npy") as f:
             (V, D), _ = _read_member_header(f)
         if D != cfg.size:
             raise ValueError(f"{path} holds size {D}, the config {cfg.size}")
-        if cfg.fused_on:
+        if ranges is not None:
+            n = sum(r1 - r0 for r0, r1 in ranges)
+            tables: Tables = tuple(
+                torch.zeros((n, D), dtype=dtype, device=device)
+                for _ in range(2))
+        elif cfg.fused_on:
             table = torch.empty((V, 2 * D), dtype=dtype, device=device)
-            tables: Tables = (table,)
+            tables = (table,)
         else:
             tables = (torch.empty((V, D), dtype=dtype, device=device),
                       torch.empty((V, D), dtype=dtype, device=device))
         u, v = table_halves(tables)
-        _read_half(zf, "u", u)
-        _read_half(zf, "v", v)
+        _read_half(zf, "u", u, ranges)
+        _read_half(zf, "v", v, ranges)
         names = zf.namelist()
         generator = gen_device = None
         if "torch_generator.npy" in names:
             generator = torch.from_numpy(_read_small(zf, "torch_generator"))
             gen_device = str(_read_small(zf, "torch_generator_device"))
-        return Checkpoint(tables=tables,
+        return Checkpoint(tables=tables, vocab_rows=V,
                           epoch=int(_read_small(zf, "epoch")),
                           words_done=float(_read_small(zf, "words_done")),
                           generator=generator, generator_device=gen_device)

@@ -63,9 +63,8 @@ def variants(cfg: Word2BitsConfig, V: int) -> List[Tuple[str, Dict, str]]:
     """(name, overlay, quality-note) candidates valid for cfg and V."""
     out = [("as-given", {}, "your flags unchanged")]
     if cfg.mesh_shape:
-        # mesh overlays not offered; measure the config as-is.  The port's
-        # config rejects -mesh-shape (not ported yet), so this branch is
-        # kept for parity with the JAX package and never reached
+        # mesh overlays not offered; measure the config as-is (on this
+        # rank's shard, parallel/trainer.py), as the JAX package does
         return out
     hot_sg = max(64, min(2048, V // 8))
     hot_sg = min(hot_sg, V - 1)
@@ -169,6 +168,17 @@ def _clock(dev: torch.device):
     return ev[0].record, stop
 
 
+def _agreed(flag: bool, dev: torch.device, comm) -> bool:
+    """`flag` as rank 0 of the mesh (if any) decides it, so every rank
+    runs the same number of chunks."""
+    if comm is None:
+        return flag
+    import torch.distributed as dist
+    t = torch.tensor([int(flag)], device=dev)
+    dist.broadcast(t, src=0)
+    return bool(t.item())
+
+
 def measure(cfg: Word2BitsConfig, vocab, ep, capacity: int,
             seg_tokens: int, source_len: int,
             seconds: float = 4.0, group: int = 8, device=None) -> float:
@@ -180,17 +190,31 @@ def measure(cfg: Word2BitsConfig, vocab, ep, capacity: int,
     chunks run until `seconds` of host time have passed, each group timed
     on the device's clock (the device synchronized at its end).  The
     variant's tables live only inside this call."""
-    from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-    from word2bits_tpu_torch.train import (build_engine, cold_map,
-                                           init_tables, resolve_device)
+    from word2bits_tpu_torch.train import resolve_device
 
     dev = resolve_device(device)
+    if cfg.mesh_shape:
+        from word2bits_tpu_torch.parallel.trainer import mesh_session
+        with mesh_session(cfg, dev.type) as comm:
+            return _measure(cfg, vocab, ep, capacity, seg_tokens,
+                            source_len, seconds, group, comm.device, comm)
+    return _measure(cfg, vocab, ep, capacity, seg_tokens, source_len,
+                    seconds, group, dev)
+
+
+def _measure(cfg: Word2BitsConfig, vocab, ep, capacity: int,
+             seg_tokens: int, source_len: int, seconds: float, group: int,
+             dev: torch.device, comm=None) -> float:
+    """measure() on `dev`; `comm`: the rank's mesh collectives, or None."""
+    from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
+    from word2bits_tpu_torch.train import build_engine, cold_map, init_tables
+
     V = vocab.size
     B, S, W = cfg.batch_size, cfg.steps_per_chunk, cfg.window
     hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=cfg.size, window=W,
                       negative=cfg.negative, reg=cfg.reg)
-    tables = init_tables(cfg, V, dev)
-    eng = build_engine(cfg, vocab, tables, hyper)
+    tables = init_tables(cfg, V, dev, comm)
+    eng = build_engine(cfg, vocab, tables, hyper, comm)
     cold = {}
     if cfg.hot_rows and cfg.fused_on:
         cold["cold_pos"] = torch.from_numpy(
@@ -227,7 +251,7 @@ def measure(cfg: Word2BitsConfig, vocab, ep, capacity: int,
             chunks += 1
             words_done += S * words_per_step
         busy += stop()
-        if time.perf_counter() - t0 > seconds:
+        if _agreed(time.perf_counter() - t0 > seconds, dev, comm):
             break
     del tables, eng, cold, tokens, sents
     if dev.type == "cuda":
