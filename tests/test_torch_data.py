@@ -147,6 +147,35 @@ def test_tokens_vocab_and_encoding_equal(tmp_path, rng):
             jv.words[1:], jv.counts[1:]) if c >= 3]
 
 
+# \r anywhere, tabs, runs of separators, words about the reference's
+# MAX_STRING - 1 truncation, vertical tab and form feed (word bytes in the
+# reference), a trailing word with no separator
+TOKENIZE_CASES = [
+    b"a\rb c\r\n d\r\n\r",
+    b"\tx\t\ty \t\n\tz\t",
+    b"  \n\n \t \n p   q\n\n\t\t",
+    b"w" * 5000 + b" " + b"v" * 4095 + b"\t" + b"u" * 4094 + b"\n"
+    + b"s" * 4093 + b" " + b"r" * 4200,
+    b"one two\nthree",
+    b"tail\r",
+    b"a\x0bb\x0cc d\n e\x0b",
+    b"",
+]
+
+
+@pytest.mark.parametrize("drop_trailing", [True, False])
+@pytest.mark.parametrize("case", range(len(TOKENIZE_CASES)))
+def test_tokenize_bytes_matches_jax(case, drop_trailing):
+    """tokenize_bytes yields the JAX package's stream, and split_tokens
+    builds the same list (a trailing word dropped)."""
+    data = TOKENIZE_CASES[case]
+    got = list(tcorpus.tokenize_bytes(data, drop_trailing=drop_trailing))
+    assert got == list(jcorpus.tokenize_bytes(data,
+                                              drop_trailing=drop_trailing))
+    if drop_trailing:
+        assert tcorpus.split_tokens(data) == got
+
+
 @pytest.mark.parametrize("sample,segment", [(1e-3, 1 << 28), (1e-2, 777),
                                             (0.0, 1 << 28)])
 def test_epoch_arrays_equal(rng, sample, segment):

@@ -137,6 +137,26 @@ def test_slab_step_equals_reference_shaped(rng, bitlevel, reg, banded):
     np.testing.assert_allclose(float(l1), float(jl), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("bitlevel", [0, 1, 2, 8])
+def test_cbow_forward_scores_matches_jax(rng, bitlevel):
+    """cbow_forward_scores: scores [B, K+1] and loss equal to the JAX
+    package's on the same batch, and the tables left as they were."""
+    from word2bits_tpu.models.cbow import Batch as JBatch
+    from word2bits_tpu.models.cbow import cbow_forward_scores as jfwd
+    u, v, inputs = _case(rng, 0, 1)
+    hk = dict(bitlevel=bitlevel, size=D, window=W, negative=K, reg=0.01)
+    batch = _equivalent_batch(_torch_inputs(inputs))
+    tu, tv = torch.from_numpy(u.copy()), torch.from_numpy(v.copy())
+    f, loss = tcbow.cbow_forward_scores(tu, tv, batch, tcbow.CBOWHyper(**hk))
+    assert np.array_equal(tu.numpy(), u) and np.array_equal(tv.numpy(), v)
+    jb = JBatch(*(jnp.asarray(t.numpy()) for t in batch))
+    jf, jl = jfwd(jnp.asarray(u), jnp.asarray(v), jb, JHyper(**hk))
+    assert f.shape == (B, K + 1)
+    np.testing.assert_allclose(f.numpy(), np.asarray(jf), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(loss), float(jl), atol=1e-5, rtol=1e-5)
+
+
 def _chunk_case(rng, S, G, P):
     n = S * B + 2 * W + 40
     tokens = rng.integers(0, V, n).astype(np.int32)

@@ -518,7 +518,8 @@ def test_port_imports_neither_jax_nor_jax_package():
                 "parallel.mesh", "parallel.layout", "parallel.multihost",
                 "parallel.sharded", "parallel.sharded_slab",
                 "parallel.sharded_skipgram", "parallel.chunk",
-                "parallel.trainer"):
+                "parallel.trainer", "tools.flagship_run",
+                "tools.flagship_complete", "tools.flagship_transcript"):
         assert f"word2bits_tpu_torch.{new}" in mods
     pattern = re.compile(r"import jax|from jax|word2bits_tpu(?!_torch)")
     sources = [p for p in (REPO / "word2bits_tpu_torch").rglob("*")

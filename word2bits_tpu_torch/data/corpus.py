@@ -16,7 +16,7 @@ run, False runs Python.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -40,16 +40,38 @@ def _truncate_word(w: bytes) -> bytes:
     return w[: MAX_STRING - 2]
 
 
+def tokenize_bytes(data: bytes, drop_trailing: bool = True) -> Iterator[bytes]:
+    """Yield the tokens of raw corpus bytes one at a time, `</s>` as the
+    bytes b'</s>', scanning byte by byte as the reference ReadWord does:
+    only space, tab and newline separate words.  drop_trailing=False keeps
+    a final word that no separator ends (the reference drops it)."""
+    data = data.replace(b"\r", b"")
+    start = -1
+    for i, c in enumerate(data):
+        if c in (0x20, 0x09, 0x0A):   # space, tab, newline
+            if start >= 0:
+                yield _truncate_word(data[start:i])
+                start = -1
+            if c == 0x0A:
+                yield b"</s>"
+        elif start < 0:
+            start = i
+    if start >= 0 and not drop_trailing:
+        yield _truncate_word(data[start:])
+
+
 def split_tokens(data: bytes) -> List[bytes]:
-    """Token stream of raw corpus bytes, `</s>` as the bytes b'</s>'."""
+    """Token stream of raw corpus bytes, `</s>` as the bytes b'</s>': the
+    stream of tokenize_bytes, built from C-level splits.  Only space, tab
+    and newline separate words (bytes.split() with no argument would also
+    split on vertical tab and form feed, where the reference does not)."""
     data = data.replace(b"\r", b"")
     out: List[bytes] = []
-    segments = data.split(b"\n")
+    segments = data.replace(b"\t", b" ").split(b"\n")
     last = len(segments) - 1
     for si, seg in enumerate(segments):
-        words = seg.split()
-        if si == last and words and not (seg.endswith(b" ")
-                                         or seg.endswith(b"\t")):
+        words = [w for w in seg.split(b" ") if w]
+        if si == last and words and not seg.endswith(b" "):
             words = words[:-1]   # trailing word with no separator: dropped
         out.extend(_truncate_word(w) for w in words)
         if si != last:

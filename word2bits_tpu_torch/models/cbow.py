@@ -58,14 +58,10 @@ class Batch(NamedTuple):
     valid: torch.Tensor      # bool [B] — center is a real (non-pad) token
 
 
-def cbow_minibatch_update(u: torch.Tensor, v: torch.Tensor, batch: Batch,
-                          alpha, hyper: CBOWHyper):
-    """One synchronous SGD step on u and v IN PLACE. Returns (u, v, loss).
-    Computes in the tables' dtype, as the JAX package's step does."""
+def _context_stats(u: torch.Tensor, batch: Batch, hyper: CBOWHyper):
+    """Gathered and quantized context rows: (u_rows, context_avg, active,
+    ctx_reg), the masked mean and the per-center -reg term's sum."""
     dt = u.dtype
-    B = batch.centers.shape[0]
-    alpha = torch.as_tensor(alpha, dtype=dt, device=u.device)
-    # context statistics
     u_rows = u[batch.ctx_ids]                                  # [B, 2W, D]
     q_rows = quantize(u_rows, hyper.bitlevel)
     m = batch.ctx_mask[..., None].to(dt)
@@ -74,13 +70,20 @@ def cbow_minibatch_update(u: torch.Tensor, v: torch.Tensor, batch: Batch,
     active = batch.valid & (cw > 0)
     context_avg = csum / torch.clamp_min(cw, 1.0)[:, None]
     ctx_reg = ((q_rows * q_rows).sum(dim=-1) * batch.ctx_mask).sum(dim=1)
+    return u_rows, context_avg, active, ctx_reg
 
-    # center + negatives: labels 1, 0...; the skip quirk masks a negative
-    # equal to the center
+
+def _negative_stats(v: torch.Tensor, batch: Batch, context_avg, active,
+                    alpha, hyper: CBOWHyper):
+    """Center + negatives scored: (targets, v_rows, q_v, f, g, dmask,
+    loss sum), labels 1, 0...; the skip quirk masks a negative equal to
+    the center."""
+    dt = v.dtype
+    B = batch.centers.shape[0]
     targets = torch.cat([batch.centers[:, None], batch.neg_ids], dim=1)
-    labels = torch.zeros(targets.shape, dtype=dt, device=u.device)
+    labels = torch.zeros(targets.shape, dtype=dt, device=v.device)
     labels[:, 0] = 1.0
-    dmask = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=u.device),
+    dmask = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=v.device),
                        batch.neg_ids != batch.centers[:, None]],
                       dim=1) & active[:, None]
     v_rows = v[targets]                                        # [B, K+1, D]
@@ -91,6 +94,18 @@ def cbow_minibatch_update(u: torch.Tensor, v: torch.Tensor, batch: Batch,
     v_reg = hyper.reg * (q_v * q_v).sum(dim=-1)
     nloss = ((torch.log(sigmoid_exact(signed_f)) - v_reg)
              * dmask.to(dt)).sum()
+    return targets, v_rows, q_v, f, g, dmask, nloss
+
+
+def cbow_minibatch_update(u: torch.Tensor, v: torch.Tensor, batch: Batch,
+                          alpha, hyper: CBOWHyper):
+    """One synchronous SGD step on u and v IN PLACE. Returns (u, v, loss).
+    Computes in the tables' dtype, as the JAX package's step does."""
+    dt = u.dtype
+    alpha = torch.as_tensor(alpha, dtype=dt, device=u.device)
+    u_rows, context_avg, active, ctx_reg = _context_stats(u, batch, hyper)
+    targets, v_rows, q_v, _, g, dmask, nloss = _negative_stats(
+        v, batch, context_avg, active, alpha, hyper)
 
     D = u.shape[1]
     two_ar = 2.0 * alpha * hyper.reg
@@ -105,6 +120,19 @@ def cbow_minibatch_update(u: torch.Tensor, v: torch.Tensor, batch: Batch,
     u.index_add_(0, batch.ctx_ids.reshape(-1), du.reshape(-1, D).to(u.dtype))
     loss = nloss - hyper.reg * (ctx_reg * active.to(dt)).sum()
     return u, v, loss
+
+
+def cbow_forward_scores(u: torch.Tensor, v: torch.Tensor, batch: Batch,
+                        hyper: CBOWHyper):
+    """The forward pass alone: (scores f [B, K+1], loss), the center's
+    score first; u and v are not changed (the JAX package's
+    cbow_forward_scores, for the evaluation and entry paths)."""
+    _, context_avg, active, ctx_reg = _context_stats(u, batch, hyper)
+    _, _, _, f, _, _, nloss = _negative_stats(
+        v, batch, context_avg, active,
+        torch.ones((), dtype=u.dtype, device=u.device), hyper)
+    loss = nloss - hyper.reg * (ctx_reg * active.to(u.dtype)).sum()
+    return f, loss
 
 
 def assemble_batch(tokens: torch.Tensor, sent_ids: torch.Tensor, base: int,
