@@ -18,10 +18,12 @@ on an id whose rounded sum differs from the sum of its rounded pieces,
 non-banded random masks, [quantk] kernel 4 at the capacity export's
 block, on a bf16 table and on the whole 3.7M x 800 sum, [sweepk] kernel
 9 at kernel 2's shape, [sweepk edges] on a plan whose head id spans
-four blocks, and [spank edges]: kernels 2 and 3 on one id holding
+four blocks, [spank edges]: kernels 2 and 3 on one id holding
 102,400 rows, runs about the tile length, sentinels only and N = 0, in
 three dtype pairs at four widths, bit-equal to each other and from
-launch to launch), checks
+launch to launch, and [span paths]: kernel 2 through ops/scatter.
+scatter_add at the `add` routes' shapes, with one scatter timed through
+`index_add_` and through the sort and kernel 2), checks
 the steps and chunks of both engines on the card against the same code on
 the CPU ([step], the fused chunk's "sweep" scatter among them), and then
 drives the port's paths through their entry points, each with the
@@ -47,6 +49,18 @@ kernels' launch counts set to 0 just before and read just after:
                 split-table engine: per-center negatives, B = 256, shifted
                 sums, `add` scatter, float32) through `train.train` on
                 [train]'s corpus, cut to 4,096 steps, its vectors read back;
+  [determinism] same seed, same tables: (a) one step of every [step]
+                configuration, of skip-gram and of the 2 x 2 LocalMesh
+                bodies under utils/audit.ScatterAudit, no accumulating
+                scatter (index_add_, scatter_add_, ...) on a CUDA tensor;
+                (b) each [step] chunk twice from one state, and the Quick
+                start, -use-pallas, -hot-rows 2048 (no kernel 6), its
+                stratified and dense-hot strata, skip-gram, the block
+                dedup on both engines and the 2 x 2 mesh `add` route at
+                full width twice from one generator seed: bit-equal tables
+                and equal losses, and other tables from another seed; (c)
+                the Quick start through train.train at -seed 1 twice (the
+                vector files byte-equal) and at -seed 2 (different);
   [exact]       per-center at the JAX package's exact-mode throughput
                 flags (B = 4096, 128-step chunks, banded 256, span scatter,
                 context kernel): one chunk with materialized negative rows
@@ -305,6 +319,21 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         if queued or cycles >= 320_000_000:
             return start.elapsed_time(stop) / reps
         cycles *= 4
+
+
+def _host_us(fn, reps: int = 100, warmup: int = 5) -> float:
+    """Mean host time to issue fn() once, in µs: reps calls after a
+    synchronise and no synchronise among them (a hundred calls of a few
+    launches each stay inside the card's launch queue)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -620,6 +649,120 @@ def check_span(dev) -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
                 shapes=f"table [{V}, {C}] bf16, {N} f32 rows")
+
+
+# the `add` routes' scatters through ops/scatter.scatter_add (sort + kernel
+# 2): the Quick start's per-center v (B + B*K rows) and u (B + 2W rows)
+# into float32 [V, D]; the hot head buffer, float32 [HOT, 2D] (the fused
+# slab rows of a step, ids >= HOT dropped); a 2 x 2 mesh's v delta, float32
+# [V/2, D] on vocab shard 0 (one data shard's B/2 centers and their
+# negatives, the other shard's ids dropped)
+QS_B = 256
+
+
+def check_span_paths(dev) -> dict:
+    """Kernel 2 on the `add` routes' shapes through scatter_add: two calls
+    bit-equal, and bit-equal to kernel 2 launched through span_plan; each
+    float32 table held against the float64 sum of its rows
+    (atol 1e-5 + rtol 1e-5, as [spank edges] holds float32 tables; the
+    plain version's own float32 sums are printed beside).  Then, on the
+    card's clock, one `add`-route scatter through `index_add_` (the rows
+    cast to the table dtype, as the routes called it) and through
+    scatter_add (the stable sort and kernel 2), with the host's time to
+    issue each (_host_us), at the Quick start's shapes
+    and at the shipped shape ([span]'s 14,352 float32 rows into a
+    [70,000, 400] bf16 table)."""
+    from word2bits_tpu_torch.kernels.span_scatter import (
+        SENTINEL, scatter_add_span_plain, scatter_add_span_planned, span_plan)
+    from word2bits_tpu_torch.ops.scatter import scatter_add
+    rng = np.random.default_rng(SEED + 13)
+    V, Vs = SCATTER_V, SCATTER_V // 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    qs_v = _step_ids(rng, V, QS_B, QS_B * K, 0)
+    qs_u = _step_ids(rng, V, QS_B + 2 * W, 0, 0)
+    hot_ids = _step_ids(rng, V, B + 2 * W, 0, 0)
+    mesh_ids = _step_ids(rng, V, B // 2, (B // 2 // G) * P * K, 0)
+    mesh_ids = np.where(mesh_ids < Vs, mesh_ids, SENTINEL)
+    cases = (("quickstart v", qs_v, V, D, torch.float32),
+             ("quickstart u", qs_u, V, D, torch.float32),
+             ("hot head", hot_ids, HOT, 2 * D, torch.float32),
+             ("mesh delta", mesh_ids, Vs, D, torch.float32))
+    out, times = {}, {}
+    for name, ids_np, rows_t, C, tdt in cases:
+        ids = torch.from_numpy(ids_np).to(dev)
+        rows = torch.randn((ids.numel(), C), generator=gen, device=dev) * 0.01
+        base = (torch.rand((rows_t, C), generator=gen, device=dev) - 0.5
+                if name != "hot head" and name != "mesh delta"
+                else torch.zeros((rows_t, C), device=dev))
+        got = [scatter_add(base.clone().to(tdt), ids, rows) for _ in range(2)]
+        planned = scatter_add_span_planned(base.clone().to(tdt),
+                                           span_plan(ids, rows_t), rows)
+        plain = scatter_add_span_plain(base.clone().to(tdt), ids, rows)
+        keep = (ids >= 0) & (ids < rows_t)
+        exact = base.double().index_add_(0, ids[keep],
+                                         rows[keep].double()).float()
+        torch.cuda.synchronize()
+        if not torch.equal(_bits(got[0]), _bits(got[1])):
+            _fail(f"span paths ({name}): two calls not bit-equal")
+        if not torch.equal(_bits(got[0]), _bits(planned)):
+            _fail(f"span paths ({name}): not bit-equal to kernel 2 through "
+                  "span_plan")
+        err = _max_err(got[0], exact)
+        if not torch.allclose(got[0], exact, atol=1e-5, rtol=1e-5):
+            _fail(f"span paths ({name}): max abs err {err:.3e} against the "
+                  "float64 sum > atol 1e-5 + rtol 1e-5")
+        if torch.equal(got[0], base.to(tdt)):
+            _fail(f"span paths ({name}): the table did not change")
+        out[name] = dict(max_abs_err=err, plain_err=_max_err(plain, exact),
+                         rows=int(ids.numel()), table=[rows_t, C],
+                         digest=_digest(got[0]))
+        print(f"[span paths] {name}: {ids.numel()} rows into "
+              f"[{rows_t}, {C}] float32, two calls and the span_plan "
+              f"launch bit-equal (digest "
+              f"{_digest(got[0])}), max abs err {err:.3e} against the float64 "
+              f"sum (the plain version {out[name]['plain_err']:.3e})")
+    # one scatter through index_add_ and through sort + kernel 2
+    span_ids = torch.from_numpy(_step_ids(np.random.default_rng(SEED), V,
+                                          B + 2 * W, SCATTER_N - B - 2 * W,
+                                          64)).to(dev)
+    timed = (("quickstart v", torch.from_numpy(qs_v).to(dev), V, D,
+              torch.float32),
+             ("quickstart u", torch.from_numpy(qs_u).to(dev), V, D,
+              torch.float32),
+             ("shipped", span_ids, V, 2 * D, torch.bfloat16))
+    for name, ids, rows_t, C, tdt in timed:
+        rows = torch.randn((ids.numel(), C), generator=gen, device=dev) * 0.01
+        scratch = (torch.rand((rows_t, C), generator=gen, device=dev)
+                   - 0.5).to(tdt)
+        keep = ids < rows_t
+        ids_in, rows_in = ids[keep], rows[keep]
+        def lib():
+            return scratch.index_add_(0, ids_in, rows_in.to(tdt))
+
+        def ours():
+            return scatter_add(scratch, ids, rows)
+
+        lib_ms, ms = _time_ms(lib), _time_ms(ours)
+        lib_us, ours_us = _host_us(lib), _host_us(ours)
+        sort_ms = _time_ms(lambda: torch.sort(ids.to(torch.int32),
+                                              stable=True))
+        n_touched = int(torch.unique(ids_in).numel())
+        nbytes = (rows.numel() * 4 + ids.numel() * 8
+                  + 2 * n_touched * C * scratch.element_size())
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        times[name] = dict(index_add_ms=lib_ms, sort_kernel2_ms=ms,
+                           sort_ms=sort_ms, bound_ms=bound,
+                           index_add_host_us=lib_us,
+                           sort_kernel2_host_us=ours_us,
+                           rows=int(ids.numel()))
+        print(f"[span paths] one `add` scatter, {name} ({ids.numel()} rows "
+              f"into [{rows_t}, {C}] {str(tdt)[6:]}): index_add_ "
+              f"{lib_ms:.5f} ms, sort + kernel 2 {ms:.5f} ms "
+              f"({ms / lib_ms:.2f}x; the sort alone {sort_ms:.5f}), bound "
+              f"{bound:.5f} ms; host time to issue one call: index_add_ "
+              f"{lib_us:.1f} us, sort + kernel 2 {ours_us:.1f} us "
+              f"({_card_line()})")
+    return dict(holds=out, times=times)
 
 
 # ---------------------------------------------------------------- kernel 5
@@ -1844,25 +1987,13 @@ def check_sweep_edges(dev) -> None:
 
 
 # ------------------------------------------------------- step and chunk
-def check_step_and_chunk(dev) -> None:
-    """One step and a 3-step chunk of each engine on the card (kernels)
-    against the same calls on the CPU (plain versions), at a small shape
-    with injected draws, float32 tables: atol 1e-4 + rtol 1e-4, loss rtol
-    1e-5.  Configurations: the fused table with the span scatter, with the
-    sweep scatter (kernel 9) and with grmw under -loop-mode fori (context
-    kernel); the split tables at the
-    Quick start (per-center, shifted sums, add) and in the exact mode with
-    materialized and with rank-1 negative rows (span, banded, context
-    kernel); the score kernel on split and on fused tables; the hot/cold
-    split (with and without kernel 6, and with the score kernel), the
-    stratified lanes, the dense hot stratum with and without a cold map;
-    the RMW scatter (kernel 8); the block dedup on both engines."""
+def _step_cases() -> tuple:
+    """check_step_and_chunk's configurations at its small shape, float32
+    tables: (data, cases) with each case (name, fused, neg_sharing, kind,
+    with_map, kwargs, negs), its injected negatives drawn in order."""
     from word2bits_tpu_torch.data.pipeline import cold_positions
-    from word2bits_tpu_torch.models import cbow_fused as cf
-    from word2bits_tpu_torch.models import cbow_slab as cs
     from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
-    from word2bits_tpu_torch.sampling.unigram import (build_alias_table,
-                                                      build_stratified_tables)
+    from word2bits_tpu_torch.sampling.unigram import build_stratified_tables
     rng = np.random.default_rng(SEED + 1)
     v, d, b, w, k, g, p, s, h = 300, 16, 64, 3, 5, 8, 2, 3, 32
     hyper = CBOWHyper(bitlevel=1, size=d, window=w, negative=k)
@@ -1920,6 +2051,7 @@ def check_step_and_chunk(dev) -> None:
         ("dedup split", False, 0, "plain", False,
          dict(banded=0, dedup_block=64)),
     )
+    cases = []
     for name, fused, gg, kind, with_map, kw in configs:
         T = b // gg if gg else b
         if kind == "strat":
@@ -1933,42 +2065,89 @@ def check_step_and_chunk(dev) -> None:
         else:
             negs = torch.from_numpy(rng.integers(
                 1, v, (s, T, p * k) if gg else (s, b, k)))
+        cases.append((name, fused, gg, kind, with_map, kw, negs))
+    data = dict(hyper=hyper, tokens=tokens, sents=sents, shrinks=shrinks,
+                u0=u0, v0=v0, sc=sc, st=st, dense=dense, cold=cold, v=v,
+                b=b, w=w, s=s)
+    return data, cases
+
+
+def _run_step_case(data: dict, case: tuple, where, what=("step", "chunk")):
+    """One step and/or the 3-step chunk of a _step_cases case on device
+    `where`, each from the same state and injected draws: {what: (tables,
+    loss)} with the tables on `where`."""
+    from word2bits_tpu_torch.models import cbow_fused as cf
+    from word2bits_tpu_torch.models import cbow_slab as cs
+    from word2bits_tpu_torch.sampling.unigram import build_alias_table
+    name, fused, gg, kind, with_map, kw, negs = case
+    hyper, tokens, sents = data["hyper"], data["tokens"], data["sents"]
+    shrinks, u0, v0, st = data["shrinks"], data["u0"], data["v0"], data["st"]
+    dense, v, b, w, s = data["dense"], data["v"], data["b"], data["w"], \
+        data["s"]
+    st_in = cs.SlabInputs(
+        tokens[:b + 2 * w].to(where), sents[:b + 2 * w].to(where),
+        shrinks[0].to(where), negs[0].to(where))
+    alpha = torch.tensor(0.05, device=where)
+    if kind == "strat":
+        atab = (st.hot.to(where), st.cold.to(where))
+    elif kind == "dense":
+        atab = st.cold.to(where)
+    else:
+        atab = build_alias_table(np.ones(v)).to(where)
+    chunk_data = (tokens.to(where), sents.to(where), atab, data["sc"])
+    draws = dict(shrinks=shrinks.to(where), negs=negs.to(where))
+    step_kw = {x: y for x, y in kw.items() if x != "loop_mode"}
+    if with_map:
+        step_kw["cold_pos"] = data["cold"][0].to(where)
+        draws["cold_pos"] = data["cold"].to(where)
+    if kind == "dense":
+        step_kw["dense_hot"] = (dense[1], torch.from_numpy(
+            dense[2]).to(where))
+    out = {}
+    if fused:
+        t0 = torch.cat([u0, v0], dim=1).to(where)
+        if "step" in what:
+            tab, loss = cf.fused_slab_step(t0.clone(), st_in, alpha, hyper,
+                                           b, gg, **step_kw)
+            out["step"] = ((tab,), loss)
+        if "chunk" in what:
+            chunk = cf.make_fused_train_chunk(hyper, v, b, s, gg, **kw)
+            ctab, closs = chunk(t0.clone(), *chunk_data, **draws)
+            out["chunk"] = ((ctab,), closs)
+    else:
+        if "step" in what:
+            su, sv, loss = cs.slab_step(u0.clone().to(where),
+                                        v0.clone().to(where), st_in, alpha,
+                                        hyper, b, gg, **step_kw)
+            out["step"] = ((su, sv), loss)
+        if "chunk" in what:
+            chunk = cs.make_slab_train_chunk(hyper, v, b, s, gg, **kw)
+            cu, cv, closs = chunk(u0.clone().to(where), v0.clone().to(where),
+                                  *chunk_data, **draws)
+            out["chunk"] = ((cu, cv), closs)
+    return out
+
+
+def check_step_and_chunk(dev) -> None:
+    """One step and a 3-step chunk of each engine on the card (kernels)
+    against the same calls on the CPU (plain versions), at a small shape
+    with injected draws, float32 tables: atol 1e-4 + rtol 1e-4, loss rtol
+    1e-5.  Configurations (_step_cases): the fused table with the span
+    scatter, with the sweep scatter (kernel 9) and with grmw under
+    -loop-mode fori (context kernel); the split tables at the
+    Quick start (per-center, shifted sums, add) and in the exact mode with
+    materialized and with rank-1 negative rows (span, banded, context
+    kernel); the score kernel on split and on fused tables; the hot/cold
+    split (with and without kernel 6, and with the score kernel), the
+    stratified lanes, the dense hot stratum with and without a cold map;
+    the RMW scatter (kernel 8); the block dedup on both engines."""
+    data, cases = _step_cases()
+    for case in cases:
+        name = case[0]
         outs = {}
         for where in ("cpu", dev):
-            st_in = cs.SlabInputs(
-                tokens[:b + 2 * w].to(where), sents[:b + 2 * w].to(where),
-                shrinks[0].to(where), negs[0].to(where))
-            alpha = torch.tensor(0.05, device=where)
-            if kind == "strat":
-                atab = (st.hot.to(where), st.cold.to(where))
-            elif kind == "dense":
-                atab = st.cold.to(where)
-            else:
-                atab = build_alias_table(np.ones(v)).to(where)
-            data = (tokens.to(where), sents.to(where), atab, sc)
-            draws = dict(shrinks=shrinks.to(where), negs=negs.to(where))
-            step_kw = {x: y for x, y in kw.items() if x != "loop_mode"}
-            if with_map:
-                step_kw["cold_pos"] = cold[0].to(where)
-                draws["cold_pos"] = cold.to(where)
-            if kind == "dense":
-                step_kw["dense_hot"] = (dense[1], torch.from_numpy(
-                    dense[2]).to(where))
-            if fused:
-                t0 = torch.cat([u0, v0], dim=1).to(where)
-                tab, loss = cf.fused_slab_step(t0.clone(), st_in, alpha,
-                                               hyper, b, gg, **step_kw)
-                chunk = cf.make_fused_train_chunk(hyper, v, b, s, gg, **kw)
-                ctab, closs = chunk(t0.clone(), *data, **draws)
-                step, chunked = (tab,), (ctab,)
-            else:
-                su, sv, loss = cs.slab_step(u0.clone().to(where),
-                                            v0.clone().to(where), st_in,
-                                            alpha, hyper, b, gg, **step_kw)
-                chunk = cs.make_slab_train_chunk(hyper, v, b, s, gg, **kw)
-                cu, cv, closs = chunk(u0.clone().to(where),
-                                      v0.clone().to(where), *data, **draws)
-                step, chunked = (su, sv), (cu, cv)
+            run = _run_step_case(data, case, where)
+            (step, loss), (chunked, closs) = run["step"], run["chunk"]
             outs[str(where)] = ([t.cpu() for t in step], float(loss),
                                 [t.cpu() for t in chunked], float(closs))
         (t0_, l0, c0, cl0), (t1, l1, c1, cl1) = outs["cpu"], outs[str(dev)]
@@ -2485,6 +2664,303 @@ def train_quickstart(work: str, corpus: str, dev) -> tuple:
           f"{res.words_per_sec:.1f} words/sec); launches {launches}; "
           f"vectors file {vocab.size} x {D} of +-1/3")
     return launches, (vocab, encoded)
+
+
+# ------------------------------- [determinism]: same seed, same vectors
+# (b)'s routes at full width, (tag, flags, steps): each runs twice through
+# train.build_engine's chunk from the same generator seed (bit-equal
+# tables, equal losses) and once from another seed (different tables)
+DET_ROUTES = (
+    ("quickstart", QUICKSTART_FLAGS, 256),
+    ("pallas", PALLAS_FLAGS, S),
+    ("hot, no kernel 6", ADD_FLAGS + ["-hot-rows", str(HOT)], S),
+    ("stratified", ADD_FLAGS + ["-hot-rows", str(HOT), "-neg-stratify", "1"],
+     S),
+    ("dense-hot", ADD_FLAGS + ["-hot-rows", str(HOT), "-neg-dense-hot", "1"],
+     S),
+    ("skipgram", QUICKSTART_FLAGS + SG_FLAGS, 256),
+    ("dedup fused", ADD_FLAGS + ["-dedup-block", "1024"], S),
+    ("dedup split", QUICKSTART_FLAGS + ["-dedup-block", "1024"], 256),
+)
+DET_MESH_STEPS = 64              # the 2 x 2 LocalMesh on the `add` route
+DET_E2E_STEPS = 256              # (c): the Quick start through train.train
+
+
+def _sum_launches(total: dict, launches: dict) -> dict:
+    for n, c in launches.items():
+        total[n] = total.get(n, 0) + c
+    return total
+
+
+def _det_audit(dev) -> list:
+    """(a) One step of each _step_cases configuration, of skip-gram
+    (per-center and dense-hot) and of the 2 x 2 LocalMesh `add` body on
+    the card under utils/audit.ScatterAudit: the accumulating scatters
+    called on CUDA tensors, by route.  Returns the faults."""
+    from word2bits_tpu_torch.models import cbow_slab as cs
+    from word2bits_tpu_torch.models import skipgram as sg
+    from word2bits_tpu_torch.models.cbow import CBOWHyper
+    from word2bits_tpu_torch.parallel.chunk import make_sharded_chunk
+    from word2bits_tpu_torch.parallel.mesh import LocalMesh
+    from word2bits_tpu_torch.parallel.sharded_slab import _sharded_slab_body
+    from word2bits_tpu_torch.parallel.sharded_skipgram import \
+        _sharded_skipgram_body
+    from word2bits_tpu_torch.sampling.unigram import build_alias_table
+    from word2bits_tpu_torch.utils.audit import ScatterAudit
+    data, cases = _step_cases()
+    seen = {}
+    for case in cases:
+        with ScatterAudit() as audit:
+            _run_step_case(data, case, dev, what=("step",))
+        torch.cuda.synchronize()
+        seen[case[0]] = audit.on_cuda()
+    b, w, v = data["b"], data["w"], data["v"]
+    hyper = data["hyper"]
+    toks, sents = data["tokens"].to(dev), data["sents"].to(dev)
+    dense = data["dense"]
+    for name, dh in (("skipgram", False), ("skipgram dense-hot", True)):
+        negs = (cases[3][6] if not dh else torch.from_numpy(
+            np.random.default_rng(SEED + 2).integers(32, v, (3, b,
+                                                         dense[0]))))
+        st_in = cs.SlabInputs(toks[:b + 2 * w], sents[:b + 2 * w],
+                              data["shrinks"][0].to(dev), negs[0].to(dev))
+        step_dense = ((dense[1], torch.from_numpy(dense[2]).to(dev))
+                      if dh else None)
+        with ScatterAudit() as audit:
+            sg.skipgram_slab_step(
+                data["u0"].to(dev), data["v0"].to(dev), st_in,
+                torch.tensor(0.05, device=dev),
+                CBOWHyper(bitlevel=1, size=hyper.size, window=w,
+                          negative=negs.shape[-1]), b,
+                dense_hot=step_dense)
+        torch.cuda.synchronize()
+        seen[name] = audit.on_cuda()
+    atab = build_alias_table(np.ones(v)).to(dev)
+    g = 8
+    negs = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        1, v, (1, b // g, 2 * hyper.negative))).to(dev)
+    for name, body, kw in (
+            ("mesh 2x2 add", _sharded_slab_body,
+             dict(neg_sharing=g, neg_pool=2, banded=8, scatter_impl="add")),
+            ("mesh 2x2 skipgram", _sharded_skipgram_body,
+             dict(neg_sharing=g, neg_pool=2))):
+        chunk = make_sharded_chunk(body, hyper, LocalMesh(2, 2), v, v, b, 1,
+                                   **kw)
+        audits = []
+
+        def shard(comm):
+            ul = data["u0"][comm.rank % 2 * (v // 2):][:v // 2].to(dev)
+            vl = data["v0"][comm.rank % 2 * (v // 2):][:v // 2].to(dev)
+            with ScatterAudit() as audit:
+                audits.append(audit)
+                chunk(comm, ul, vl, toks, sents, atab, data["sc"],
+                      shrinks=data["shrinks"][:1].to(dev), negs=negs)
+            return None
+
+        LocalMesh(2, 2, dev).run(shard)
+        torch.cuda.synchronize()
+        seen[name] = [c for a in audits for c in a.on_cuda()]
+    faults = []
+    for name, calls in seen.items():
+        ops = sorted({f"{c.op} from {c.caller}" for c in calls})
+        print(f"[determinism] (a) {name}: "
+              f"{len(calls)} accumulating scatters on the card"
+              + (f": {'; '.join(ops)}" if ops else ""))
+        if calls:
+            faults.append(f"(a) {name}: {len(calls)} accumulating scatters "
+                          f"on the card ({'; '.join(ops)})")
+    return faults
+
+
+def _det_step_chunks(dev) -> list:
+    """(b) Each _step_cases configuration's 3-step chunk twice on the card
+    from the same tables and draws: the tables' digests and the losses
+    must be equal.  Returns the faults."""
+    data, cases = _step_cases()
+    faults = []
+    for case in cases:
+        runs = []
+        for _ in range(2):
+            tabs, loss = _run_step_case(data, case, dev, what=("chunk",))[
+                "chunk"]
+            runs.append(([_digest(t) for t in tabs], float(loss)))
+        same = runs[0] == runs[1]
+        print(f"[determinism] (b) {case[0]} 3-step chunk twice: digests "
+              f"{runs[0][0]} / {runs[1][0]}, losses {runs[0][1]!r} / "
+              f"{runs[1][1]!r}: {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            faults.append(f"(b) {case[0]}: two chunks from one state differ")
+    return faults
+
+
+def _det_epoch(cfg, vocab, encoded, dev, cache: dict):
+    """The host-built epoch of cfg's capacity (cached): (tokens, sents on
+    dev, host tokens, capacity)."""
+    from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
+    from word2bits_tpu_torch.train import segment_capacity
+    cap = segment_capacity(cfg, len(encoded))[1]
+    if (cap, cfg.window) not in cache:
+        ea = build_epoch_arrays(encoded, vocab.counts, cfg.sample,
+                                vocab.train_words, cfg.window,
+                                np.random.default_rng(SEED), capacity=cap)
+        cache[(cap, cfg.window)] = (
+            torch.from_numpy(ea.tokens).to(dev, torch.int64),
+            torch.from_numpy(ea.sent_ids).to(dev, torch.int64),
+            ea.tokens, cap)
+    return cache[(cap, cfg.window)]
+
+
+def _engine_run(cfg, vocab, epoch, cold, dev, steps: int, seed: int):
+    """`steps` steps of train.build_engine's chunk for cfg from its init,
+    the generator seeded `seed`: (tables, chunk losses, launches)."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
+    B_, S_ = cfg.batch_size, cfg.steps_per_chunk
+    hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=cfg.size,
+                      window=cfg.window, negative=cfg.negative, reg=cfg.reg)
+    engine = T.build_engine(cfg, vocab, T.init_tables(cfg, vocab.size, dev),
+                            hyper)
+    tokens, sents = epoch[:2]
+    kw = {"cold_pos": cold} if engine.cold_split else {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tabs, losses = list(engine.tables), []
+    denom = cfg.iter * float(vocab.train_words) + 1.0
+    _zero_launches()
+    for c in range(0, steps, S_):
+        sc = ChunkScalars(base0=cfg.window + c * B_,
+                          alpha0=cfg.effective_alpha,
+                          wca_start=float(c * B_), wca_per_step=float(B_),
+                          denom=denom)
+        *tabs, loss = engine.chunk_fn(*tabs, tokens, sents, engine.alias,
+                                      sc, gen, n_steps=min(S_, steps - c),
+                                      **kw)
+        losses.append(float(loss))
+    return tabs, losses, _read_launches()
+
+
+def _det_routes(dev, vocab, encoded) -> tuple:
+    """(b) DET_ROUTES and the 2 x 2 LocalMesh `add` route at full width:
+    seed SEED twice (bit-equal tables, equal losses), SEED + 1 once
+    (different tables).  Returns (faults, launches of the runs by
+    path)."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.config import config_from_argv
+    from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
+    from word2bits_tpu_torch.models.init import init_params
+    from word2bits_tpu_torch.sampling.unigram import (build_alias_table,
+                                                      draw_negatives)
+    faults, by_path, epochs = [], {}, {}
+
+    def judge(tag, runs, what):
+        (d1, l1), (d2, l2), (d3, _) = runs
+        same, other = (d1 == d2 and l1 == l2), d3 != d1
+        print(f"[determinism] (b) {tag}, {what}: seed {SEED} twice "
+              f"{d1} / {d2}, losses {l1} / {l2}: "
+              f"{'equal' if same else 'DIFFERENT'}; seed {SEED + 1} {d3}: "
+              f"{'different' if other else 'THE SAME'}")
+        if not same:
+            faults.append(f"(b) {tag}: two runs from seed {SEED} differ")
+        if not other:
+            faults.append(f"(b) {tag}: seed {SEED + 1} gave seed {SEED}'s "
+                          "tables")
+
+    for tag, flags, steps in DET_ROUTES:
+        cfg = config_from_argv(flags)
+        epoch = _det_epoch(cfg, vocab, encoded, dev, epochs)
+        cold = None
+        if cfg.fused_on and cfg.hot_rows and not cfg.device_epoch_on:
+            cold = torch.from_numpy(T.cold_map(cfg, epoch[2], epoch[3])).to(
+                dev, torch.int64)
+        runs, t0 = [], time.perf_counter()
+        for seed in (SEED, SEED, SEED + 1):
+            tabs, losses, launches = _engine_run(cfg, vocab, epoch, cold,
+                                                 dev, steps, seed)
+            runs.append(([_digest(t) for t in tabs], losses))
+            if seed == SEED:
+                _sum_launches(by_path.setdefault(tag, {}), launches)
+            del tabs
+        judge(tag, runs, f"{steps} steps of B={cfg.batch_size}, "
+              f"{cfg.dtype}, {time.perf_counter() - t0:.1f} s for 3 runs")
+    # the 2 x 2 LocalMesh on the `add` route (split bf16 tables, the
+    # shipped widths), its draws from the generator of each seed
+    V, n = vocab.size, DET_MESH_STEPS
+    tokens, sents = _epoch(vocab, encoded, dev, B, S, W)
+    atab = build_alias_table(vocab.unigram_weights()).to(dev)
+    scalars = ChunkScalars(base0=W, alpha0=0.1, wca_start=0.0,
+                           wca_per_step=float(B),
+                           denom=float(vocab.train_words) + 1.0)
+    hyper = CBOWHyper(bitlevel=1, size=D, window=W, negative=K)
+    kw = dict(neg_sharing=G, neg_pool=P, banded=TILE, scatter_impl="add")
+    runs, t0 = [], time.perf_counter()
+    for seed in (SEED, SEED, SEED + 1):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        shrinks = torch.randint(0, W, (n, B), generator=gen, device=dev)
+        negs = draw_negatives(gen, atab, (n, B // G, P * K), V)
+        u0, v0 = init_params(V, D, dtype=torch.bfloat16, device=dev)
+        mu, mv, loss, launches, _ = _local_mesh_chunk(
+            dev, 2, 2, u0, v0, n, kw, hyper, V, B,
+            (tokens, sents, atab, scalars, shrinks, negs), n)
+        runs.append(([_digest(mu), _digest(mv)], [loss]))
+        if seed == SEED:
+            _sum_launches(by_path.setdefault("mesh 2x2 add", {}), launches)
+        del mu, mv, u0, v0
+    judge("mesh 2x2 add", runs, f"{n} bf16 steps of B={B}, "
+          f"{time.perf_counter() - t0:.1f} s for 3 runs")
+    torch.cuda.empty_cache()
+    return faults, by_path
+
+
+def _det_end_to_end(work: str, dev, vocab, encoded) -> tuple:
+    """(c) The Quick start through train.train at -seed 1 twice and -seed
+    2 once, cut at DET_E2E_STEPS steps: the two -seed 1 vector files must
+    be byte-equal, the -seed 2 file different.  Returns (faults,
+    launches of the -seed 1 runs)."""
+    from word2bits_tpu_torch import train as T
+    from word2bits_tpu_torch.config import config_from_argv
+    digests, launches = [], {}
+    for i, seed in enumerate((1, 1, 2)):
+        out = os.path.join(work, f"determinism{i}.bin")
+        cfg = config_from_argv(QUICKSTART_FLAGS + ["-seed", str(seed),
+                                                   "-output", out])
+        _zero_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            T.train(cfg, vocab=vocab, encoded=encoded,
+                    max_steps=DET_E2E_STEPS, device=dev)
+        if seed == 1:
+            _sum_launches(launches, _read_launches())
+        with open(out, "rb") as f:
+            digests.append(hashlib.sha256(f.read()).hexdigest()[:16])
+        os.remove(out)
+    same, other = digests[0] == digests[1], digests[2] != digests[0]
+    print(f"[determinism] (c) the Quick start through train.train, "
+          f"{DET_E2E_STEPS} steps: -seed 1 twice {digests[0]} / "
+          f"{digests[1]}: {'byte-equal' if same else 'DIFFERENT'}; -seed 2 "
+          f"{digests[2]}: {'different' if other else 'THE SAME'}")
+    faults = []
+    if not same:
+        faults.append("(c) two -seed 1 vector files differ")
+    if not other:
+        faults.append("(c) -seed 2 wrote -seed 1's vector file")
+    return faults, launches
+
+
+def check_determinism(work: str, dev, vocab, encoded) -> dict:
+    """[determinism]: (a) the audit, (b) every route twice from one seed
+    (and its chunk twice from one state), (c) the Quick start's vector
+    files twice from -seed 1.  Fails on any fault, after all three parts
+    ran; returns the launches of (b)'s and (c)'s runs by path."""
+    t0 = time.perf_counter()
+    faults = _det_audit(dev) + _det_step_chunks(dev)
+    more, by_path = _det_routes(dev, vocab, encoded)
+    faults += more
+    more, by_path["quickstart e2e"] = _det_end_to_end(work, dev, vocab,
+                                                       encoded)
+    faults += more
+    print(f"[determinism] {time.perf_counter() - t0:.1f} s; "
+          f"{len(faults)} faults ({_card_line()})")
+    if faults:
+        _fail("determinism: " + "; ".join(faults))
+    return {f"determinism {tag}": c for tag, c in by_path.items()}
 
 
 # ------------------------------------------ [exact]: rank-1 A/B on card
@@ -3806,6 +4282,7 @@ def main() -> int:
 
     ctx200 = check_context(dev, B, D, "context")
     span = check_span(dev)
+    span["paths"] = check_span_paths(dev)
     score = check_score(dev)
     check_score_edges(dev)
     rank1 = check_rank1(dev)
@@ -3889,6 +4366,7 @@ def main() -> int:
         by_path["flagship run"] = run_flagship_tool(work)
         check_accuracy(dev, vec_path, 0, 2000, "train.bin")
         by_path["quickstart"], prepared = train_quickstart(work, corpus, dev)
+        by_path.update(check_determinism(work, dev, *prepared))
         mesh["local"] = check_local_mesh(dev, *prepared)
         for tag, launches in mesh["local"].pop("launches").items():
             by_path[f"mesh {tag}"] = launches
@@ -3927,7 +4405,7 @@ def main() -> int:
             "plan_ms", "stratified_extra_ms", "stratified_extra_bound_ms",
             "stratified_extra_library_ms", "bf16", "whole_ms",
             "whole_bound_ms", "export_blocks_ms", "export_blocks_plain_ms",
-            "mesh")
+            "mesh", "paths")
     print(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys if k in kd}
                                   for kd in kernels]}))

@@ -49,6 +49,17 @@ FLAGSHIP = ["-output", "1b800d_full.pack", "-packed", "1", "-size", "800",
             "-context-pallas", "1"]
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the training runs here are many tiny ops,
+    which several test workers' thread pools on one machine slow a
+    hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the README Quick start (the reference-default slab engine)
 QUICKSTART = ["-size", "200", "-window", "8", "-negative", "24", "-iter", "5",
               "-min-count", "5", "-bitlevel", "1", "-binary", "1"]

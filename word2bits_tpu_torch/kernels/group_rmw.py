@@ -110,12 +110,12 @@ def group_plan(ids: torch.Tensor, grp: int, chunk: int = 128) -> GroupPlan:
     new_grp = torch.ones_like(valid)
     new_grp[..., 1:] = wid[..., 1:] != wid[..., :-1]
     new_grp &= valid
-    # rows per group, seen from each position (invalid ones count in slot N)
-    gslot = torch.where(valid, torch.cumsum(new_grp, dim=-1) - 1, N)
-    grp_rows = torch.zeros(ids.shape[:-1] + (N + 1,), dtype=torch.int64,
-                           device=ids.device)
-    grp_rows.scatter_add_(-1, gslot, torch.ones_like(gslot))
-    heavy = grp_rows.gather(-1, gslot) > SPLIT_ROWS
+    # rows per group, seen from each position: the sorted group ids' run
+    # length (valid groups never share a group id with an invalid id)
+    wid = wid.contiguous()
+    grp_rows = (torch.searchsorted(wid, wid, right=True)
+                - torch.searchsorted(wid, wid))
+    heavy = grp_rows > SPLIT_ROWS
     new_vis = new_grp | (new_run & heavy)
     run_idx = torch.cumsum(new_run, dim=-1) - 1
     n_runs = new_run.sum(dim=-1)

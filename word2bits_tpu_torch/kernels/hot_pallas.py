@@ -54,7 +54,6 @@ import torch
 from word2bits_tpu_torch.kernels._build import check_launch, load_library
 from word2bits_tpu_torch.kernels.span_scatter import (tile_constants,
                                                       workspace)
-from word2bits_tpu_torch.ops.scatter import hot_slice_add
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -92,12 +91,23 @@ def hot_slice_add_plain(table: torch.Tensor, ids: torch.Tensor,
                         extra: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """The plain PyTorch version, in place: `extra` rounds into the head
-    first, then ops/scatter.hot_slice_add adds the rows' float32 sums."""
+    first, then the rows' float32 sums (an index_add_ into a float32
+    [H, C] buffer, the sums of ops/scatter.hot_slice_add) are added with
+    one rounding."""
     H = int(hot_rows)
     if extra is not None:
         table[:H] = (table[:H].to(torch.float32)
                      + extra.to(torch.float32)).to(table.dtype)
-    return hot_slice_add(table, ids, rows, H)
+    H = min(H, table.shape[0])
+    mm_dtype = torch.bfloat16 if table.dtype == torch.bfloat16 else rows.dtype
+    hot = (ids >= 0) & (ids < H)
+    acc = torch.zeros((H, table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    acc.index_add_(0, torch.where(hot, ids, 0),
+                   torch.where(hot[:, None], rows.to(mm_dtype), 0)
+                   .to(torch.float32))
+    table[:H] = (table[:H].to(torch.float32) + acc).to(table.dtype)
+    return table
 
 
 @functools.lru_cache(maxsize=None)

@@ -35,15 +35,22 @@ its gather; PyTorch fuses nothing, so here it saves a write and a read of
 that block (PERF.md has both times).  The two entry points sum in one
 order, so they are bit-equal on the same rows.
 
-`scatter_add_span_planned` / `scatter_add_span` / `scatter_add_span_rank1`
-run the plain version for CPU tensors (an f32 `index_add_` into a temporary
+`scatter_add_span_sorted` launches the kernel from the two arrays it reads
+of a plan, the stable sort's sorted ids and order: ops/scatter.scatter_add
+sorts once per call and takes it for every plain scatter-add of the
+training path on the card (the `add` routes, the cold rows of the hot/cold
+split, the block dedup, the hot head's float32 sum, the mesh's deltas), so
+the same seed gives the same tables.
+
+`scatter_add_span_planned` / `scatter_add_span` / `scatter_add_span_sorted`
+/ `scatter_add_span_rank1` run the plain version for CPU tensors (an f32 `index_add_` into a temporary
 holding the touched rows, then one cast-add) and launch the kernel for
 CUDA tensors, raising on what it does not take; there is no fallback.
 Every launch on a device uses the same workspace (`workspace`, shared
 with kernels 6, 7 and 8), so two calls must not run at once on different
 streams; no path of the port does that.
-`scatter_add_span_planned.launches` and `scatter_add_span_rank1.launches`
-count kernel launches.
+`scatter_add_span_planned.launches` (kernel 2, through either of its entry
+points) and `scatter_add_span_rank1.launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -160,10 +167,12 @@ def tile_constants(config_fn) -> dict:
     return dict(zip(("L", "THREADS", "SUB", "IB", "GROUP"), out))
 
 
-def _check(fn: str, table, plan: SpanPlan, rows, C: int, *others) -> None:
-    """Raise on anything the kernel does not take; `rows` is the
-    materialized (or dense) row block, `others` are (name, tensor) pairs
-    of further float32 inputs."""
+def _check_sorted(fn: str, table, sids, order, rows, C: int,
+                  *others) -> None:
+    """Raise on anything the kernel does not take; `sids` and `order` are
+    one step's sorted ids and their source rows (what the kernel reads of
+    a plan), `rows` the materialized (or dense) row block, `others`
+    (name, tensor) pairs of further float32 inputs."""
     dev = table.device
     if table.dtype not in _DTYPES:
         raise ValueError(f"{fn}: table dtype {table.dtype} is not float32 "
@@ -174,11 +183,10 @@ def _check(fn: str, table, plan: SpanPlan, rows, C: int, *others) -> None:
     if rows.dim() != 2 or rows.shape[1] != C:
         raise ValueError(f"{fn}: rows {tuple(rows.shape)} do not have the "
                          f"table's width {C}")
-    if plan.sids.dim() != 1:
+    if sids.dim() != 1 or order.shape != sids.shape:
         raise ValueError(f"{fn}: pass one step's plan (SpanPlan.step)")
-    for name, t in (("table", table), ("rows", rows), ("order", plan.order),
-                    ("sids", plan.sids), ("run_start", plan.run_start),
-                    ("n_runs", plan.n_runs), *others):
+    for name, t in (("table", table), ("rows", rows), ("order", order),
+                    ("sids", sids), *others):
         if t.device != dev:
             raise ValueError(f"{fn}: {name} is on {t.device}, table on {dev}")
         if not t.is_contiguous():
@@ -186,34 +194,45 @@ def _check(fn: str, table, plan: SpanPlan, rows, C: int, *others) -> None:
     for name, t in others:
         if t.dtype != torch.float32:
             raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
-    for name, t in (("order", plan.order), ("sids", plan.sids),
-                    ("run_start", plan.run_start), ("n_runs", plan.n_runs)):
+    for name, t in (("order", order), ("sids", sids)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{fn}: {name} must be int32")
+
+
+def _check(fn: str, table, plan: SpanPlan, rows, C: int, *others) -> None:
+    """_check_sorted on a plan, whose other fields must be well formed
+    too."""
+    _check_sorted(fn, table, plan.sids, plan.order, rows, C, *others)
+    for name, t in (("run_start", plan.run_start), ("n_runs", plan.n_runs)):
+        if t.device != table.device or not t.is_contiguous():
+            raise ValueError(f"{fn}: plan.{name} must be contiguous on "
+                             f"{table.device}")
         if t.dtype != torch.int32:
             raise ValueError(f"{fn}: plan.{name} must be int32")
     if plan.run_start.shape[-1] != plan.sids.shape[-1] + 1:
         raise ValueError(f"{fn}: plan.run_start must have N+1 entries")
 
 
-def _plan_ptrs(plan: SpanPlan, C: int):
-    """The kernel's plan and workspace pointers."""
-    lib, N = _library(), plan.sids.shape[-1]
-    part, count = workspace(plan.sids.device, lib.w2b_span_partials(N, C),
+def _plan_ptrs(sids, order, C: int):
+    """The kernel's sorted-id, order and workspace pointers."""
+    lib, N = _library(), sids.shape[-1]
+    part, count = workspace(sids.device, lib.w2b_span_partials(N, C),
                             lib.w2b_span_counters(N, C))
-    return (plan.sids.data_ptr(), plan.order.data_ptr(), part.data_ptr(),
+    return (sids.data_ptr(), order.data_ptr(), part.data_ptr(),
             count.data_ptr())
 
 
-def _launch(table, plan: SpanPlan, rows):
+def _launch(table, sids, order, rows):
+    """Kernel 2 on checked inputs (_check_sorted)."""
     V, C = table.shape
-    N = plan.sids.shape[-1]
-    _check("scatter_add_span", table, plan, rows, C)
+    N = sids.shape[-1]
     if rows.shape[0] != N:
-        raise ValueError(f"scatter_add_span: {rows.shape[0]} rows vs a plan "
-                         f"of {N} ids")
+        raise ValueError(f"scatter_add_span: {rows.shape[0]} rows vs "
+                         f"{N} sorted ids")
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _library().w2b_span_scatter(
-        table.data_ptr(), rows.data_ptr(), *_plan_ptrs(plan, C), N, V, C,
-        _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
+        table.data_ptr(), rows.data_ptr(), *_plan_ptrs(sids, order, C), N,
+        V, C, _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
     check_launch("w2b_span_scatter", err)
     scatter_add_span_planned.launches += 1
     return table
@@ -229,10 +248,31 @@ def scatter_add_span_planned(table: torch.Tensor, plan: SpanPlan,
     if table.device.type != "cuda":
         raise ValueError("scatter_add_span runs on cpu (plain version) or "
                          f"cuda (kernel), not {table.device}")
-    return _launch(table, plan, rows)
+    _check("scatter_add_span", table, plan, rows, table.shape[1])
+    return _launch(table, plan.sids, plan.order, rows)
 
 
 scatter_add_span_planned.launches = 0
+
+
+def scatter_add_span_sorted(table: torch.Tensor, sids: torch.Tensor,
+                            order: torch.Tensor,
+                            rows: torch.Tensor) -> torch.Tensor:
+    """table[ids] += rows in place from the ids' stable sort alone: sids
+    [N] int32 the sorted ids and order [N] int32 the source row of each
+    sorted slot (torch.sort(ids, stable=True)), rows [N, C] in float32 or
+    the table dtype, in the ids' original order.  What the kernel reads of
+    a span_plan, for a caller that sorts once per call
+    (ops/scatter.scatter_add); its launches count with
+    scatter_add_span_planned's."""
+    if table.device.type == "cpu":
+        return scatter_add_span_plain(table, sids, rows[order.long()])
+    if table.device.type != "cuda":
+        raise ValueError("scatter_add_span runs on cpu (plain version) or "
+                         f"cuda (kernel), not {table.device}")
+    _check_sorted("scatter_add_span", table, sids, order, rows,
+                  table.shape[1])
+    return _launch(table, sids, order, rows)
 
 
 def scatter_add_span(table: torch.Tensor, ids: torch.Tensor,
@@ -273,7 +313,8 @@ def _launch_rank1(table, plan: SpanPlan, dense_rows, g, cavg, per_src: int):
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _library().w2b_span_scatter_rank1(
         table.data_ptr(), dense_rows.data_ptr(), g.data_ptr(),
-        cavg.data_ptr(), *_plan_ptrs(plan, C), N, nd, per_src, V, C,
+        cavg.data_ptr(), *_plan_ptrs(plan.sids, plan.order, C), N, nd,
+        per_src, V, C,
         _DTYPES[table.dtype], _DTYPES[dense_rows.dtype], stream)
     check_launch("w2b_span_scatter_rank1", err)
     scatter_add_span_rank1.launches += 1

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from word2bits_tpu_torch.ops.quantize import quantize
+from word2bits_tpu_torch.ops.scatter import scatter_add
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 
 
@@ -112,12 +113,12 @@ def cbow_minibatch_update(u: torch.Tensor, v: torch.Tensor, batch: Batch,
     # v[target] += g*context_avg - 2*alpha*reg*v[target]
     dv = (g[..., None] * context_avg[:, None, :]
           - two_ar * v_rows * dmask[..., None])
-    v.index_add_(0, targets.reshape(-1), dv.reshape(-1, D).to(v.dtype))
+    scatter_add(v, targets.reshape(-1), dv.reshape(-1, D))
     # u[ctx] += sum_d g_d*quantize(v[target_d]) - 2*alpha*reg*u[ctx]
     context_avge = torch.bmm(g[:, None, :], q_v)[:, 0]         # [B, D]
     cm = (batch.ctx_mask & active[:, None])[..., None].to(dt)
     du = (context_avge[:, None, :] - two_ar * u_rows) * cm
-    u.index_add_(0, batch.ctx_ids.reshape(-1), du.reshape(-1, D).to(u.dtype))
+    scatter_add(u, batch.ctx_ids.reshape(-1), du.reshape(-1, D))
     loss = nloss - hyper.reg * (ctx_reg * active.to(dt)).sum()
     return u, v, loss
 

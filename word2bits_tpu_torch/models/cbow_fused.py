@@ -9,7 +9,8 @@ through the fused score kernel (`use_pallas`) or its plain version; the
 banded or shifted-sum windowed sums, with or without the fused context
 kernel; and every parameter-update route of its step:
 
-- the `add` (index_add_), `span` (sorted kernel, the shipped throughput
+- the `add` (ops/scatter.scatter_add), `span` (sorted kernel, the shipped
+  throughput
   configuration), `grmw` (sorted group-RMW kernel, the 3.7M x 800d
   capacity configuration) or `sweep` (kernel 9, kernels/sweep_scatter.py,
   which the JAX package keeps behind the span scatter and its config
@@ -59,7 +60,7 @@ from word2bits_tpu_torch.models.cbow_slab import (
     u_update_rows)
 from word2bits_tpu_torch.ops.quantize import quantize
 from word2bits_tpu_torch.ops.scatter import (add_rows_where, hot_slice_add,
-                                             scatter_add_dedup)
+                                             scatter_add, scatter_add_dedup)
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.sampling.unigram import (
     AliasTable, draw_cold, draw_negatives, draw_negatives_stratified)
@@ -252,7 +253,7 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
             scatter_add_dedup(table, ids, rows.to(table.dtype), dedup_block)
     else:
         def scat(ids, rows):
-            table.index_add_(0, ids, rows.to(table.dtype))
+            scatter_add(table, ids, rows)
 
     if not hot_rows:
         scat(slab_ids, fused_rows)
@@ -293,13 +294,12 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
         add_rows_where(table, slab_ids[posc], fused_rows[posc], ok)
     if strat_lanes is not None:
         if Kl - kh:   # cold lanes: compact by construction
-            table.index_add_(0, negs4[:, :, kh:].reshape(-1),
-                             _v_rows(dv4[:, :, kh:].reshape(-1, D))
-                             .to(table.dtype))
+            scatter_add(table, negs4[:, :, kh:].reshape(-1),
+                        _v_rows(dv4[:, :, kh:].reshape(-1, D)))
         return table, loss
     if dense_hot is not None:
         # the sampled lanes are all cold (ids >= hot_rows)
-        table.index_add_(0, neg_ids, _v_rows(dv_neg).to(table.dtype))
+        scatter_add(table, neg_ids, _v_rows(dv_neg))
         return table, loss
     scat(neg_ids, _v_rows(dv_neg))
     return table, loss

@@ -13,7 +13,8 @@ cbow_minibatch_update` modulo float order (tested equal).
 
 Every branch the configuration reaches is here: per-center and shared
 negatives; shifted-sum and banded windows; reg = 0 and > 0; the `add`
-(index_add_) and `span` (sorted kernel, csrc/span_scatter.cu) scatters on
+(ops/scatter.scatter_add) and `span` (sorted kernel, csrc/span_scatter.cu,
+with the plan hoisted to the chunk) scatters on
 u and v, and the JAX package's whole `scat` switch besides (the block
 dedup, `dedup_block`, ops/scatter.py; the hot/cold split `scatter_add_hot`,
 `hot_rows`, reachable through this API only: the configuration asks for
@@ -41,7 +42,7 @@ from word2bits_tpu_torch.models.cbow import (
     CBOWHyper, ChunkScalars, chunk_slabs, step_alphas)
 from word2bits_tpu_torch.ops.quantize import quantize
 from word2bits_tpu_torch.ops.scatter import (add_rows_where, hot_slice_add,
-                                             scatter_add_dedup)
+                                             scatter_add, scatter_add_dedup)
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.ops.windowed import (
     _tile_windows, banded_context, banded_usum, build_banded_masks, pick_tile)
@@ -236,7 +237,7 @@ def scatter_add_hot(table: torch.Tensor, ids: torch.Tensor,
     dtype.  The JAX package's scatter_add_hot (a one-hot product there)."""
     rows = rows.to(table.dtype)
     if hot_rows <= 0:
-        return table.index_add_(0, ids, rows)
+        return scatter_add(table, ids, rows)
     hot_slice_add(table, ids, rows, hot_rows)
     return add_rows_where(table, ids, rows, ids >= hot_rows)
 

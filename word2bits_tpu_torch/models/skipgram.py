@@ -17,8 +17,9 @@ hot_w[h] ([B*2W, H] products), its head update computed from the v rows as
 they were before the step and added after the sampled scatters; the sampled
 negatives are then cold-stratum draws offset by H, weighted by w_cold.
 
-Every scatter adds rows rounded to the table dtype (`index_add_`, or the
-block dedup `-dedup-block`), the v scatters centers first, negatives
+Every scatter adds rows rounded to the table dtype (ops/scatter.
+scatter_add, or the block dedup `-dedup-block`), the v scatters centers
+first, negatives
 second; all compute is float32.  Skip-gram reaches no TPU kernel in the
 JAX package, so none runs here.
 """
@@ -35,7 +36,7 @@ from word2bits_tpu_torch.models.cbow import (CBOWHyper, ChunkScalars,
 from word2bits_tpu_torch.models.cbow_slab import (SlabInputs, _context_masks,
                                                   from_tiles, to_tiles)
 from word2bits_tpu_torch.ops.quantize import quantize
-from word2bits_tpu_torch.ops.scatter import scatter_add_dedup
+from word2bits_tpu_torch.ops.scatter import scatter_add, scatter_add_dedup
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.sampling.unigram import (AliasTable, draw_cold,
                                                   draw_negatives)
@@ -69,7 +70,7 @@ def skipgram_slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs,
         if dedup_block:
             scatter_add_dedup(tab, ids, rows.to(tab.dtype), dedup_block)
         else:
-            tab.index_add_(0, ids, rows.to(tab.dtype))
+            scatter_add(tab, ids, rows)
 
     slab_ids = inputs.slab_tokens.clamp_min(0)
     centers = slab_ids[W:W + B]

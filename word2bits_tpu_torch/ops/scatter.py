@@ -1,10 +1,19 @@
-"""Duplicate-combining and hot-row scatter-adds of the parameter updates.
+"""The plain scatter-add of the parameter updates, and its duplicate-combining
+and hot-row forms.
 
-The counterparts of the JAX package's ops/scatter.py, which computes them in
-XLA outside any Pallas kernel; here they are plain PyTorch and update the
+The counterparts of the JAX package's ops/scatter.py and of its XLA
+scatters (`table.at[ids].add(rows.astype(table.dtype))`); they update the
 table IN PLACE.  Float32 sums stay float32 (no TF32: the products below are
 on 0/1 masks and run with `allow_tf32` off, as on the whole training path).
 
+- `scatter_add`: every plain scatter-add of the training path.  XLA's
+  scatter is deterministic, and so is this one: on the CPU it is
+  `index_add_`, which adds in index order; on a CUDA tensor, where
+  `index_add_`'s atomics add in arrival order (so the same seed would not
+  give the same vectors), a stable sort of the ids and kernel 2
+  (kernels/span_scatter.scatter_add_span_sorted), which sums each id's
+  rows in float32 in the sorted order and adds once.  Ids outside [0, V)
+  (the drop SENTINEL, -1 padding) are dropped, as by XLA's mode="drop".
 - `scatter_add_dedup` (`-dedup-block M`): blocks of M rows; inside a block
   the rows of equal ids are summed in float32 by a 0/1 mask product
   (`_combine_block`), rounded to the rows' dtype, and added once per id;
@@ -14,9 +23,10 @@ on 0/1 masks and run with `allow_tf32` off, as on the whole training path).
   lies in [0, H) is summed in float32 into the head table[:H] (the vocab
   is count-sorted, so these are the frequent words), plus an optional
   dense float32 delta `extra`, with ONE rounding of the head.  The JAX
-  package forms the sum as a one-hot [N, H] product; here it is an
-  `index_add_` into a float32 [H, C] buffer (the same sums in another
-  order).  Kernel 6 (kernels/hot_pallas.py) computes the same function.
+  package forms the sum as a one-hot [N, H] product; here it is a
+  `scatter_add` into a float32 [H, C] buffer (the same sums in another
+  order, deterministic, without the [N, H] operand).  Kernel 6
+  (kernels/hot_pallas.py) computes the same function.
 - `add_rows_where`: `table[ids[keep]] += rows[keep]` without a host sync.
 - `scatter_add_sorted`: the plain scatter-add with the ids sorted first
   (the JAX package's probe of XLA's sorted-scatter path; no route of the
@@ -29,17 +39,33 @@ from typing import Optional
 
 import torch
 
+from word2bits_tpu_torch.kernels.span_scatter import scatter_add_span_sorted
+
 SENTINEL = 0x7FFFFFF0   # the drop id, as in the JAX package
+
+
+def scatter_add(table: torch.Tensor, ids: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """table.at[ids].add(rows.astype(table.dtype), mode="drop"), in place:
+    ids [N] (those outside [0, V) dropped), rows [N, C].  On a CUDA tensor
+    a stable sort of the ids and kernel 2, which raises on what it does
+    not take (there is no fallback)."""
+    if table.device.type == "cpu":
+        keep = (ids >= 0) & (ids < table.shape[0])
+        return table.index_add_(0, ids[keep], rows[keep].to(table.dtype))
+    sids, order = torch.sort(ids.to(torch.int32), stable=True)
+    if rows.dtype not in (torch.float32, table.dtype):
+        rows = rows.to(table.dtype)   # kernel 2 rounds float32 rows itself
+    return scatter_add_span_sorted(table, sids, order.to(torch.int32),
+                                   rows.contiguous())
 
 
 def add_rows_where(table: torch.Tensor, ids: torch.Tensor,
                    rows: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     """table[ids[keep]] += rows[keep] in the table dtype, in place.  The
-    dropped rows become zero rows added to row 0 (exact no-ops), so the
-    call never asks the device how many rows it keeps."""
-    ids = torch.where(keep, ids, 0)
-    rows = torch.where(keep[:, None], rows.to(table.dtype), 0)
-    return table.index_add_(0, ids, rows)
+    dropped rows take the drop SENTINEL, so the call never asks the device
+    how many rows it keeps."""
+    return scatter_add(table, torch.where(keep, ids, SENTINEL), rows)
 
 
 def _combine_block(ids: torch.Tensor, rows: torch.Tensor):
@@ -71,10 +97,8 @@ def scatter_add_dedup(table: torch.Tensor, ids: torch.Tensor,
         rows = torch.cat([rows, rows.new_zeros((pad, C))])
     ids2, combined = _combine_block(ids.reshape(nb, block),
                                     rows.reshape(nb, block, C))
-    V = table.shape[0]
     for b in range(nb):
-        add_rows_where(table, ids2[b], combined[b],
-                       (ids2[b] >= 0) & (ids2[b] < V))
+        scatter_add(table, ids2[b], combined[b])
     return table
 
 
@@ -90,12 +114,10 @@ def hot_slice_add(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
     bf16 product operands).  H is capped at the table's rows."""
     H = min(int(hot_rows), table.shape[0])
     mm_dtype = torch.bfloat16 if table.dtype == torch.bfloat16 else rows.dtype
-    hot = (ids >= 0) & (ids < H)
     acc = torch.zeros((H, table.shape[1]), dtype=torch.float32,
                       device=table.device)
-    acc.index_add_(0, torch.where(hot, ids, 0),
-                   torch.where(hot[:, None], rows.to(mm_dtype), 0)
-                   .to(torch.float32))
+    # the [H, C] buffer drops every id outside [0, H)
+    scatter_add(acc, ids, rows.to(mm_dtype).to(torch.float32))
     head = table[:H].to(torch.float32) + acc
     if extra is not None:
         head = head + extra.to(torch.float32)
@@ -106,6 +128,6 @@ def hot_slice_add(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
 def scatter_add_sorted(table: torch.Tensor, ids: torch.Tensor,
                        rows: torch.Tensor) -> torch.Tensor:
     """table[ids] += rows in place, the rows rounded to the table dtype and
-    added in the order of the sorted ids (duplicates stay separate adds)."""
-    order = torch.argsort(ids)
-    return table.index_add_(0, ids[order], rows[order].to(table.dtype))
+    added in the order of the stably sorted ids."""
+    order = torch.argsort(ids, stable=True)
+    return scatter_add(table, ids[order], rows[order])

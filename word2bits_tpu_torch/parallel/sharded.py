@@ -27,6 +27,7 @@ import torch
 
 from word2bits_tpu_torch.models.cbow import Batch, CBOWHyper
 from word2bits_tpu_torch.ops.quantize import quantize
+from word2bits_tpu_torch.ops.scatter import SENTINEL, scatter_add
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.parallel.mesh import (DATA_AXIS, VOCAB_AXIS,
                                                Collectives)
@@ -88,16 +89,15 @@ def _scatter_delta(comm: Collectives, ids: torch.Tensor, rows: torch.Tensor,
                    mask: torch.Tensor, vocab_shard_size: int, out_shape,
                    layout=None) -> torch.Tensor:
     """The masked row updates this shard owns, accumulated in float32 into
-    a local [Vs, D] delta (the rows of other shards dropped); `layout` as
-    in _gather_rows (the JAX package's _scatter_delta_layout)."""
+    a local [Vs, D] delta (the masked rows and those of other shards get
+    the drop SENTINEL); `layout` as in _gather_rows (the JAX package's
+    _scatter_delta_layout)."""
     Vs, D = out_shape
     owner, local = owner_local(ids, vocab_shard_size, layout)
-    mine = owner == comm.axis_index(VOCAB_AXIS)
-    local = torch.where(mine, local, Vs)            # row Vs: dropped
-    m = (mask & mine)[..., None].to(rows.dtype)
-    delta = torch.zeros((Vs + 1, D), dtype=rows.dtype, device=rows.device)
-    delta.index_add_(0, local.reshape(-1), (rows * m).reshape(-1, D))
-    return delta[:Vs]
+    keep = mask & (owner == comm.axis_index(VOCAB_AXIS))
+    delta = torch.zeros((Vs, D), dtype=rows.dtype, device=rows.device)
+    return scatter_add(delta, torch.where(keep, local, SENTINEL).reshape(-1),
+                       rows.reshape(-1, D))
 
 
 def sharded_minibatch_update(comm: Collectives, u_local: torch.Tensor,

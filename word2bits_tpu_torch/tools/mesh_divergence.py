@@ -10,8 +10,9 @@ afterwards) at the shipped widths on split tables (B = 8192, D = 200,
 window 8, 24 negatives, 64-center tiles with 2 pools, banded 256, the
 span scatter), one set of draws goes through
   * the single-device slab chunk with the `span` scatter (the reference),
-  * the same chunk with the `add` scatter (on the card, index_add_'s
-    atomics: the same updates summed in another order), and
+  * the same chunk with the `add` scatter (ops/scatter.scatter_add: the
+    same updates, each id's rows summed in float32 in the sorted order and
+    added once per step, where the span chunk's plan covers the chunk), and
   * each LocalMesh of --meshes (parallel/mesh.py: every shard in this
     process), run in lockstep with the reference.
 At each mark it prints, against the reference, the largest difference,

@@ -1,14 +1,15 @@
 """Where a training step's time goes on the card.
 
     python3 -m word2bits_tpu_torch.tools.profile_step
-        [--config shipped|flagship|rmw|quickstart|exact|pallas|hot|split|
-                  mesh|mesh-rmw]
+        [--config shipped|flagship|rmw|quickstart|skipgram|exact|pallas|hot|
+                  split|mesh|mesh-rmw]
         [--tokens N] [--steps S]
 
 `--config shipped` (the default) is the shipped throughput configuration
 (size 200, span scatter, fused tables); `quickstart` the README Quick
 start's flags (the reference-default split-table engine: per-center
-negatives, B = 256, shifted sums, `add` scatter); `exact` the per-center
+negatives, B = 256, shifted sums, `add` scatter); `skipgram` those flags
+with `-model skipgram`; `exact` the per-center
 mode at the JAX package's exact-mode throughput flags (B = 4096, banded
 256, span scatter, context kernel); `pallas` the shipped flags with
 `-scatter-impl add -use-pallas 1` (the score kernel); `hot` the shipped
@@ -17,7 +18,7 @@ split through kernel 6; each segment's cold map is built as train.train
 builds it); `split` the shipped flags on split tables without the context
 kernel (the slab engine), and `mesh` the same on the mesh trainer
 (parallel/) as a mesh of one shard on a one-rank NCCL group, kernel 2 on
-the shard's local ids.  These eight run on a synthetic text8-like corpus
+the shard's local ids.  These nine run on a synthetic text8-like corpus
 (written inside the checkout, removed afterwards).  `--config flagship` is the
 full-Wikipedia capacity configuration of docs/large_vocab.md:19-25
 (3,699,941 types, size 800, B = 16384, grmw scatter) on the in-memory
@@ -86,6 +87,7 @@ QUICKSTART = ["-size", "200", "-window", "8", "-negative", "24",
 CONFIGS = {
     "shipped": SHIPPED,
     "quickstart": QUICKSTART,
+    "skipgram": QUICKSTART + ["-model", "skipgram"],
     # tools/step_bench.py:200-218 of the JAX package
     "exact": QUICKSTART + ["-batch-size", "4096", "-steps-per-chunk", "128",
                            "-banded-tile", "256", "-scatter-impl", "span",
