@@ -223,7 +223,9 @@ def test_formerly_unported_flags_train_on_cpu(tmp_path, argv):
     (-device-epoch 1, also over several segments) and -profile-dir, each
     rejected by name before they were ported, train a few steps on the
     CPU: the tables move, the epoch is built where device_epoch_on says,
-    and -profile-dir writes one Chrome trace of the first chunk."""
+    and -profile-dir writes one Chrome trace of one chunk call, the run's
+    second, with the program's spans as host-thread events: one `chunk`
+    and its steps."""
     (tmp_path / "c.txt").write_text("a b c d e f a b c d\n" * 40)
     argv = [str(tmp_path / a) if a == "prof" else a for a in argv]
     jcfg = jconfig.config_from_argv(argv)     # a valid configuration for JAX
@@ -247,6 +249,16 @@ def test_formerly_unported_flags_train_on_cpu(tmp_path, argv):
     if cfg.profile_dir:
         traces = os.listdir(cfg.profile_dir)
         assert len(traces) == 1 and traces[0].endswith(".json")
+        with open(os.path.join(cfg.profile_dir, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        spans = [e for e in events if e.get("cat") == "w2b"]
+        assert [e["name"] for e in spans].count("chunk") == 1
+        # the second chunk call's steps
+        assert [e["name"] for e in spans].count("step") == res.chunks[1][0]
+        chunk = next(e for e in spans if e["name"] == "chunk")
+        ops = [e["ts"] for e in events if e.get("cat") == "cpu_op"]
+        assert any(chunk["ts"] <= t <= chunk["ts"] + chunk["dur"]
+                   for t in ops)
 
 
 @pytest.mark.parametrize("argv", [

@@ -22,7 +22,7 @@ three run the same in-place loop); the epoch built on the device
 (`-device-epoch`, resolved by `device_epoch_on` as in the JAX package) or
 on the host; the `-packed 1` export; checkpoint/resume (`-checkpoint-dir`,
 `-resume`, `-checkpoint-every-epoch`, train.save_checkpoint); a
-profiler trace of the first chunk (`-profile-dir`); and the (data, vocab)
+profiler trace of one steady chunk (`-profile-dir`); and the (data, vocab)
 mesh trainer (`-mesh-shape`, `-hot-interleave`, parallel/), one process a
 device.  A flag whose code the port lacks is rejected by name with a
 ValueError, never ignored: see UNSUPPORTED below (now empty).

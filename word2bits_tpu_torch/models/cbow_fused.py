@@ -64,6 +64,7 @@ from word2bits_tpu_torch.ops.scatter import (add_rows_where, hot_slice_add,
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.sampling.unigram import (
     AliasTable, draw_cold, draw_negatives, draw_negatives_stratified)
+from word2bits_tpu_torch.utils.trace import span
 
 SCATTER_IMPLS = ("add", "span", "grmw", "sweep")
 LOOP_MODES = ("scan", "fori", "unroll")
@@ -184,125 +185,138 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
     T = B // G
     alpha = torch.as_tensor(alpha, dtype=dt, device=dev)
 
-    slab_ids = inputs.slab_tokens.clamp_min(0)             # [B+2W]
-    centers = slab_ids[W:W + B]
-    # ONE gather: u rows for all positions + v rows for the centers
-    slab_raw = table[slab_ids]                             # [B+2W, 2D]
-    pos = positive_phase(slab_raw[:, :D], slab_raw[W:W + B, D:], inputs,
-                         alpha, hyper, B, banded, context_pallas)
-    # shared negatives (strided tiles); v-half gathered from the fused table
-    P = neg_pool if neg_pool and neg_pool > 1 else 1
-    negs = inputs.neg_ids                                  # [T, P*Kl]
-    Kl = negs.shape[1] // P            # == K, or kc under dense_hot
-    lane_w = None
-    if strat_lanes is not None:
-        kh, w_hot, w_cold = strat_lanes
-        lane_w = torch.where(torch.arange(Kl, device=dev) < kh,
-                             float(w_hot), float(w_cold)).to(dt).repeat(P)
-    elif dense_hot is not None:
-        lane_w = torch.full((P * Kl,), dense_hot[0], dtype=dt, device=dev)
-    v_n = table[negs][..., D:].to(dt)                      # [T, P*Kl, D]
-    cavge_neg, dv_neg, nloss = shared_negative_phase(
-        pos.cavg, pos.af, centers, negs, v_n, alpha, hyper, B, G, P,
-        use_pallas, lane_weight=lane_w)
-    loss = pos.loss + nloss
-    cavge = pos.cavge + cavge_neg
-    dv_hot = None
-    if dense_hot is not None:
-        hot_w = torch.as_tensor(dense_hot[1], dtype=dt, device=dev)
-        cavge_hot, dv_hot, hloss = _dense_hot_phase(
-            table, pos.cavg, pos.af, centers, hot_w, alpha, hyper, hot_rows)
-        loss = loss + hloss
-        cavge = cavge + cavge_hot
-    du_slab = u_update_rows(pos, cavge, alpha, hyper, B)
+    with span("step.gather"):
+        slab_ids = inputs.slab_tokens.clamp_min(0)         # [B+2W]
+        centers = slab_ids[W:W + B]
+        # ONE gather: u rows for all positions + v rows for the centers
+        slab_raw = table[slab_ids]                         # [B+2W, 2D]
+    with span("step.positive"):
+        pos = positive_phase(slab_raw[:, :D], slab_raw[W:W + B, D:], inputs,
+                             alpha, hyper, B, banded, context_pallas)
+    with span("step.negative"):
+        # shared negatives (strided tiles); v-half gathered from the fused
+        # table
+        P = neg_pool if neg_pool and neg_pool > 1 else 1
+        negs = inputs.neg_ids                              # [T, P*Kl]
+        Kl = negs.shape[1] // P            # == K, or kc under dense_hot
+        lane_w = None
+        if strat_lanes is not None:
+            kh, w_hot, w_cold = strat_lanes
+            lane_w = torch.where(torch.arange(Kl, device=dev) < kh,
+                                 float(w_hot),
+                                 float(w_cold)).to(dt).repeat(P)
+        elif dense_hot is not None:
+            lane_w = torch.full((P * Kl,), dense_hot[0], dtype=dt,
+                                device=dev)
+        v_n = table[negs][..., D:].to(dt)                  # [T, P*Kl, D]
+        cavge_neg, dv_neg, nloss = shared_negative_phase(
+            pos.cavg, pos.af, centers, negs, v_n, alpha, hyper, B, G, P,
+            use_pallas, lane_weight=lane_w)
+        loss = pos.loss + nloss
+        cavge = pos.cavge + cavge_neg
+        dv_hot = None
+        if dense_hot is not None:
+            hot_w = torch.as_tensor(dense_hot[1], dtype=dt, device=dev)
+            cavge_hot, dv_hot, hloss = _dense_hot_phase(
+                table, pos.cavg, pos.af, centers, hot_w, alpha, hyper,
+                hot_rows)
+            loss = loss + hloss
+            cavge = cavge + cavge_hot
+    with span("step.rows"):
+        du_slab = u_update_rows(pos, cavge, alpha, hyper, B)
 
-    # ONE fused row set for u-positions + center v-rows, then the
-    # negative rows (u-half zero)
-    dv_slab = torch.zeros((B + 2 * W, D), dtype=dt, device=dev)
-    dv_slab[W:W + B] = pos.dv_center
-    fused_rows = torch.cat([du_slab, dv_slab], dim=1)      # [B+2W, 2D]
-    neg_ids = negs.reshape(-1)
-    if scatter_impl == "sweep":
-        # one swept call for slab + negative rows, its plan built here as
-        # the JAX step builds it; float32 rows round to the table dtype
-        # inside the kernel
-        scatter_add_sweep(table, torch.cat([slab_ids, neg_ids]),
-                          torch.cat([fused_rows, _v_rows(dv_neg)]))
-        return table, loss
-    if scatter_impl in ("span", "grmw"):
-        # one sorted call for slab + negative rows (kernels/span_scatter.py,
-        # kernels/group_rmw.py); float32 rows round to the table dtype
-        # inside the kernels
-        all_rows = torch.cat([fused_rows, _v_rows(dv_neg)])
-        plan = span_plan
-        if plan is None:
-            plan = scatter_plan(scatter_impl, torch.cat([slab_ids, neg_ids]),
-                                table, span_chunk)
-        if scatter_impl == "span":
-            scatter_add_span_planned(table, plan, all_rows)
+        # ONE fused row set for u-positions + center v-rows, then the
+        # negative rows (u-half zero)
+        dv_slab = torch.zeros((B + 2 * W, D), dtype=dt, device=dev)
+        dv_slab[W:W + B] = pos.dv_center
+        fused_rows = torch.cat([du_slab, dv_slab], dim=1)  # [B+2W, 2D]
+        neg_ids = negs.reshape(-1)
+    with span("step.scatter"):
+        if scatter_impl == "sweep":
+            # one swept call for slab + negative rows, its plan built here
+            # as the JAX step builds it; float32 rows round to the table
+            # dtype inside the kernel
+            scatter_add_sweep(table, torch.cat([slab_ids, neg_ids]),
+                              torch.cat([fused_rows, _v_rows(dv_neg)]))
+            return table, loss
+        if scatter_impl in ("span", "grmw"):
+            # one sorted call for slab + negative rows
+            # (kernels/span_scatter.py, kernels/group_rmw.py); float32 rows
+            # round to the table dtype inside the kernels
+            all_rows = torch.cat([fused_rows, _v_rows(dv_neg)])
+            plan = span_plan
+            if plan is None:
+                plan = scatter_plan(scatter_impl,
+                                    torch.cat([slab_ids, neg_ids]), table,
+                                    span_chunk)
+            if scatter_impl == "span":
+                scatter_add_span_planned(table, plan, all_rows)
+            else:
+                scatter_add_grmw_planned(table, plan, all_rows,
+                                         chunk=span_chunk)
+            return table, loss
+
+        if rmw_scatter:
+            # kernel 8 rounds the float32 rows to the table dtype in
+            # registers
+            def scat(ids, rows):
+                scatter_add_rmw(table, ids, rows)
+        elif dedup_block:
+            def scat(ids, rows):
+                scatter_add_dedup(table, ids, rows.to(table.dtype),
+                                  dedup_block)
         else:
-            scatter_add_grmw_planned(table, plan, all_rows, chunk=span_chunk)
-        return table, loss
+            def scat(ids, rows):
+                scatter_add(table, ids, rows)
 
-    if rmw_scatter:
-        # kernel 8 rounds the float32 rows to the table dtype in registers
-        def scat(ids, rows):
-            scatter_add_rmw(table, ids, rows)
-    elif dedup_block:
-        def scat(ids, rows):
-            scatter_add_dedup(table, ids, rows.to(table.dtype), dedup_block)
-    else:
-        def scat(ids, rows):
-            scatter_add(table, ids, rows)
+        if not hot_rows:
+            scat(slab_ids, fused_rows)
+            scat(neg_ids, _v_rows(dv_neg))
+            return table, loss
 
-    if not hot_rows:
-        scat(slab_ids, fused_rows)
+        # the hot/cold split: ids < hot_rows (the vocabulary is
+        # count-sorted) accumulate densely into the head table[:hot_rows]
+        hot_ids, hot_mat = slab_ids, fused_rows
+        if strat_lanes is not None:
+            # stratified lanes: the first kh of each pool are hot by
+            # construction and join the head accumulation
+            negs4 = negs.reshape(T, P, Kl)
+            dv4 = dv_neg.reshape(T, P, Kl, D)
+            hot_ids = torch.cat([slab_ids, negs4[:, :, :kh].reshape(-1)])
+            hot_mat = torch.cat([fused_rows,
+                                 _v_rows(dv4[:, :, :kh].reshape(-1, D))])
+        extra = None if dv_hot is None else _v_rows(dv_hot)  # [H, 2D]
+        if cold_pos is None:
+            # no cold-position map: the plain slab scatter, plus only the
+            # dense-hot head delta
+            if strat_lanes is not None:
+                raise ValueError("strat_lanes requires cold_pos (it exists "
+                                 "only for the hot/cold scatter split)")
+            if extra is not None:
+                table[:hot_rows] = (table[:hot_rows].to(dt)
+                                    + extra).to(table.dtype)
+            scat(slab_ids, fused_rows)
+        else:
+            if hot_pallas:
+                hot_slice_add_pallas(table, hot_ids, hot_mat, hot_rows,
+                                     extra=extra, plan=hot_plan)
+            else:
+                hot_slice_add(table, hot_ids, hot_mat, hot_rows, extra=extra)
+            # the cold rows, compacted by the epoch's precomputed positions
+            ok = cold_pos >= 0
+            posc = cold_pos.clamp_min(0)
+            add_rows_where(table, slab_ids[posc], fused_rows[posc], ok)
+        if strat_lanes is not None:
+            if Kl - kh:   # cold lanes: compact by construction
+                scatter_add(table, negs4[:, :, kh:].reshape(-1),
+                            _v_rows(dv4[:, :, kh:].reshape(-1, D)))
+            return table, loss
+        if dense_hot is not None:
+            # the sampled lanes are all cold (ids >= hot_rows)
+            scatter_add(table, neg_ids, _v_rows(dv_neg))
+            return table, loss
         scat(neg_ids, _v_rows(dv_neg))
         return table, loss
-
-    # the hot/cold split: ids < hot_rows (the vocabulary is count-sorted)
-    # accumulate densely into the head table[:hot_rows]
-    hot_ids, hot_mat = slab_ids, fused_rows
-    if strat_lanes is not None:
-        # stratified lanes: the first kh of each pool are hot by
-        # construction and join the head accumulation
-        negs4 = negs.reshape(T, P, Kl)
-        dv4 = dv_neg.reshape(T, P, Kl, D)
-        hot_ids = torch.cat([slab_ids, negs4[:, :, :kh].reshape(-1)])
-        hot_mat = torch.cat([fused_rows,
-                             _v_rows(dv4[:, :, :kh].reshape(-1, D))])
-    extra = None if dv_hot is None else _v_rows(dv_hot)    # [H, 2D]
-    if cold_pos is None:
-        # no cold-position map: the plain slab scatter, plus only the
-        # dense-hot head delta
-        if strat_lanes is not None:
-            raise ValueError("strat_lanes requires cold_pos (it exists only "
-                             "for the hot/cold scatter split)")
-        if extra is not None:
-            table[:hot_rows] = (table[:hot_rows].to(dt)
-                                + extra).to(table.dtype)
-        scat(slab_ids, fused_rows)
-    else:
-        if hot_pallas:
-            hot_slice_add_pallas(table, hot_ids, hot_mat, hot_rows,
-                                 extra=extra, plan=hot_plan)
-        else:
-            hot_slice_add(table, hot_ids, hot_mat, hot_rows, extra=extra)
-        # the cold rows, compacted by the epoch's precomputed positions
-        ok = cold_pos >= 0
-        posc = cold_pos.clamp_min(0)
-        add_rows_where(table, slab_ids[posc], fused_rows[posc], ok)
-    if strat_lanes is not None:
-        if Kl - kh:   # cold lanes: compact by construction
-            scatter_add(table, negs4[:, :, kh:].reshape(-1),
-                        _v_rows(dv4[:, :, kh:].reshape(-1, D)))
-        return table, loss
-    if dense_hot is not None:
-        # the sampled lanes are all cold (ids >= hot_rows)
-        scatter_add(table, neg_ids, _v_rows(dv_neg))
-        return table, loss
-    scat(neg_ids, _v_rows(dv_neg))
-    return table, loss
 
 
 def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
@@ -380,41 +394,47 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
               cold_pos: Optional[torch.Tensor] = None):
         dev = table.device
         S = steps if n_steps is None else n_steps
-        slab_tokens, slab_sents = chunk_slabs(tokens, sent_ids,
-                                              scalars.base0, S, B, W)
-        if shrinks is None:
-            shrinks = torch.randint(0, W, (S, B), generator=gen, device=dev)
-        if negs is None:
-            if strat_lanes is not None:
-                hot_t, cold_t = atab
-                negs = draw_negatives_stratified(gen, hot_t, cold_t, (S, T),
-                                                 P, K, strat_lanes[0],
-                                                 hot_rows)
-            elif dense_hot is not None:
-                negs = draw_cold(gen, atab, (S, T, P * dense_hot[0]),
-                                 hot_rows)
-            else:
-                negs = draw_negatives(gen, atab, (S, T, P * K), vocab_size)
-        step_dense = None
-        if dense_hot is not None:
-            step_dense = (dense_hot[1], torch.as_tensor(
-                dense_hot[2], dtype=torch.float32, device=dev))
-        alphas = step_alphas(scalars, S, dev)
-        plans = None
-        if scatter_impl in ("span", "grmw"):
-            # hoisted: every step's scatter ids are known at chunk entry
-            ids_all = torch.cat([slab_tokens.clamp_min(0),
-                                 negs.reshape(S, -1)], dim=1)
-            plans = scatter_plan(scatter_impl, ids_all, table, span_chunk)
-        hot_plans = None
-        if hot_pallas and cold_pos is not None:
-            # hoisted: the rows of the head accumulation are the slab's
-            # and, stratified, each pool's first kh lanes
-            hot_ids = slab_tokens.clamp_min(0)
-            if strat_lanes is not None:
-                lanes = negs.reshape(S, T, P, K)[..., :strat_lanes[0]]
-                hot_ids = torch.cat([hot_ids, lanes.reshape(S, -1)], dim=1)
-            hot_plans = hot_plan(hot_ids, hot_rows)
+        with span("chunk.draws"):
+            slab_tokens, slab_sents = chunk_slabs(tokens, sent_ids,
+                                                  scalars.base0, S, B, W)
+            if shrinks is None:
+                shrinks = torch.randint(0, W, (S, B), generator=gen,
+                                        device=dev)
+            if negs is None:
+                if strat_lanes is not None:
+                    hot_t, cold_t = atab
+                    negs = draw_negatives_stratified(
+                        gen, hot_t, cold_t, (S, T), P, K, strat_lanes[0],
+                        hot_rows)
+                elif dense_hot is not None:
+                    negs = draw_cold(gen, atab, (S, T, P * dense_hot[0]),
+                                     hot_rows)
+                else:
+                    negs = draw_negatives(gen, atab, (S, T, P * K),
+                                          vocab_size)
+            step_dense = None
+            if dense_hot is not None:
+                step_dense = (dense_hot[1], torch.as_tensor(
+                    dense_hot[2], dtype=torch.float32, device=dev))
+            alphas = step_alphas(scalars, S, dev)
+        with span("chunk.plan"):
+            plans = None
+            if scatter_impl in ("span", "grmw"):
+                # hoisted: every step's scatter ids are known at chunk entry
+                ids_all = torch.cat([slab_tokens.clamp_min(0),
+                                     negs.reshape(S, -1)], dim=1)
+                plans = scatter_plan(scatter_impl, ids_all, table,
+                                     span_chunk)
+            hot_plans = None
+            if hot_pallas and cold_pos is not None:
+                # hoisted: the rows of the head accumulation are the slab's
+                # and, stratified, each pool's first kh lanes
+                hot_ids = slab_tokens.clamp_min(0)
+                if strat_lanes is not None:
+                    lanes = negs.reshape(S, T, P, K)[..., :strat_lanes[0]]
+                    hot_ids = torch.cat([hot_ids, lanes.reshape(S, -1)],
+                                        dim=1)
+                hot_plans = hot_plan(hot_ids, hot_rows)
         t0 = (scalars.base0 - W) // B
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for s in range(S):
@@ -424,17 +444,18 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
             cp = None
             if hot_rows and cold_pos is not None:
                 cp = cold_pos[min(max(t0 + s, 0), cold_pos.shape[0] - 1)]
-            table, step_loss = fused_slab_step(
-                table, inputs, alphas[s], hyper, B, neg_sharing,
-                neg_pool=P, banded=banded, scatter_impl=scatter_impl,
-                span_plan=None if plans is None else plans.step(s),
-                context_pallas=context_pallas, span_chunk=span_chunk,
-                use_pallas=use_pallas, dedup_block=dedup_block,
-                hot_rows=hot_rows, cold_pos=cp, strat_lanes=strat_lanes,
-                dense_hot=step_dense, hot_pallas=hot_pallas,
-                rmw_scatter=rmw_scatter,
-                hot_plan=None if hot_plans is None else hot_plans.step(s))
-            loss = loss + step_loss
+            with span("step"):
+                table, step_loss = fused_slab_step(
+                    table, inputs, alphas[s], hyper, B, neg_sharing,
+                    neg_pool=P, banded=banded, scatter_impl=scatter_impl,
+                    span_plan=None if plans is None else plans.step(s),
+                    context_pallas=context_pallas, span_chunk=span_chunk,
+                    use_pallas=use_pallas, dedup_block=dedup_block,
+                    hot_rows=hot_rows, cold_pos=cp, strat_lanes=strat_lanes,
+                    dense_hot=step_dense, hot_pallas=hot_pallas,
+                    rmw_scatter=rmw_scatter,
+                    hot_plan=None if hot_plans is None else hot_plans.step(s))
+                loss = loss + step_loss
         return table, loss
 
     return chunk

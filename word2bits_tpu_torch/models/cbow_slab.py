@@ -47,6 +47,7 @@ from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.ops.windowed import (
     _tile_windows, banded_context, banded_usum, build_banded_masks, pick_tile)
 from word2bits_tpu_torch.sampling.unigram import AliasTable, draw_negatives
+from word2bits_tpu_torch.utils.trace import span
 
 SLAB_SCATTER_IMPLS = ("add", "span")
 
@@ -380,13 +381,14 @@ def make_slab_train_chunk(hyper: CBOWHyper, vocab_size: int, batch_size: int,
                                 shrink=shrinks[s], neg_ids=negs[s])
             plans = (None if plans_u is None
                      else (plans_u.step(s), plans_v.step(s)))
-            u, v, step_loss = slab_step(
-                u, v, inputs, alphas[s], hyper, B, neg_sharing,
-                use_pallas=use_pallas, hot_rows=hot_rows,
-                dedup_block=dedup_block, neg_pool=P, banded=banded,
-                scatter_impl=scatter_impl, span_plans=plans,
-                span_rank1=span_rank1, context_pallas=context_pallas)
-            loss = loss + step_loss
+            with span("step"):
+                u, v, step_loss = slab_step(
+                    u, v, inputs, alphas[s], hyper, B, neg_sharing,
+                    use_pallas=use_pallas, hot_rows=hot_rows,
+                    dedup_block=dedup_block, neg_pool=P, banded=banded,
+                    scatter_impl=scatter_impl, span_plans=plans,
+                    span_rank1=span_rank1, context_pallas=context_pallas)
+                loss = loss + step_loss
         return u, v, loss
 
     return chunk

@@ -40,6 +40,7 @@ from word2bits_tpu_torch.ops.scatter import scatter_add, scatter_add_dedup
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.sampling.unigram import (AliasTable, draw_cold,
                                                   draw_negatives)
+from word2bits_tpu_torch.utils.trace import span
 
 
 def _neg_terms(f: torch.Tensor, m: torch.Tensor, alpha: torch.Tensor,
@@ -237,10 +238,12 @@ def make_skipgram_train_chunk(hyper: CBOWHyper, vocab_size: int,
             inputs = SlabInputs(slab_tokens=slab_tokens[s],
                                 slab_sents=slab_sents[s],
                                 shrink=shrinks[s], neg_ids=negs[s])
-            u, v, step_loss = skipgram_slab_step(
-                u, v, inputs, alphas[s], hyper, B, neg_sharing,
-                dedup_block=dedup_block, neg_pool=P, dense_hot=step_dense)
-            loss = loss + step_loss
+            with span("step"):
+                u, v, step_loss = skipgram_slab_step(
+                    u, v, inputs, alphas[s], hyper, B, neg_sharing,
+                    dedup_block=dedup_block, neg_pool=P,
+                    dense_hot=step_dense)
+                loss = loss + step_loss
         return u, v, loss
 
     return chunk

@@ -34,6 +34,7 @@ from word2bits_tpu_torch.parallel.mesh import VOCAB_AXIS, Collectives
 from word2bits_tpu_torch.parallel.sharded_slab import check_sharded, to_local
 from word2bits_tpu_torch.sampling.unigram import (AliasTable, draw_cold,
                                                   draw_negatives)
+from word2bits_tpu_torch.utils.trace import span
 
 
 def gathered_update_ids(slab_ids: torch.Tensor, negs: torch.Tensor, nd: int,
@@ -128,11 +129,12 @@ def make_sharded_chunk(body_fn, hyper: CBOWHyper, mesh,
         for s in range(S):
             if plans is not None:
                 kw["span_plans"] = (plans[0].step(s), plans[1].step(s))
-            u_local, v_local, step_loss = body_fn(
-                comm, u_local, v_local, slab_tokens[s], slab_sents[s],
-                shrinks[s], negs[s], alphas[s], hyper, B, neg_sharing, vss,
-                neg_pool=pools, **kw)
-            loss = loss + step_loss
+            with span("step"):
+                u_local, v_local, step_loss = body_fn(
+                    comm, u_local, v_local, slab_tokens[s], slab_sents[s],
+                    shrinks[s], negs[s], alphas[s], hyper, B, neg_sharing,
+                    vss, neg_pool=pools, **kw)
+                loss = loss + step_loss
         # each step's loss is summed over "data" inside the body and equal
         # on every vocab shard: the psum / nv averages those copies
         return u_local, v_local, comm.psum(loss, VOCAB_AXIS) / nv

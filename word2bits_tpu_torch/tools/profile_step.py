@@ -31,9 +31,11 @@ warms the engine's chunk up for one full chunk, then times `--steps` steps
 with the host clock and profiles the same number of steps with
 torch.profiler.  Prints the step time, the
 device's busy and idle share of the profiled window (kernel time summed
-over the window's wall time; the port runs on one stream), and device time
-by kernel name.  Needs a CUDA card; numbers are the card's named on the
-first line.
+over the window's wall time; the port runs on one stream), device time
+by kernel name, and the device's idle time by the innermost of the
+program's spans (utils/trace.py: chunk.draws, chunk.plan, step and its
+phases) at the middle of each idle gap.  Needs a CUDA card; numbers are
+the card's named on the first line.
 """
 
 from __future__ import annotations
@@ -152,11 +154,33 @@ def main(argv=None) -> int:
         return _profile(args, cfg, vocab, encoded, comm.device, comm)
 
 
+def idle_by_span(busy, spans):
+    """{innermost span at the gap's middle: idle ns} over the gaps between
+    the device's busy intervals `busy` ([(start_ns, end_ns)]), and the
+    idle ns outside any span under None; `spans` as utils/trace.spans()
+    gives them."""
+    merged = []
+    for a, b in sorted(busy):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    out = defaultdict(int)
+    for (_, b0), (a1, _) in zip(merged, merged[1:]):
+        mid = (a1 + b0) / 2
+        inner = [sp for sp in spans if sp[1] <= mid <= sp[2]]
+        # spans nest: the innermost is the latest to start
+        name = max(inner, key=lambda sp: sp[1])[0] if inner else None
+        out[name] += a1 - b0
+    return dict(out)
+
+
 def _profile(args, cfg, vocab, encoded, dev, comm=None) -> int:
     from word2bits_tpu_torch.data.pipeline import build_epoch_arrays
     from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
     from word2bits_tpu_torch.train import (build_engine, cold_map,
                                            init_tables, segment_capacity)
+    from word2bits_tpu_torch.utils import trace
     B, S, W = cfg.batch_size, cfg.steps_per_chunk, cfg.window
     hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=cfg.size, window=W,
                       negative=cfg.negative, reg=cfg.reg)
@@ -200,6 +224,7 @@ def _profile(args, cfg, vocab, encoded, dev, comm=None) -> int:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        trace.clear()
         t0 = time.perf_counter()
         run(S + args.steps, args.steps)
         torch.cuda.synchronize()
@@ -221,6 +246,16 @@ def _profile(args, cfg, vocab, encoded, dev, comm=None) -> int:
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"  {t / args.steps:9.2f} us/step {100 * t / max(busy_us, 1e-9):5.1f}%"
               f"  x{n / args.steps:4.1f}/step  {name[:90]}")
+    busy = [(e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+    idle = idle_by_span(busy, trace.spans())
+    print(f"device idle between activities by the innermost program span "
+          f"(busy {100 * busy_us / wall_us:.1f}% of the window):")
+    for name, ns in sorted(idle.items(), key=lambda kv: -kv[1]):
+        print(f"  {ns / 1e3 / args.steps:9.2f} us/step "
+              f"{100 * ns / 1e3 / wall_us:5.1f}% of the window  "
+              f"{name or 'outside any span'}")
     return 0
 
 

@@ -32,8 +32,10 @@ streamed in the same row blocks, and -resume 1 reads them back the same
 way into tables allocated once (`save_checkpoint`, `load_checkpoint`).
 The loss accumulates on the device and is fetched once per epoch (and for
 progress lines at -debug > 1).  `on_epoch_end(epoch, u, v, loss)` gets
-each epoch's tables as host arrays; `-profile-dir` traces the first chunk
-with torch.profiler into a Chrome trace there.
+each epoch's tables as host arrays; `-profile-dir` traces one steady chunk
+with torch.profiler into a Chrome trace there.  While a torch profiler
+records, the loop's phases, chunks and steps record their spans
+(utils/trace.py); TrainResult.seconds comes from the same sites.
 
 With `-mesh-shape` the run is one rank of a (data, vocab) mesh
 (parallel/): `train` joins the process group (torchrun's, or a one-rank
@@ -48,8 +50,10 @@ writes the vector, checkpoint and per-epoch files, from the tables
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
+import threading
 import time
 import zipfile
 from contextlib import nullcontext
@@ -79,6 +83,8 @@ from word2bits_tpu_torch.models.skipgram import make_skipgram_train_chunk
 from word2bits_tpu_torch.sampling.unigram import (AliasTable,
                                                   build_alias_table,
                                                   build_stratified_tables)
+from word2bits_tpu_torch.utils import trace
+from word2bits_tpu_torch.utils.trace import phase, span
 
 # rows per export, checkpoint and `cli convert` block: about 16M values
 _EXPORT_VALUES = 1 << 24
@@ -101,8 +107,10 @@ class TrainResult:
     # CUDA events — or the host's on the CPU)
     chunks: List[Tuple[int, float, float]] = field(default_factory=list)
     chunk_losses: List[float] = field(default_factory=list)  # per chunk
-    # seconds of the set-up phases: init (or load, when resumed), alias,
-    # epoch_build, upload, cold_map, checkpoint (the saves), export
+    # host seconds of the phases: init (or load, when resumed), alias,
+    # epoch_build (its wait for the device excluded: epoch_build_wait),
+    # upload, cold_map, checkpoint (the saves), export, and issue (inside
+    # the chunk calls)
     seconds: Dict[str, float] = field(default_factory=dict)
     start_epoch: int = 0     # the first epoch run (after a resume: > 0)
     words_done: float = 0.0  # the LR schedule's words at the end
@@ -324,49 +332,94 @@ class DeviceCorpus:
         self.build = make_device_epoch_builder(capacity, cfg.window)
         self.seed, self.dev = cfg.seed, dev
 
-    def segments(self, epoch: int):
+    def segments(self, epoch: int, seconds: Optional[Dict] = None):
         """Yield (tokens int64, sents int64, n_tokens, source_len): one
-        scalar fetched per segment."""
+        scalar fetched per segment, which waits for the device's queue
+        (the phase epoch_build.wait, timed into `seconds`)."""
         gen = torch.Generator(device=self.dev)
+        seconds = {} if seconds is None else seconds
         for si in range(self.nseg):
             gen.manual_seed(epoch_seed(self.seed, epoch,
                                        None if self.nseg == 1 else si))
             t, s, n = self.build(self.encoded[si], self.keep_probs, gen)
             src = self.seg_len - (self.pad if si == self.nseg - 1 else 0)
-            yield t.long(), s.long(), int(n), src
+            tokens, sents = t.long(), s.long()
+            with phase("epoch_build.wait", seconds):
+                n = int(n)
+            yield tokens, sents, n, src
 
 
 class _Profile:
     """-profile-dir: a torch.profiler trace (CPU and, on the card, CUDA
-    activities) of exactly the first chunk, written as a Chrome trace into
-    the directory; a warning where the profiler is unavailable."""
+    activities) of one steady chunk, the run's second chunk call (its
+    first, where the run makes only one), from a synchronized device,
+    written as a Chrome trace into the directory with the program's spans
+    (utils/trace.py) as host-thread events of category "w2b"; a warning
+    where the profiler is unavailable."""
 
     def __init__(self, cfg: Word2BitsConfig, dev: torch.device):
-        self.cfg, self.prof = cfg, None
-        if not cfg.profile_dir:
+        self.cfg, self.dev, self.prof = cfg, dev, None
+        self.calls = 0 if cfg.profile_dir else 2   # chunk calls profiled
+        self.held = None      # (profile, spans) of the last chunk profiled
+
+    def start(self) -> None:
+        """Before a chunk call: profile the run's first two."""
+        if self.calls >= 2:
             return
+        _sync(self.dev)
         try:
             from torch.profiler import ProfilerActivity, profile
             acts = [ProfilerActivity.CPU]
-            if dev.type == "cuda":
+            if self.dev.type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
-            self.prof = profile(activities=acts)
-            self.prof.__enter__()
+            prof = profile(activities=acts)
+            prof.__enter__()
         except Exception as e:
-            self.prof = None
-            _log(cfg, f"WARNING: profiler unavailable ({e})")
+            self.calls = 2
+            _log(self.cfg, f"WARNING: profiler unavailable ({e})")
+            return
+        self.prof = prof
+        trace.clear()
 
-    def stop(self, dev: torch.device) -> None:
+    def stop(self) -> None:
+        """After a chunk call: hold the first's trace, write the second's."""
         if self.prof is None:
             return
-        _sync(dev)
+        _sync(self.dev)
         prof, self.prof = self.prof, None
+        self.calls += 1
         try:
             prof.__exit__(None, None, None)
+        except Exception as e:
+            self.calls = 2
+            _log(self.cfg, f"WARNING: profiler unavailable ({e})")
+            return
+        self.held = (prof, trace.spans())
+        if self.calls == 2:
+            self.finish()
+
+    def finish(self) -> None:
+        """Write the held trace (at the run's end: its only chunk's)."""
+        if self.held is None:
+            return
+        (prof, spans), self.held = self.held, None
+        try:
             os.makedirs(self.cfg.profile_dir, exist_ok=True)
             path = os.path.join(self.cfg.profile_dir,
                                 f"trace_{os.getpid()}.json")
             prof.export_chrome_trace(path)
+            with open(path) as f:
+                doc = json.load(f)
+            # the trace's "ts" are us after baseTimeNanoseconds, on the
+            # clock the spans are stamped with
+            base = doc.get("baseTimeNanoseconds", 0)
+            pid, tid = os.getpid(), threading.get_native_id()
+            doc["traceEvents"].extend(
+                {"ph": "X", "cat": "w2b", "name": name, "pid": pid,
+                 "tid": tid, "ts": (a - base) / 1e3, "dur": (b - a) / 1e3}
+                for name, a, b, _ in spans)
+            with open(path, "w") as f:
+                json.dump(doc, f)
             _log(self.cfg, f"Wrote profiler trace to {path}")
         except Exception as e:
             _log(self.cfg, f"WARNING: profiler unavailable ({e})")
@@ -384,6 +437,8 @@ def train(cfg: Word2BitsConfig,
     mesh, on rank 0 only.  With -mesh-shape this process is one rank of
     the mesh, on cuda:LOCAL_RANK (or the CPU, for device 'cpu')."""
     dev = resolve_device(device)
+    if trace.recording():
+        trace.clear()
     if not cfg.mesh_shape:
         return _train(cfg, vocab, encoded, max_steps, dev, on_epoch_end)
     from word2bits_tpu_torch.parallel.trainer import mesh_session
@@ -410,8 +465,9 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
     B, S, W = cfg.batch_size, cfg.steps_per_chunk, cfg.window
     hyper = CBOWHyper(bitlevel=cfg.bitlevel, size=D, window=W,
                       negative=cfg.negative, reg=cfg.reg)
-    seconds: Dict[str, float] = {"epoch_build": 0.0, "upload": 0.0,
-                                 "cold_map": 0.0, "checkpoint": 0.0}
+    seconds: Dict[str, float] = {"epoch_build": 0.0, "epoch_build_wait": 0.0,
+                                 "upload": 0.0, "cold_map": 0.0,
+                                 "checkpoint": 0.0, "issue": 0.0}
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     ckpt_path = (os.path.join(cfg.checkpoint_dir, CHECKPOINT_FILE)
                  if cfg.checkpoint_dir else None)
@@ -424,36 +480,35 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
                   f"{comm.rank} of {comm.nd * comm.nv}, backend "
                   f"{torch.distributed.get_backend()}, device {dev}, rows "
                   f"{ranges}")
-    t0 = time.perf_counter()
     if ckpt_path and cfg.resume and os.path.exists(ckpt_path):
-        ck = load_checkpoint(ckpt_path, cfg, dev, ranges)
-        if ck.vocab_rows != V:
-            raise ValueError(f"{ckpt_path} holds {ck.vocab_rows} "
-                             f"rows, the vocabulary {V}")
-        tables = ck.tables
-        start_epoch, words_done = ck.epoch + 1, ck.words_done
-        if ck.generator is not None and ck.generator_device == dev.type:
-            gen.set_state(ck.generator)
-        else:
-            gen.manual_seed(resume_seed(cfg.seed, start_epoch))
-            _log(cfg, f"WARNING: {ckpt_path} holds no {dev.type} generator "
-                      "state (a JAX key cannot be continued); the generator "
-                      f"is seeded from (seed {cfg.seed}, epoch {start_epoch})")
-        _sync(dev)
-        seconds["load"] = time.perf_counter() - t0
+        with phase("load", seconds):
+            ck = load_checkpoint(ckpt_path, cfg, dev, ranges)
+            if ck.vocab_rows != V:
+                raise ValueError(f"{ckpt_path} holds {ck.vocab_rows} "
+                                 f"rows, the vocabulary {V}")
+            tables = ck.tables
+            start_epoch, words_done = ck.epoch + 1, ck.words_done
+            if ck.generator is not None and ck.generator_device == dev.type:
+                gen.set_state(ck.generator)
+            else:
+                gen.manual_seed(resume_seed(cfg.seed, start_epoch))
+                _log(cfg, f"WARNING: {ckpt_path} holds no {dev.type} "
+                          "generator state (a JAX key cannot be continued); "
+                          f"the generator is seeded from (seed {cfg.seed}, "
+                          f"epoch {start_epoch})")
+            _sync(dev)
         _log(cfg, f"Resumed from {ckpt_path} at epoch {start_epoch} "
                   f"(loaded in {seconds['load']:.2f} s)")
     else:
-        tables = init_tables(cfg, V, dev, comm)
-        _sync(dev)
-        seconds["init"] = time.perf_counter() - t0
+        with phase("init", seconds):
+            tables = init_tables(cfg, V, dev, comm)
+            _sync(dev)
         shape = " x ".join(str(n) for n in tables[0].shape)
         _log(cfg, f"Init: {shape} {cfg.dtype} "
                   f"{'table' if len(tables) == 1 else 'tables u, v'} "
                   f"({2 * V * D} draws) in {seconds['init']:.2f} s")
-    t0 = time.perf_counter()
-    engine = build_engine(cfg, vocab, tables, hyper, comm)
-    seconds["alias"] = time.perf_counter() - t0
+    with phase("alias", seconds):
+        engine = build_engine(cfg, vocab, tables, hyper, comm)
     _log(cfg, f"Alias table: {seconds['alias']:.2f} s")
     chunk_fn = engine.chunk_fn
     clock = _ChunkClock(dev)
@@ -464,11 +519,10 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
     total_len = max(len(encoded), 1)
     device_corpus = None
     if cfg.device_epoch_on and root:
-        t0 = time.perf_counter()
-        device_corpus = DeviceCorpus(cfg, vocab, encoded, seg_tokens,
-                                     capacity, dev)
-        _sync(dev)
-        seconds["upload"] += time.perf_counter() - t0
+        with phase("upload", seconds):
+            device_corpus = DeviceCorpus(cfg, vocab, encoded, seg_tokens,
+                                         capacity, dev)
+            _sync(dev)
     _log(cfg, "Epochs built on the "
               f"{'device' if device_corpus else 'host'}")
 
@@ -485,7 +539,7 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
 
     def built_segments(epoch: int):
         if device_corpus is not None:
-            for t, s_, n, src in device_corpus.segments(epoch):
+            for t, s_, n, src in device_corpus.segments(epoch, seconds):
                 yield t, s_, n, src, None
             return
         for ea in iter_epoch_segments(encoded, vocab.counts, cfg.sample,
@@ -493,11 +547,10 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
                                       np.random.default_rng([cfg.seed,
                                                              epoch]),
                                       seg_tokens, capacity=capacity):
-            t0 = time.perf_counter()
-            tokens = torch.from_numpy(ea.tokens).to(dev, torch.int64)
-            sents = torch.from_numpy(ea.sent_ids).to(dev, torch.int64)
-            _sync(dev)
-            seconds["upload"] += time.perf_counter() - t0
+            with phase("upload", seconds):
+                tokens = torch.from_numpy(ea.tokens).to(dev, torch.int64)
+                sents = torch.from_numpy(ea.sent_ids).to(dev, torch.int64)
+                _sync(dev)
             yield tokens, sents, ea.n_tokens, ea.source_len, ea.tokens
 
     epoch_losses: List[float] = []
@@ -512,70 +565,78 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
     t_print = 0.0
     stop = False
     for epoch in range(start_epoch, cfg.iter):
-        _log(cfg, f"Starting epoch: {epoch}")
-        loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
-        segs = segments(epoch)
-        while True:
-            t0, up0 = time.perf_counter(), seconds["upload"]
-            seg = next(segs, None)   # a host segment's upload is its own
-            seconds["epoch_build"] += (time.perf_counter() - t0
-                                       - (seconds["upload"] - up0))
-            if seg is None:
-                break
-            tokens, sents, seg_n_tokens, source_len, host_tokens = seg
-            cold = {}
-            if engine.cold_split:
-                t0 = time.perf_counter()
-                cp = cold_map(cfg, host_tokens, capacity, cold_width)
-                cold_width = cp.shape[1]
-                cold["cold_pos"] = torch.from_numpy(cp).to(dev, torch.int64)
-                seconds["cold_map"] += time.perf_counter() - t0
-            n_centers = max(seg_n_tokens, 1)
-            # this segment accounts for its share of the epoch's words
-            seg_words = train_words * source_len / total_len
-            wca_per_step = B * seg_words / n_centers
-            n_steps = math.ceil(seg_n_tokens / B)
-            for ci in range(max(1, math.ceil(n_steps / S))):
-                # only the steps that hold centers run: a trailing
-                # all-padding step updates nothing
-                chunk_steps = min(S, n_steps - ci * S)
-                scalars = ChunkScalars(
-                    base0=W + ci * S * B, alpha0=cfg.effective_alpha,
-                    wca_start=words_done, wca_per_step=wca_per_step,
-                    denom=denom)
-                start = clock.start()
-                *tables, loss = chunk_fn(*tables, tokens, sents,
-                                         engine.alias, scalars, gen,
-                                         n_steps=max(chunk_steps, 1), **cold)
-                clock.stop(start, max(chunk_steps, 1),
-                           chunk_steps * wca_per_step)
-                words_done += chunk_steps * wca_per_step
-                loss_acc = loss_acc + loss
-                chunk_losses.append(loss)
-                total_steps += max(chunk_steps, 1)
-                profile.stop(dev)    # the trace covers the first chunk
-                if cfg.debug > 1 and time.perf_counter() - t_print > 0.5:
-                    t_print = time.perf_counter()
-                    a0 = cfg.effective_alpha
-                    alpha_now = max(a0 * (1 - words_done / denom), a0 * 1e-4)
-                    wps = (words_done - words_at_start) / max(
-                        t_print - t_train0 - seconds["checkpoint"], 1e-9)
-                    print(f"\rAlpha: {alpha_now:.6f}  "
-                          f"Progress: {min(words_done / denom * 100, 100.0):.2f}%  "
-                          f"Cost: {float(loss_acc):.2f} "
-                          f"Words/sec: {wps / 1000:.2f}k  ",
-                          end="", flush=True)
-                if max_steps is not None and total_steps >= max_steps:
-                    stop = True
+        with span("epoch"):
+            _log(cfg, f"Starting epoch: {epoch}")
+            loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
+            segs = segments(epoch)
+            while True:
+                # a host segment's upload and the device build's wait for
+                # the queue are phases of their own
+                with phase("epoch_build", seconds):
+                    seg = next(segs, None)
+                if seg is None:
                     break
-            if stop:
-                break
-        if not stop:
-            # exact end-of-epoch word count (reference: all threads done)
-            words_done = (epoch + 1) * float(train_words)
-        if cfg.debug > 1:
-            print()
-        epoch_loss = float(loss_acc)   # host fetch = device sync
+                tokens, sents, seg_n_tokens, source_len, host_tokens = seg
+                cold = {}
+                if engine.cold_split:
+                    with phase("cold_map", seconds):
+                        cp = cold_map(cfg, host_tokens, capacity, cold_width)
+                        cold_width = cp.shape[1]
+                        cold["cold_pos"] = torch.from_numpy(cp).to(
+                            dev, torch.int64)
+                n_centers = max(seg_n_tokens, 1)
+                # this segment accounts for its share of the epoch's words
+                seg_words = train_words * source_len / total_len
+                wca_per_step = B * seg_words / n_centers
+                n_steps = math.ceil(seg_n_tokens / B)
+                for ci in range(max(1, math.ceil(n_steps / S))):
+                    # only the steps that hold centers run: a trailing
+                    # all-padding step updates nothing
+                    chunk_steps = min(S, n_steps - ci * S)
+                    scalars = ChunkScalars(
+                        base0=W + ci * S * B, alpha0=cfg.effective_alpha,
+                        wca_start=words_done, wca_per_step=wca_per_step,
+                        denom=denom)
+                    profile.start()
+                    with phase("chunk", seconds, "issue"):
+                        start = clock.start()
+                        *tables, loss = chunk_fn(
+                            *tables, tokens, sents, engine.alias, scalars,
+                            gen, n_steps=max(chunk_steps, 1), **cold)
+                        clock.stop(start, max(chunk_steps, 1),
+                                   chunk_steps * wca_per_step)
+                    profile.stop()
+                    words_done += chunk_steps * wca_per_step
+                    loss_acc = loss_acc + loss
+                    chunk_losses.append(loss)
+                    total_steps += max(chunk_steps, 1)
+                    if cfg.debug > 1 and time.perf_counter() - t_print > 0.5:
+                        t_print = time.perf_counter()
+                        a0 = cfg.effective_alpha
+                        alpha_now = max(a0 * (1 - words_done / denom),
+                                        a0 * 1e-4)
+                        wps = (words_done - words_at_start) / max(
+                            t_print - t_train0 - seconds["checkpoint"], 1e-9)
+                        with span("fetch"):
+                            cost = float(loss_acc)
+                        progress = min(words_done / denom * 100, 100.0)
+                        print(f"\rAlpha: {alpha_now:.6f}  "
+                              f"Progress: {progress:.2f}%  "
+                              f"Cost: {cost:.2f} "
+                              f"Words/sec: {wps / 1000:.2f}k  ",
+                              end="", flush=True)
+                    if max_steps is not None and total_steps >= max_steps:
+                        stop = True
+                        break
+                if stop:
+                    break
+            if not stop:
+                # exact end-of-epoch word count (reference: all threads done)
+                words_done = (epoch + 1) * float(train_words)
+            if cfg.debug > 1:
+                print()
+            with span("fetch"):
+                epoch_loss = float(loss_acc)   # host fetch = device sync
         _log(cfg, f"Epoch Loss: {epoch_loss:.6f}")
         epoch_losses.append(epoch_loss)
         last = stop or epoch == cfg.iter - 1
@@ -587,61 +648,70 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
         full = tables
         if engine.sharded is not None and (save_epoch or want_ckpt or last
                                            or on_epoch_end is not None):
-            full = engine.sharded.params()     # every rank; None off rank 0
+            with span("fetch"):
+                full = engine.sharded.params()  # every rank; None off rank 0
             if last:
                 final, gathered = full, True
         if save_epoch and root:
-            write_output(f"{cfg.output_file}_epoch{epoch}", vocab, full,
-                         cfg)
+            with span("export"):
+                write_output(f"{cfg.output_file}_epoch{epoch}", vocab, full,
+                             cfg)
         if want_ckpt and root:
-            t0 = time.perf_counter()
-            os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-            save_checkpoint(ckpt_path, full, epoch, gen, words_done)
-            dt = time.perf_counter() - t0
-            seconds["checkpoint"] += dt
+            ck0 = seconds["checkpoint"]
+            with phase("checkpoint", seconds):
+                os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+                save_checkpoint(ckpt_path, full, epoch, gen, words_done)
             _log(cfg, f"Checkpoint: epoch {epoch} to {ckpt_path} in "
-                      f"{dt:.2f} s")
+                      f"{seconds['checkpoint'] - ck0:.2f} s")
         if on_epoch_end is not None and root:
-            u_h, v_h = (_host_half(h) for h in table_halves(full))
+            with span("fetch"):
+                u_h, v_h = (_host_half(h) for h in table_halves(full))
             on_epoch_end(epoch, u_h, v_h, epoch_loss)
         if stop:
             break
-    profile.stop(dev)
+    profile.finish()
     _sync(dev)
     # the words/sec of this run's own epochs, checkpoint writes excluded
     wall = time.perf_counter() - t_train0 - seconds["checkpoint"]
     wps = (words_done - words_at_start) / max(wall, 1e-9)
+    per_step = 1e6 / max(total_steps, 1)
     _log(cfg, f"Epoch arrays ({'device' if device_corpus else 'host'}): "
-              f"{seconds['epoch_build']:.2f} s, upload "
-              f"{seconds['upload']:.2f} s, cold maps "
+              f"{seconds['epoch_build']:.2f} s (and "
+              f"{seconds['epoch_build_wait']:.2f} s waiting for the device), "
+              f"upload {seconds['upload']:.2f} s, cold maps "
               f"{seconds['cold_map']:.2f} s")
     _log(cfg, f"Trained {total_steps} steps in {wall:.6f} s: "
-              f"{wps:.1f} words/sec, "
-              f"{wall / max(total_steps, 1) * 1e6:.1f} us/step")
+              f"{wps:.1f} words/sec, {wall * per_step:.1f} us/step; "
+              f"the host inside chunk calls "
+              f"{seconds['issue'] * per_step:.1f} us/step, building epochs "
+              f"{seconds['epoch_build'] * per_step:.1f} us/step, waiting "
+              f"{seconds['epoch_build_wait'] * per_step:.1f} us/step")
 
     if engine.sharded is not None:
         if not gathered:
-            final = engine.sharded.params()
+            with span("fetch"):
+                final = engine.sharded.params()
         if root:
             tables = final
     if cfg.output_file and root:
-        t0 = time.perf_counter()
-        if cfg.classes == 0:
-            write_output(cfg.output_file, vocab, tables, cfg)
-        else:
-            # reference quirk: -classes != 0 creates an empty output file
-            _log(cfg, "WARNING: -classes is parsed but unimplemented in the "
-                      "reference; writing an empty file for parity")
-            open(cfg.output_file, "wb").close()
-        seconds["export"] = time.perf_counter() - t0
+        with phase("export", seconds):
+            if cfg.classes == 0:
+                write_output(cfg.output_file, vocab, tables, cfg)
+            else:
+                # reference quirk: -classes != 0 creates an empty output file
+                _log(cfg, "WARNING: -classes is parsed but unimplemented in "
+                          "the reference; writing an empty file for parity")
+                open(cfg.output_file, "wb").close()
         _log(cfg, f"Export: {seconds['export']:.2f} s")
 
+    with span("fetch"):
+        chunks = clock.chunks()
+        losses = (torch.stack(chunk_losses).tolist() if chunk_losses
+                  else [])
     return TrainResult(vocab=vocab, tables=tuple(tables),
                        epoch_losses=epoch_losses,
                        words_per_sec=wps, steps=total_steps,
-                       chunks=clock.chunks(),
-                       chunk_losses=(torch.stack(chunk_losses).tolist()
-                                     if chunk_losses else []),
+                       chunks=chunks, chunk_losses=losses,
                        seconds=seconds,
                        start_epoch=start_epoch, words_done=words_done)
 
