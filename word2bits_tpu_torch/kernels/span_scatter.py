@@ -159,6 +159,12 @@ def workspace(device: torch.device, n_part: int, n_count: int):
     return part, count
 
 
+def current_workspace(device: torch.device):
+    """The (partials, counters) workspace on `device` as it stands, or
+    None before any call there."""
+    return _WORKSPACE.get(device)
+
+
 def tile_constants(config_fn) -> dict:
     """The tile constants a tiled scatter kernel was built with, read
     through its C `..._config` entry point."""

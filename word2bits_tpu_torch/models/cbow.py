@@ -175,13 +175,18 @@ class ChunkScalars(NamedTuple):
 def step_alphas(scalars: ChunkScalars, S: int, device) -> torch.Tensor:
     """[S] float32 LR of each step of a chunk: linear decay with the
     reference's 1e-4*alpha0 floor (reference :391-392), in float32 like
-    the JAX chunk's traced scalars."""
+    the JAX chunk's traced scalars.  The scalars are filled on the device
+    (torch.full rounds a Python float to float32 as torch.tensor does), so
+    the host does not wait for the device here."""
     f32 = dict(dtype=torch.float32, device=device)
-    alpha0 = torch.tensor(scalars.alpha0, **f32)
-    wca = (torch.tensor(scalars.wca_start, **f32)
-           + torch.arange(S, **f32) * torch.tensor(scalars.wca_per_step,
-                                                   **f32))
-    alphas = alpha0 * (1.0 - wca / torch.tensor(scalars.denom, **f32))
+
+    def scalar(x):
+        return torch.full((), x, **f32)
+
+    alpha0 = scalar(scalars.alpha0)
+    wca = (scalar(scalars.wca_start)
+           + torch.arange(S, **f32) * scalar(scalars.wca_per_step))
+    alphas = alpha0 * (1.0 - wca / scalar(scalars.denom))
     return torch.maximum(alphas, alpha0 * 1e-4)
 
 

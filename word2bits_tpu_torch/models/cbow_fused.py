@@ -58,6 +58,8 @@ from word2bits_tpu_torch.models.cbow import (
 from word2bits_tpu_torch.models.cbow_slab import (
     SlabInputs, _numpy_to_torch, positive_phase, shared_negative_phase,
     u_update_rows)
+from word2bits_tpu_torch.models.step_graph import (StepCounts, StepReplay,
+                                                   eager_reason)
 from word2bits_tpu_torch.ops.quantize import quantize
 from word2bits_tpu_torch.ops.scatter import (add_rows_where, hot_slice_add,
                                              scatter_add, scatter_add_dedup)
@@ -353,7 +355,13 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
     package and run the same in-place Python loop: the JAX modes differ in
     how XLA carries the table (lax.scan double-buffers it, which is why the
     capacity runbook asks for fori), and an in-place PyTorch table is never
-    copied, so there is nothing for them to choose between here."""
+    copied, so there is nothing for them to choose between here.
+
+    On a CUDA table the routes that models/step_graph.eager_reason passes
+    (the span and grmw scatters) replay their step from a CUDA graph,
+    captured at the first step of a new key, with the same results bit for
+    bit; `chunk.counts` (StepCounts) counts the steps replayed and run
+    eagerly."""
     if scatter_impl not in SCATTER_IMPLS:
         raise ValueError(f"unknown scatter_impl {scatter_impl!r} "
                          f"(supported: {', '.join(SCATTER_IMPLS)})")
@@ -382,6 +390,12 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
         raise ValueError(f"neg_sharing ({neg_sharing}) must be > 0 and "
                          f"divide batch_size ({B})")
     T = B // neg_sharing
+    counts = StepCounts()
+    replay = None
+    if eager_reason(scatter_impl, use_pallas=use_pallas,
+                    rmw_scatter=rmw_scatter, dedup_block=dedup_block,
+                    hot_rows=hot_rows) is None:
+        replay = StepReplay(counts)
 
     def chunk(table: torch.Tensor, tokens: torch.Tensor,
               sent_ids: torch.Tensor,
@@ -435,6 +449,20 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
                     hot_ids = torch.cat([hot_ids, lanes.reshape(S, -1)],
                                         dim=1)
                 hot_plans = hot_plan(hot_ids, hot_rows)
+        if replay is not None and dev.type == "cuda":
+            def step_inputs(s):
+                return (SlabInputs(slab_tokens=slab_tokens[s],
+                                   slab_sents=slab_sents[s],
+                                   shrink=shrinks[s], neg_ids=negs[s]),
+                        alphas[s], plans.step(s))
+
+            def step(inputs, alpha, plan):
+                return fused_slab_step(
+                    table, inputs, alpha, hyper, B, neg_sharing, neg_pool=P,
+                    banded=banded, scatter_impl=scatter_impl, span_plan=plan,
+                    context_pallas=context_pallas, span_chunk=span_chunk)[1]
+
+            return table, replay.run(table, S, step_inputs, step)
         t0 = (scalars.base0 - W) // B
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for s in range(S):
@@ -456,6 +484,8 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
                     rmw_scatter=rmw_scatter,
                     hot_plan=None if hot_plans is None else hot_plans.step(s))
                 loss = loss + step_loss
+        counts.eager += S
         return table, loss
 
+    chunk.counts = counts
     return chunk

@@ -40,6 +40,7 @@ from word2bits_tpu_torch.kernels.span_scatter import (
     SpanPlan, scatter_add_span_planned, scatter_add_span_rank1, span_plan)
 from word2bits_tpu_torch.models.cbow import (
     CBOWHyper, ChunkScalars, chunk_slabs, step_alphas)
+from word2bits_tpu_torch.ops.consts import const
 from word2bits_tpu_torch.ops.quantize import quantize
 from word2bits_tpu_torch.ops.scatter import (add_rows_where, hot_slice_add,
                                              scatter_add, scatter_add_dedup)
@@ -79,7 +80,7 @@ def _context_masks(inputs: SlabInputs, B: int, W: int):
     csent = sents[W:W + B]
     valid = csent >= 0
     offsets = [o for o in range(-W, W + 1) if o != 0]
-    odist = torch.tensor([abs(o) for o in offsets], device=sents.device)
+    odist = const(tuple(abs(o) for o in offsets), torch.int64, sents.device)
     in_win = odist[None, :] <= (W - inputs.shrink)[:, None]
     ctx_sent = torch.stack([sents[W + o:W + o + B] for o in offsets], dim=1)
     mask = (in_win & (ctx_sent == csent[:, None]) & valid[:, None]

@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from word2bits_tpu_torch.ops.consts import const as _device_const
+
 
 def _check_bitlevel(bitlevel) -> None:
     if not isinstance(bitlevel, int):
@@ -42,7 +44,7 @@ def quantize(x: torch.Tensor, bitlevel: int) -> torch.Tensor:
         return x
 
     def const(c):
-        return torch.tensor(c, dtype=x.dtype, device=x.device)
+        return _device_const(c, x.dtype, x.device)
 
     sign = torch.where(x < 0, const(-1.0), const(1.0))
     mag = torch.abs(x)

@@ -18,13 +18,15 @@ from __future__ import annotations
 
 import torch
 
+from word2bits_tpu_torch.ops.consts import const
+
 EXP_TABLE_SIZE = 1000  # reference src/word2bits.cpp:30
 MAX_EXP = 6.0          # reference src/word2bits.cpp:31
 _LUT_SCALE = 83.0      # C integer division: 1000 / 6 / 2 == 83
 
 
 def _const(f: torch.Tensor, c: float) -> torch.Tensor:
-    return torch.tensor(c, dtype=f.dtype, device=f.device)
+    return const(c, f.dtype, f.device)
 
 
 def sigmoid_lut(f: torch.Tensor) -> torch.Tensor:

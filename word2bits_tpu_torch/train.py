@@ -80,6 +80,7 @@ from word2bits_tpu_torch.models.cbow_fused import (deinterleave,
 from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
 from word2bits_tpu_torch.models.init import init_fused_table, init_params
 from word2bits_tpu_torch.models.skipgram import make_skipgram_train_chunk
+from word2bits_tpu_torch.models.step_graph import StepCounts
 from word2bits_tpu_torch.sampling.unigram import (AliasTable,
                                                   build_alias_table,
                                                   build_stratified_tables)
@@ -109,11 +110,15 @@ class TrainResult:
     chunk_losses: List[float] = field(default_factory=list)  # per chunk
     # host seconds of the phases: init (or load, when resumed), alias,
     # epoch_build (its wait for the device excluded: epoch_build_wait),
-    # upload, cold_map, checkpoint (the saves), export, and issue (inside
-    # the chunk calls)
+    # upload, cold_map, checkpoint (the saves), export, issue (inside the
+    # chunk calls) and capture (the CUDA graph captures inside them)
     seconds: Dict[str, float] = field(default_factory=dict)
     start_epoch: int = 0     # the first epoch run (after a resume: > 0)
     words_done: float = 0.0  # the LR schedule's words at the end
+    # of the `steps`: those replayed from a CUDA graph and those run
+    # eagerly (models/step_graph.py)
+    steps_replayed: int = 0
+    steps_eager: int = 0
 
 
 def _log(cfg: Word2BitsConfig, msg: str, end="\n"):
@@ -162,13 +167,16 @@ class Engine:
     -neg-dense-hot), all on the training device.  chunk_fn(*tables, tokens,
     sents, alias, scalars, gen, n_steps=...[, cold_pos=...]) returns
     (*tables, loss); `cold_split` says that it takes each segment's
-    cold-position map (cold_map)."""
+    cold-position map (cold_map); `counts` are the fused chunk's step
+    counts (models/step_graph.StepCounts), None for the other engines,
+    whose steps all run eagerly."""
 
     chunk_fn: Callable
     tables: Tables
     alias: AliasTable | Tuple[AliasTable, AliasTable]
     cold_split: bool = False
     sharded: Optional[object] = None   # the mesh's ShardedTrainer
+    counts: Optional[StepCounts] = None
 
 
 def init_tables(cfg: Word2BitsConfig, vocab_size: int, device,
@@ -251,7 +259,8 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
             context_pallas=cfg.context_pallas)
     return Engine(chunk_fn=chunk_fn, tables=tuple(tables), alias=alias,
                   cold_split=bool(cfg.fused_on and cfg.hot_rows
-                                  and not cfg.device_epoch_on))
+                                  and not cfg.device_epoch_on),
+                  counts=getattr(chunk_fn, "counts", None))
 
 
 def cold_map(cfg: Word2BitsConfig, tokens: np.ndarray, capacity: int,
@@ -467,7 +476,8 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
                       negative=cfg.negative, reg=cfg.reg)
     seconds: Dict[str, float] = {"epoch_build": 0.0, "epoch_build_wait": 0.0,
                                  "upload": 0.0, "cold_map": 0.0,
-                                 "checkpoint": 0.0, "issue": 0.0}
+                                 "checkpoint": 0.0, "issue": 0.0,
+                                 "capture": 0.0}
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     ckpt_path = (os.path.join(cfg.checkpoint_dir, CHECKPOINT_FILE)
                  if cfg.checkpoint_dir else None)
@@ -673,6 +683,8 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
     _sync(dev)
     # the words/sec of this run's own epochs, checkpoint writes excluded
     wall = time.perf_counter() - t_train0 - seconds["checkpoint"]
+    counts = engine.counts or StepCounts(eager=total_steps)
+    seconds["capture"] = counts.seconds["capture"]
     wps = (words_done - words_at_start) / max(wall, 1e-9)
     per_step = 1e6 / max(total_steps, 1)
     _log(cfg, f"Epoch arrays ({'device' if device_corpus else 'host'}): "
@@ -685,7 +697,9 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
               f"the host inside chunk calls "
               f"{seconds['issue'] * per_step:.1f} us/step, building epochs "
               f"{seconds['epoch_build'] * per_step:.1f} us/step, waiting "
-              f"{seconds['epoch_build_wait'] * per_step:.1f} us/step")
+              f"{seconds['epoch_build_wait'] * per_step:.1f} us/step; "
+              f"{counts.replayed} steps replayed from a CUDA graph, "
+              f"{counts.eager} eager, captures {seconds['capture']:.3f} s")
 
     if engine.sharded is not None:
         if not gathered:
@@ -713,7 +727,9 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
                        words_per_sec=wps, steps=total_steps,
                        chunks=chunks, chunk_losses=losses,
                        seconds=seconds,
-                       start_epoch=start_epoch, words_done=words_done)
+                       start_epoch=start_epoch, words_done=words_done,
+                       steps_replayed=counts.replayed,
+                       steps_eager=counts.eager)
 
 
 def _host_half(half: torch.Tensor) -> np.ndarray:
