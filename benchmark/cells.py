@@ -4,7 +4,9 @@
 - a cell is benchmark/workloads/<name>.json: its configuration, the
   engine flags, its nominal epoch time, the limits of its check and why;
 - a configuration is benchmark/configs/<name>.json: the model's flags, the
-  corpus made from the seed, where it comes from and how it was cut;
+  corpus made from the seed, where it comes from and how it was cut, and
+  in `reference` its model module (a file under benchmark/), which the
+  check and the work counts take everything model-specific from;
 - a metric `<base>.<suffix>` is read by benchmark/metrics/<base>.py, and
   `<kernel>_roofline.<suffix>` by metrics/roofline.py with the kernel's
   counts in benchmark/kernels/<kernel>.py.
@@ -15,11 +17,19 @@ from __future__ import annotations
 import importlib
 import json
 import os
-from dataclasses import dataclass
+import re
+from dataclasses import dataclass, field
+from types import ModuleType
 from typing import List, Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+
+# what a model module provides (benchmark/README.md, "A configuration of
+# another model")
+CONTRACT = ("MODELS", "hyper", "negative_shape", "step", "step_flops",
+            "step_bytes")
+MODULE_PATH = re.compile(r"benchmark(/[A-Za-z_][A-Za-z0-9_]*)+\.py")
 
 
 def _json(path: str) -> dict:
@@ -31,12 +41,40 @@ def benchmark_json() -> dict:
     return _json(os.path.join(ROOT, "BENCHMARK.json"))
 
 
+def model_module(config: dict, model: str) -> ModuleType:
+    """The model module that a configuration's `reference` key names: a
+    .py file under benchmark/, relative to the repository's root, that has
+    every piece of CONTRACT and follows `model` (the program's -model of
+    the cell).  Raises ValueError, naming the key, where it does not."""
+    path = config.get("reference")
+    where = f"configuration {config.get('name', '?')}: `reference` {path!r}"
+    if not isinstance(path, str) or not MODULE_PATH.fullmatch(path):
+        raise ValueError(f"{where} names no .py file under benchmark/")
+    if not os.path.isfile(os.path.join(ROOT, path)):
+        raise ValueError(f"{where}: no such file")
+    module = importlib.import_module(path[:-3].replace("/", "."))
+    missing = [k for k in CONTRACT if not hasattr(module, k)]
+    if missing:
+        raise ValueError(f"{where} lacks {', '.join(missing)} of the model "
+                         "module's contract")
+    if model not in module.MODELS:
+        raise ValueError(f"{where} follows -model "
+                         f"{' or '.join(module.MODELS)}, not {model}")
+    return module
+
+
 @dataclass
 class Cell:
+    """A cell: its workload and configuration files and, resolved from the
+    configuration's `reference` key, its model module."""
     name: str
     workload: dict
     config: dict
     chips: int = 1
+    model: ModuleType = field(init=False)
+
+    def __post_init__(self):
+        self.model = model_module(self.config, self.cfg(0).model)
 
     @property
     def argv(self) -> List[str]:
@@ -54,6 +92,9 @@ class Cell:
 
 
 def load_cell(name: str, bench: Optional[dict] = None) -> Cell:
+    """Cell `name` from its files (chips from BENCHMARK.json's entry);
+    ValueError where its configuration's `reference` key names no model
+    module that follows the cell's -model (model_module)."""
     wl = _json(os.path.join(HERE, "workloads", f"{name}.json"))
     cf = _json(os.path.join(HERE, "configs", f"{wl['config']}.json"))
     chips = 1

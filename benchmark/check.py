@@ -16,11 +16,12 @@ skips:
   the compared step runs through that step's slab offset, its share of
   the chunk's hoisted scatter plan and its decayed rate.  Shrinks come
   from the check's generator and negatives from the reference's own
-  draws (reference.draw_negatives).  The plain reference (reference.py)
-  takes each compared step from the same rows.  Read, worst over the
-  compared steps: the step's loss (`loss_gap`), the touched rows element
-  by element (`rows_gap`) and the change of the whole table, per leaf
-  (`delta_gap`, the gap of the change norms);
+  draws (plain.draw_negatives), in the shape the cell's model module
+  gives (`negative_shape`).  That module's plain step (`step`; CBOW's
+  is reference.py) takes each compared step from the same rows.  Read,
+  worst over the compared steps: the step's loss (`loss_gap`), the
+  touched rows element by element (`rows_gap`) and the change of the
+  whole table, per leaf (`delta_gap`, the gap of the change norms);
 - `sampler_tv`: the window's alias table against the reference's
   unigram^0.75 draw distribution, over equal-mass bins of words;
 - `epoch_errors`: the window's last epoch arrays against the corpus
@@ -40,7 +41,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark import reference as ref
+from benchmark import plain
 
 BLOCK_ROWS = 1 << 16
 TV_BINS = 256
@@ -65,7 +66,7 @@ def _delta_norms(now, start) -> List[float]:
     return out
 
 
-def _row_norms(now: ref.Rows, start: ref.Rows) -> List[float]:
+def _row_norms(now: plain.Rows, start: plain.Rows) -> List[float]:
     return [float((now.u.float() - start.u.float()).norm()),
             float((now.v.float() - start.v.float()).norm())]
 
@@ -91,36 +92,34 @@ def middle_scalars(calls) -> tuple:
     return real[len(real) // 2].scalars
 
 
-def step_readings(cfg, chunk_fn, alias, tables, corpus, seed: int,
+def step_readings(model, cfg, chunk_fn, alias, tables, corpus, seed: int,
                   scalars: tuple, mode: str = "program") -> Dict[str, object]:
     """Compare the program (`mode` "program") or, in its place, the
-    reference one precision lower ("control") with the reference over the
-    steps `compared_steps` picks (see the module's doc), each a chunk call
-    of its own from the program's state; `scalars` are a chunk call's
-    (base0, alpha0, wca_start, wca_per_step, denom).  Returns the worst
-    gaps (`loss_gap`, `rows_gap`, `delta_gap`) and, for the record, each
-    step's.  The program's tables are changed in place."""
+    reference one precision lower ("control") with the reference, the step
+    of the cell's model module `model`, over the steps `compared_steps`
+    picks (see the module's doc), each a chunk call of its own from the
+    program's state; `scalars` are a chunk call's (base0, alpha0,
+    wca_start, wca_per_step, denom).  Returns the worst gaps (`loss_gap`,
+    `rows_gap`, `delta_gap`) and, for the record, each step's.  The
+    program's tables are changed in place."""
     from word2bits_tpu_torch.models.cbow import ChunkScalars
 
-    B, W, D, K = cfg.batch_size, cfg.window, cfg.size, cfg.negative
+    B, W, D = cfg.batch_size, cfg.window, cfg.size
     S = cfg.steps_per_chunk
-    G = cfg.neg_sharing
-    P = cfg.neg_pool if (G and cfg.neg_pool > 1) else 1
     dev = tables[0].device
     storage = getattr(torch, cfg.dtype)
-    hp = ref.Hyper(bitlevel=cfg.bitlevel, size=D, window=W, negative=K,
-                   batch=B, neg_sharing=G, neg_pool=P)
+    hp = model.hyper(cfg)
     base0, alpha0, wca0, wps, denom = scalars
     at = compared_steps(S)
     gen = torch.Generator(device=dev).manual_seed(check_seed(seed))
-    keep = torch.from_numpy(ref.keep_probs(
+    keep = torch.from_numpy(plain.keep_probs(
         corpus.counts, cfg.sample, corpus.train_words).astype(np.float32)
     ).to(dev)
     enc = corpus.encoded_dev.to(dev)
     uni = torch.rand(enc.shape, generator=gen, device=dev)
-    words, wsents = ref.slab_arrays(enc, keep, uni, W, len(at) * B)
+    words, wsents = plain.slab_arrays(enc, keep, uni, W, len(at) * B)
     del uni
-    cdf = ref.negative_cdf(corpus.counts, dev)
+    cdf = plain.negative_cdf(corpus.counts, dev)
     n = base0 + S * B + W
     full0 = None
     if mode == "program":
@@ -133,23 +132,22 @@ def step_readings(cfg, chunk_fn, alias, tables, corpus, seed: int,
         # the epoch arrays of one chunk: padding, and B centers at step s
         # (padding on either side, so no other step has a center)
         lo = base0 + s * B
-        tokens = torch.full((n,), ref.PAD, dtype=torch.int32, device=dev)
-        sents = torch.full((n,), ref.PAD, dtype=torch.int32, device=dev)
+        tokens = torch.full((n,), plain.PAD, dtype=torch.int32, device=dev)
+        sents = torch.full((n,), plain.PAD, dtype=torch.int32, device=dev)
         tokens[lo:lo + B] = words[W + k * B:W + (k + 1) * B].int()
         sents[lo:lo + B] = wsents[W + k * B:W + (k + 1) * B].int()
         shrinks = torch.randint(0, W, (S, B), generator=gen, device=dev)
-        shape = (S, B // G, P * K) if G else (S, B, K)
-        negs = ref.draw_negatives(gen, cdf, shape)
+        negs = plain.draw_negatives(gen, cdf, model.negative_shape(cfg, S))
         t_slab = tokens[lo - W:lo + B + W].long()
         s_slab = sents[lo - W:lo + B + W].long()
         ids = torch.unique(torch.cat([t_slab.clamp_min(0),
                                       negs[s].reshape(-1)]))
         u0, v0 = _halves(tables, D)
-        start = ref.Rows(ids, u0[ids], v0[ids], storage)
-        rows = ref.Rows(ids, u0[ids], v0[ids], storage)
-        alpha = ref.step_alpha(alpha0, wca0 + s * wps, denom)
-        ref_loss = float(ref.step(rows, t_slab, s_slab, shrinks[s], negs[s],
-                                  alpha, hp))
+        start = plain.Rows(ids, u0[ids], v0[ids], storage)
+        rows = plain.Rows(ids, u0[ids], v0[ids], storage)
+        alpha = plain.step_alpha(alpha0, wca0 + s * wps, denom)
+        ref_loss = float(model.step(rows, t_slab, s_slab, shrinks[s],
+                                    negs[s], alpha, hp))
         lo_b, hi_b = rows.loss_bounds
         if mode == "program":
             sc = ChunkScalars(base0=base0, alpha0=alpha0, wca_start=wca0,
@@ -158,16 +156,17 @@ def step_readings(cfg, chunk_fn, alias, tables, corpus, seed: int,
                                      n_steps=S, shrinks=shrinks, negs=negs)
             loss = float(loss)
             u1, v1 = _halves(tables, D)
-            got = ref.Rows(ids, u1[ids], v1[ids], storage)
+            got = plain.Rows(ids, u1[ids], v1[ids], storage)
             prog_norms = _delta_norms(_halves(tables, D), full0)
             for a, b in zip(full0, _halves(tables, D)):
                 a.copy_(b)
         else:
             low = LOWER[storage]
-            got = ref.Rows(ids, u0[ids], v0[ids], low)
-            cstart = ref.Rows(ids, u0[ids], v0[ids], low)
-            loss = float(ref.step(got, t_slab, s_slab, shrinks[s], negs[s],
-                                  alpha, hp, compute=torch.bfloat16))
+            got = plain.Rows(ids, u0[ids], v0[ids], low)
+            cstart = plain.Rows(ids, u0[ids], v0[ids], low)
+            loss = float(model.step(got, t_slab, s_slab, shrinks[s],
+                                    negs[s], alpha, hp,
+                                    compute=torch.bfloat16))
             prog_norms = _row_norms(got, cstart)
         ref_norms = _row_norms(rows, start)
         # how far the program's loss lies outside what the reference's
@@ -175,8 +174,8 @@ def step_readings(cfg, chunk_fn, alias, tables, corpus, seed: int,
         gaps.append(max(lo_b - loss, loss - hi_b, 0.0)
                     / max(abs(ref_loss), 1e-30))
         raw.append(abs(loss - ref_loss) / max(abs(ref_loss), 1e-30))
-        rows_gaps.append(ref.rows_gap(got, rows, start))
-        d = ref.leaf_gaps(prog_norms, ref_norms)
+        rows_gaps.append(plain.rows_gap(got, rows, start))
+        d = plain.leaf_gaps(prog_norms, ref_norms)
         delta_gaps.append(float("inf") if d is None else d)
         norms.append([prog_norms, ref_norms])
     del full0
@@ -197,7 +196,7 @@ def sampler_tv(alias, counts: np.ndarray, seed: int, draw=None) -> float:
         draw = draw_negatives
     dev = alias.prob.device
     V = len(counts)
-    p = ref.negative_probs(counts)
+    p = plain.negative_probs(counts)
     order = np.argsort(-p, kind="stable")
     cum = np.concatenate([[0.0], np.cumsum(p[order])[:-1]])
     bins = np.empty(V, np.int64)
@@ -233,7 +232,7 @@ def epoch_errors(cfg, tokens: torch.Tensor, sents: torch.Tensor,
     body, sb = tok[W:W + n], sen[W:W + n]
     pad = torch.cat([tok[:W], tok[W + n:]])
     spad = torch.cat([sen[:W], sen[W + n:]])
-    errors += int((pad != ref.PAD).sum()) + int((spad != ref.PAD).sum())
+    errors += int((pad != plain.PAD).sum()) + int((spad != plain.PAD).sum())
     errors += int(((body < 1) | (body >= V)).sum())
     if n == 0:
         return errors + 1
@@ -241,14 +240,14 @@ def epoch_errors(cfg, tokens: torch.Tensor, sents: torch.Tensor,
     d = sb[1:] - sb[:-1]
     errors += int(sb[0] != 0) + int(((d != 0) & (d != 1)).sum())
     runs = torch.unique_consecutive(sb, return_counts=True)[1]
-    errors += int((runs > ref.MAX_SENTENCE_LENGTH).sum())
+    errors += int((runs > plain.MAX_SENTENCE_LENGTH).sum())
     if corpus.counts[0] == 0:
         # one line: the sentences are the 1000-word cuts exactly
-        cut = torch.arange(n, device=dev) // ref.MAX_SENTENCE_LENGTH
+        cut = torch.arange(n, device=dev) // plain.MAX_SENTENCE_LENGTH
         errors += int((sb != cut).sum())
     # per word: never more than the corpus holds, all of it where the
     # keep probability is 1 or more
-    keep = ref.keep_probs(corpus.counts, cfg.sample, corpus.train_words)
+    keep = plain.keep_probs(corpus.counts, cfg.sample, corpus.train_words)
     always = torch.from_numpy(keep.astype(np.float32) >= 1.0).to(dev)
     always[0] = False
     kept = torch.bincount(body.clamp(0, V - 1), minlength=V)
@@ -267,7 +266,7 @@ def epoch_errors(cfg, tokens: torch.Tensor, sents: torch.Tensor,
         s_a = sb[a_kept]
         errors += int(((raw[1:] != raw[:-1]) & (s_a[1:] == s_a[:-1])).sum())
     # the number kept, within 8 standard deviations of its expectation
-    mean, sd = ref.kept_stats(corpus.counts, cfg.sample, corpus.train_words)
+    mean, sd = plain.kept_stats(corpus.counts, cfg.sample, corpus.train_words)
     errors += int(abs(n - mean) > 8 * sd + 1)
     return errors
 

@@ -1,171 +1,38 @@
-"""The plain reference of the benchmark: CBOW with negative sampling on
-quantized vectors, in plain PyTorch, and the data the check hands to it.
+"""The model module of CBOW: the plain reference of its step, CBOW with
+negative sampling on quantized vectors in plain PyTorch, and the work a
+step needs.  A configuration whose `reference` key names this file is
+checked and counted by it (benchmark/cells.py resolves the key; the
+contract is in benchmark/README.md, "A configuration of another model").
 
-Imports torch and numpy only: nothing of the program under test, of JAX or
-of the JAX package.  Frozen copies of the port's plain formulas, each
-headed by its source (commit 26809b4dee3683ec1871bc5d1e1a6fa56c4992c9):
+Imports torch and the benchmark's model-free parts (benchmark/plain.py)
+only: nothing of the program under test, of JAX or of
+the JAX package.  The step is a frozen copy of the port's plain formula
+(commit 26809b4dee3683ec1871bc5d1e1a6fa56c4992c9):
+word2bits_tpu_torch/models/cbow.py `cbow_minibatch_update` (reference
+src/word2bits.cpp:363-516) over the B consecutive centers of a slab, with
+the shared negatives of models/cbow_slab.py's tiles (center b joins tile
+b % T, member b // T uses pool (b // T) % P) spelled out per center.
 
-- `quantize`: word2bits_tpu_torch/ops/quantize.py `quantize` (reference
-  src/word2bits.cpp:73-108);
-- `sigmoid_lut`, `sigmoid_exact`: word2bits_tpu_torch/ops/sigmoid.py
-  (reference src/word2bits.cpp:67-71, :473-475, :614-618);
-- `keep_probs`: word2bits_tpu_torch/data/pipeline.py
-  `subsample_keep_probs` (reference :394-407);
-- the step: word2bits_tpu_torch/models/cbow.py `cbow_minibatch_update`
-  (reference :363-516) over the B consecutive centers of a slab, with the
-  shared negatives of models/cbow_slab.py's tiles (center b joins tile
-  b % T, member b // T uses pool (b // T) % P) spelled out per center.
-
-The reference holds only the rows a few steps touch (`Rows`), in the
-configuration's storage dtype, and computes in float32.  Every update of a
-step is summed per row in float32 and added to the stored row once, as the
-port's sorted scatters do.  `storage` and `compute` are arguments so that
-the same code, one precision lower, is the control; `half` leaves out the
-second half of each batch and doubles the rate, the fault the tests plant.
-The check's negatives are the reference's own draws (`draw_negatives`, by
-inverting the cumulative `negative_probs`), not the program's sampler.
+The reference holds only the rows a few steps touch (`plain.Rows`), in
+the configuration's storage dtype, and computes in float32.  Every update
+of a step is summed per row in float32 and added to the stored row once,
+as the port's sorted scatters do.  `storage` and `compute` are arguments
+so that the same code, one precision lower, is the control; `half` leaves
+out the second half of each batch and doubles the rate, the fault the
+tests plant.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Optional, Tuple
-
 import math
+from dataclasses import dataclass
 
-import numpy as np
 import torch
 
-EXP_TABLE_SIZE = 1000
-MAX_EXP = 6.0
-LUT_SCALE = 83.0          # C integer division: 1000 / 6 / 2
-MAX_SENTENCE_LENGTH = 1000
-PAD = -1
-EDGE_TOL = 1e-4          # a score this near +-6 may sit on either side
+from benchmark.plain import EDGE_TOL, MAX_EXP, Rows, quantize, \
+    sigmoid_exact, sigmoid_lut, store
 
-
-def quantize(x: torch.Tensor, bitlevel: int) -> torch.Tensor:
-    """2^bitlevel levels: sign(x)/3 at bitlevel 1 (0 maps to +1/3)."""
-    if bitlevel == 0:
-        return x
-
-    def const(c):
-        return torch.tensor(c, dtype=x.dtype, device=x.device)
-
-    sign = torch.where(x < 0, const(-1.0), const(1.0))
-    mag = torch.abs(x)
-    if bitlevel == 1:
-        return sign * (const(1.0) / const(3.0))
-    if bitlevel == 2:
-        return sign * torch.where(mag <= 0.5, const(0.25), const(0.75))
-    if bitlevel == 3:
-        return x * const(0.0)
-    seg = float(2 ** (bitlevel - 1))
-    casted = torch.minimum(torch.floor(mag * seg + 0.5), const(seg))
-    return sign * (casted / const(seg))
-
-
-def sigmoid_lut(f: torch.Tensor) -> torch.Tensor:
-    """The gradient path's table: sigma at the bin of f, +-6 saturated."""
-    idx = torch.floor((f + MAX_EXP) * LUT_SCALE)
-    x_bin = (idx / EXP_TABLE_SIZE * 2.0 - 1.0) * MAX_EXP
-    one = torch.ones((), dtype=f.dtype, device=f.device)
-    return torch.where(f > MAX_EXP, one,
-                       torch.where(f < -MAX_EXP, 0 * one,
-                                   torch.sigmoid(x_bin)))
-
-
-def sigmoid_exact(f: torch.Tensor) -> torch.Tensor:
-    """The loss path's sigmoid: 1 above +6, 1e-9 below -6."""
-    one = torch.ones((), dtype=f.dtype, device=f.device)
-    return torch.where(f > MAX_EXP, one,
-                       torch.where(f < -MAX_EXP, 1e-9 * one,
-                                   torch.sigmoid(f)))
-
-
-def keep_probs(counts: np.ndarray, sample: float,
-               train_words: int) -> np.ndarray:
-    """Per-word keep probability (sqrt(c/(s*T)) + 1) * s*T / c, in
-    float64; 1 where the count is 0 or sampling is off."""
-    c = counts.astype(np.float64)
-    if sample <= 0:
-        return np.ones_like(c)
-    st = sample * float(train_words)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        p = (np.sqrt(c / st) + 1.0) * st / c
-    p[~np.isfinite(p)] = 1.0
-    return p
-
-
-def kept_stats(counts: np.ndarray, sample: float,
-               train_words: int) -> Tuple[float, float]:
-    """Mean and standard deviation of the words an epoch keeps (every
-    word but `</s>`, each kept with its probability, capped at 1)."""
-    p = np.minimum(keep_probs(counts, sample, train_words), 1.0)[1:]
-    c = counts[1:].astype(np.float64)
-    return float((c * p).sum()), math.sqrt(float((c * p * (1 - p)).sum()))
-
-
-def negative_probs(counts: np.ndarray) -> np.ndarray:
-    """The draw distribution of a negative: count^0.75, with the mass of
-    `</s>` (id 0) spread evenly over ids 1..V-1 (reference :455-458)."""
-    w = counts.astype(np.float64) ** 0.75
-    p = w / w.sum()
-    p0 = p[0]
-    p[0] = 0.0
-    p[1:] += p0 / (len(p) - 1)
-    return p
-
-
-def negative_cdf(counts: np.ndarray, device) -> torch.Tensor:
-    """float64 [V] cumulative `negative_probs`, for `draw_negatives`."""
-    return torch.from_numpy(np.cumsum(negative_probs(counts))).to(device)
-
-
-def draw_negatives(gen: torch.Generator, cdf: torch.Tensor,
-                   shape) -> torch.Tensor:
-    """int64 negative ids of `shape`, drawn by inverting `cdf` (from
-    `negative_cdf`) at uniforms of `gen`: the check's own draws, apart
-    from the program's sampler.  Id 0 has no mass and is never drawn."""
-    u = torch.rand(shape, dtype=torch.float64, generator=gen,
-                   device=cdf.device) * cdf[-1]
-    ids = torch.searchsorted(cdf, u.reshape(-1), right=True)
-    return ids.clamp(1, cdf.numel() - 1).reshape(shape)
-
-
-def step_alpha(alpha0: float, word_count: float, denom: float) -> float:
-    """The learning rate after `word_count` words: linear decay to a floor
-    of 1e-4 * alpha0 (reference :391-392)."""
-    return alpha0 * max(1.0 - word_count / denom, 1e-4)
-
-
-def slab_arrays(encoded: torch.Tensor, keep: torch.Tensor,
-                uniforms: torch.Tensor, window: int,
-                n_centers: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(tokens, sents) int64 of W pad slots, then the first n_centers + W
-    kept words of `encoded` (id 0 = `</s>`, never kept as a word) and
-    their sentence ids: a sentence breaks at each `</s>` and every 1000
-    kept words within it.  keep: float32 [V] keep probabilities, uniforms
-    float32 [len(encoded)]."""
-    enc = encoded.long()
-    is_sent = enc == 0
-    kept = (uniforms <= keep[enc]) & ~is_sent
-    raw = torch.cumsum(is_sent.long(), 0)[kept]
-    words = enc[kept]
-    need = n_centers + window
-    if words.numel() < need:
-        raise ValueError(f"the corpus keeps {words.numel()} words; the "
-                         f"check needs {need}")
-    words, raw = words[:need], raw[:need]
-    first = torch.ones(need, dtype=torch.bool, device=enc.device)
-    first[1:] = raw[1:] != raw[:-1]
-    start = torch.cummax(torch.where(first, torch.arange(
-        need, device=enc.device), 0), 0).values
-    inside = torch.arange(need, device=enc.device) - start
-    brk = first | (inside % MAX_SENTENCE_LENGTH == 0)
-    sents = torch.cumsum(brk.long(), 0) - 1
-    pad = torch.full((window,), PAD, dtype=torch.long, device=enc.device)
-    return torch.cat([pad, words]), torch.cat([pad, sents])
+MODELS = ("cbow",)
 
 
 @dataclass(frozen=True)
@@ -190,33 +57,6 @@ def per_center_negatives(negs: torch.Tensor, hp: Hyper) -> torch.Tensor:
     b = torch.arange(B, device=negs.device)
     lanes = ((b // T) % P)[:, None] * K + torch.arange(K, device=negs.device)
     return negs[(b % T)[:, None], lanes]
-
-
-FP8_MAX = 448.0
-
-
-def store(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """x rounded to the storage dtype; float8 e4m3 saturates at +-448
-    (torch's cast gives NaN past it)."""
-    if dtype == torch.float8_e4m3fn:
-        x = x.float().clamp(-FP8_MAX, FP8_MAX)
-    return x.to(dtype)
-
-
-class Rows:
-    """The rows of (u, v) that a few steps touch, in `storage` dtype:
-    ids [R] sorted, u and v [R, D]; `index` maps global ids to rows."""
-
-    def __init__(self, ids: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                 storage: torch.dtype):
-        self.ids = ids
-        self.u = store(u, storage)
-        self.v = store(v, storage)
-        self.storage = storage
-        self.loss_bounds = (0.0, 0.0)   # the last step's loss, either side
-
-    def index(self, ids: torch.Tensor) -> torch.Tensor:
-        return torch.searchsorted(self.ids, ids)
 
 
 def step(rows: Rows, slab_tokens: torch.Tensor, slab_sents: torch.Tensor,
@@ -300,29 +140,33 @@ def step(rows: Rows, slab_tokens: torch.Tensor, slab_sents: torch.Tensor,
     return loss.float()
 
 
-def rows_gap(prog: "Rows", ref: "Rows", start: "Rows") -> float:
-    """Element by element: per leaf (u, v), the norm of the program's rows
-    less the reference's after a step, over the larger of the reference's
-    change of that leaf and the mean of the two leaves' changes; the worst
-    leaf."""
-    diff = [float((prog.u.float() - ref.u.float()).norm()),
-            float((prog.v.float() - ref.v.float()).norm())]
-    moved = [float((ref.u.float() - start.u.float()).norm()),
-             float((ref.v.float() - start.v.float()).norm())]
-    mid = float(np.median(moved))
-    return max(d / max(m, mid, 1e-30) for d, m in zip(diff, moved))
+def hyper(cfg) -> Hyper:
+    """The step's hyperparameters from the program's configuration."""
+    G = cfg.neg_sharing
+    return Hyper(bitlevel=cfg.bitlevel, size=cfg.size, window=cfg.window,
+                 negative=cfg.negative, batch=cfg.batch_size, neg_sharing=G,
+                 neg_pool=cfg.neg_pool if (G and cfg.neg_pool > 1) else 1)
 
 
-def leaf_gaps(prog: List[float], ref: List[float]) -> Optional[float]:
-    """The worst leaf's gap between two sets of leaf norms: |prog - ref|
-    over the larger of the reference's leaf norm and its median leaf
-    norm; leaves the reference moves by under a thousandth of the median
-    leaf are left out.  None when every leaf is left out."""
-    med = float(np.median(ref))
-    worst = None
-    for p, r in zip(prog, ref):
-        if r < 1e-3 * med:
-            continue
-        gap = abs(p - r) / max(r, med)
-        worst = gap if worst is None else max(worst, gap)
-    return worst
+def negative_shape(cfg, S: int) -> tuple:
+    """The negatives of one chunk call of S steps, as the program's
+    `chunk_fn(..., negs=)` takes them: [S, B/G, P*K] shared by tiles of G
+    centers, else [S, B, K]."""
+    hp = hyper(cfg)
+    B, K, G = hp.batch, hp.negative, hp.neg_sharing
+    return (S, B // G, hp.neg_pool * K) if G else (S, B, K)
+
+
+def step_flops(shape) -> float:
+    """Context sums and u sums over 2W offsets, and per center and target
+    (center + K negatives) a dot product, its u-gradient term and its v
+    row, each 2D operations; the scatter adds."""
+    B, W, D, K = shape.B, shape.W, shape.D, shape.K
+    adds = (shape.n_slab + shape.n_negs) * (2 * D if shape.fused else D)
+    return 2.0 * (B * 2 * W * D) + 6.0 * B * (K + 1) * D + adds
+
+
+def step_bytes(shape) -> float:
+    """Each touched u row and v row read and written once."""
+    D, e = shape.D, shape.elt
+    return 2.0 * (shape.rows_slab + shape.rows_v) * D * e

@@ -18,6 +18,8 @@ check.py then decides `correct`.
 The last line of standard output is one JSON object; the numbers compared
 and their limits are the last lines of standard error and the result's
 last key.  No card, or fewer than the cell asks for: exit 2, no result.
+JAX, flax or the JAX package loaded by the time the run is over: exit 3,
+no result.
 """
 
 import time
@@ -127,9 +129,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     steps = sum(c.n_steps for c in tap.calls)
     ctx = Ctx(setup_s=setup_s, window_s=window_s, peak_bytes=peak,
               trace=tr, steps=steps,
-              shape=work.StepShape.of(cfg, corpus.counts),
+              shape=work.StepShape.of(cfg, corpus.counts, cell.model),
               words=accounting.words_consumed(corpus.counts, epochs))
-    found = forbidden_modules()
 
     # the check
     limits = wl["limits"]
@@ -143,9 +144,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         "sampler_tv": check.sampler_tv(tap.engine.alias, corpus.counts,
                                        seed),
     }
-    steps_read = check.step_readings(cfg, tap.chunk_fn, tap.engine.alias,
-                                     r.tables, corpus, seed,
-                                     check.middle_scalars(tap.calls))
+    steps_read = check.step_readings(cell.model, cfg, tap.chunk_fn,
+                                     tap.engine.alias, r.tables, corpus,
+                                     seed, check.middle_scalars(tap.calls))
     for k in ("loss_gap", "rows_gap", "delta_gap"):
         got[k] = steps_read[k]
     # a cell compares the numbers its limits name (PERF.md says why each)
@@ -176,7 +177,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
                      "step_rows_gaps": steps_read["step_rows_gaps"],
                      "step_delta_gaps": steps_read["step_delta_gaps"],
                      "leaf_norms": steps_read["leaf_norms"]}
-    out["forbidden_modules"] = found
     out["checks"] = checks
     return out
 
@@ -219,7 +219,8 @@ def main(argv=None) -> int:
     units = {m: cells.unit(bench, m) for m in e2e + layer}
     out = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda",
                    e2e, layer, T_START, units=units)
-    found = out.pop("forbidden_modules")
+    # after the whole run, the check's model module and the readers too
+    found = forbidden_modules()
     if found:
         print("run.py: loaded " + ", ".join(found), file=sys.stderr)
         return 3

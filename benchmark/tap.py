@@ -15,7 +15,11 @@ planted fault: "frozen" returns the tables as they came in, "half" hands
 the chunk half of each batch (the second half's sentence ids set to -1)
 at twice the rate, "plan0" gives every step of a chunk the first step's
 share of the hoisted scatter plan, "nodecay" keeps the learning rate at
-its start.
+its start.  "frozen", "half" and "nodecay" act on the chunk's arguments
+and results, and every engine can have them.  "plan0" replaces
+models.cbow_fused.scatter_plan, which only the fused engine's `span` and
+`grmw` scatters call: a chunk call that never calls it raises NotPlanted
+(calibrate.py reads that mode as "n/a").
 """
 
 from __future__ import annotations
@@ -97,6 +101,11 @@ class Tap:
         return chunk
 
 
+class NotPlanted(Exception):
+    """The cell's engine cannot have the planted fault: its chunk never
+    reaches what the fault breaks."""
+
+
 def faulted(fn, fault: Optional[str], B: int = 0):
     """The program's chunk `fn`, or `fn` broken by a planted fault."""
     if fault is None:
@@ -128,12 +137,21 @@ def faulted(fn, fault: Optional[str], B: int = 0):
         def chunk(*args, **kwargs):
             from word2bits_tpu_torch.models import cbow_fused
             orig = cbow_fused.scatter_plan
-            cbow_fused.scatter_plan = lambda *a, **k: _FirstStep(orig(*a,
-                                                                      **k))
+            planted = []
+
+            def first_step(*a, **k):
+                planted.append(True)
+                return _FirstStep(orig(*a, **k))
+
+            cbow_fused.scatter_plan = first_step
             try:
-                return fn(*args, **kwargs)
+                out = fn(*args, **kwargs)
             finally:
                 cbow_fused.scatter_plan = orig
+            if not planted:
+                raise NotPlanted("plan0: the chunk never calls "
+                                 "models.cbow_fused.scatter_plan")
+            return out
         return chunk
     if fault == "nodecay":
         def chunk(*args, **kwargs):

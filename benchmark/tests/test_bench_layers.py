@@ -1,10 +1,12 @@
 """The per-layer arithmetic on a recorded list of profiler events, and the
 kernels' byte counts at chip_smoke.py's shapes against PERF.md's."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
-from benchmark import peaks, work
+from benchmark import peaks, reference, work
 from benchmark.cells import reader
 from benchmark.kernels import context, group_rmw, span_scatter
 from benchmark.trace import Trace
@@ -63,13 +65,16 @@ def test_nothing_to_read_gives_nothing():
     assert reader("device_idle_pct.x")(Ctx(None, 10)) is None
 
 
-def _shape(fused=True, **kw):
+def _shape(fused=True, G=64, P=2, elt=2, B=8192, tile=256):
+    """A step of CBOW's module, its negatives shared by tiles of G centers
+    (G=0: per center), from flags like the program's configuration's."""
     counts = np.concatenate([[0], np.maximum(5, (1e5 * np.arange(
         1, 1000, dtype=float) ** -1.05).astype(np.int64))])
-    base = dict(B=8192, W=8, D=200, K=24, G=64, P=2, fused=fused, elt=2,
-                counts=counts, sample=1e-3, tile=256)
-    base.update(kw)
-    return work.StepShape(**base)
+    cfg = SimpleNamespace(batch_size=B, window=8, size=200, negative=24,
+                          neg_sharing=G, neg_pool=P, fused_on=fused,
+                          dtype="bfloat16" if elt == 2 else "float32",
+                          sample=1e-3, banded_tile=tile, bitlevel=1)
+    return work.StepShape.of(cfg, counts, reference)
 
 
 def test_roofline_and_step_mfu_from_the_trace():

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark import plain
 from benchmark import reference as ref
 
 
@@ -64,7 +65,7 @@ def test_one_step_against_the_worked_example():
     ids = torch.tensor([1, 2, 3, 4])
     u = torch.tensor([U[i] for i in (1, 2, 3, 4)], dtype=torch.float32)
     v = torch.tensor([V[i] for i in (1, 2, 3, 4)], dtype=torch.float32)
-    rows = ref.Rows(ids, u, v, torch.float32)
+    rows = plain.Rows(ids, u, v, torch.float32)
     hp = ref.Hyper(bitlevel=1, size=2, window=1, negative=1, batch=2)
     loss = ref.step(rows, torch.tensor(SLAB), torch.zeros(4, dtype=torch.long),
                     torch.zeros(2, dtype=torch.long), torch.tensor(NEGS),
@@ -85,8 +86,8 @@ def test_half_and_lower_precision_differ():
     hp = ref.Hyper(bitlevel=1, size=2, window=1, negative=1, batch=2)
     args = (torch.tensor(SLAB), torch.zeros(4, dtype=torch.long),
             torch.zeros(2, dtype=torch.long), torch.tensor(NEGS), ALPHA, hp)
-    full = ref.Rows(ids, u, v, torch.float32)
-    half = ref.Rows(ids, u, v, torch.float32)
+    full = plain.Rows(ids, u, v, torch.float32)
+    half = plain.Rows(ids, u, v, torch.float32)
     ref.step(full, *args)
     ref.step(half, *args, half=True)
     assert not torch.equal(full.u, half.u)
@@ -103,7 +104,7 @@ def test_shared_negatives_per_center():
 
 
 def test_negative_probs_fold_the_sentence_token():
-    p = ref.negative_probs(np.array([16, 1, 1], dtype=np.int64))
+    p = plain.negative_probs(np.array([16, 1, 1], dtype=np.int64))
     assert p[0] == 0.0 and p.sum() == pytest.approx(1.0)
     assert p[1] == pytest.approx(0.5)
 
@@ -111,17 +112,17 @@ def test_negative_probs_fold_the_sentence_token():
 def test_slab_arrays_cut_sentences():
     enc = torch.tensor([5, 6, 0, 7, 8, 9, 0, 5], dtype=torch.int32)
     keep = torch.ones(10)
-    toks, sents = ref.slab_arrays(enc, keep, torch.zeros(8), 2, 4)
+    toks, sents = plain.slab_arrays(enc, keep, torch.zeros(8), 2, 4)
     assert toks.tolist() == [-1, -1, 5, 6, 7, 8, 9, 5]
     assert sents.tolist() == [-1, -1, 0, 0, 1, 1, 1, 2]
 
 
 def test_reference_negatives_follow_the_draw_distribution():
     counts = np.array([50, 400, 100, 30, 5, 5], dtype=np.int64)
-    p = ref.negative_probs(counts)
+    p = plain.negative_probs(counts)
     gen = torch.Generator().manual_seed(2 ** 31 + 5)
-    draws = ref.draw_negatives(gen, ref.negative_cdf(counts, "cpu"),
-                               (200, 1000))
+    draws = plain.draw_negatives(gen, plain.negative_cdf(counts, "cpu"),
+                                 (200, 1000))
     assert draws.shape == (200, 1000) and draws.dtype == torch.int64
     got = np.bincount(draws.reshape(-1).numpy(), minlength=6) / draws.numel()
     assert got[0] == 0.0
@@ -129,20 +130,21 @@ def test_reference_negatives_follow_the_draw_distribution():
 
 
 def test_step_alpha_decays_to_its_floor():
-    assert ref.step_alpha(0.05, 0.0, 101.0) == pytest.approx(0.05)
-    assert ref.step_alpha(0.05, 50.5, 101.0) == pytest.approx(0.025)
-    assert ref.step_alpha(0.05, 200.0, 101.0) == pytest.approx(5e-6)
+    assert plain.step_alpha(0.05, 0.0, 101.0) == pytest.approx(0.05)
+    assert plain.step_alpha(0.05, 50.5, 101.0) == pytest.approx(0.025)
+    assert plain.step_alpha(0.05, 200.0, 101.0) == pytest.approx(5e-6)
 
 
 def test_rows_gap_reads_each_element():
     ids = torch.tensor([1, 2])
-    start = ref.Rows(ids, torch.zeros(2, 2), torch.zeros(2, 2), torch.float32)
-    moved = ref.Rows(ids, torch.ones(2, 2), torch.ones(2, 2), torch.float32)
+    f32 = torch.float32
+    start = plain.Rows(ids, torch.zeros(2, 2), torch.zeros(2, 2), f32)
+    moved = plain.Rows(ids, torch.ones(2, 2), torch.ones(2, 2), f32)
     # the same norms, the update put on other elements: a gap of sqrt(2)
-    other = ref.Rows(ids, torch.tensor([[2.0 ** 0.5, 0], [0, 2.0 ** 0.5]]),
-                     torch.ones(2, 2), torch.float32)
-    assert ref.rows_gap(moved, moved, start) == 0.0
-    assert ref.rows_gap(start, moved, start) == pytest.approx(1.0)
-    assert ref.rows_gap(other, moved, start) == pytest.approx(
+    other = plain.Rows(ids, torch.tensor([[2.0 ** 0.5, 0], [0, 2.0 ** 0.5]]),
+                       torch.ones(2, 2), f32)
+    assert plain.rows_gap(moved, moved, start) == 0.0
+    assert plain.rows_gap(start, moved, start) == pytest.approx(1.0)
+    assert plain.rows_gap(other, moved, start) == pytest.approx(
         float(torch.tensor([[2 ** 0.5 - 1, -1.0], [-1.0, 2 ** 0.5 - 1]])
               .norm()) / 2.0)

@@ -12,7 +12,7 @@ import time
 
 import pytest
 
-from benchmark import check, run
+from benchmark import cells, check, run
 from benchmark.cells import ROOT
 from benchmark.tests import tiny
 
@@ -26,7 +26,7 @@ def _run(kind, fault=None, trace=False):
                         fault=fault, units=tiny.UNITS)
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ("split",))
 def test_sound_run_is_correct(kind):
     out = _run(kind)
     assert out["correct"], out["checks"]
@@ -65,8 +65,8 @@ def test_control_is_not_correct(kind):
     with tap:
         r = train.train(cfg, vocab=vocab, encoded=corpus.encoded,
                         device="cpu")
-    got = check.step_readings(cfg, tap.chunk_fn, tap.engine.alias,
-                              r.tables, corpus, SEED,
+    got = check.step_readings(cell.model, cfg, tap.chunk_fn,
+                              tap.engine.alias, r.tables, corpus, SEED,
                               check.middle_scalars(tap.calls), mode="control")
     lim = cell.workload["limits"]
     _, correct, _ = check.judge(
@@ -105,13 +105,16 @@ print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 REF = """
 import json, sys
 sys.path.insert(0, {root!r})
-import benchmark.reference
+import {module}
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
+# every model module that a cell of BENCHMARK.json is checked by
+MODEL_MODULES = sorted({cells.load_cell(w["name"]).model.__name__
+                        for w in cells.benchmark_json()["workloads"]})
 
 
-def _top_level(code):
-    p = subprocess.run([sys.executable, "-c", code.format(root=ROOT)],
+def _top_level(code, **names):
+    p = subprocess.run([sys.executable, "-c", code.format(root=ROOT, **names)],
                        cwd=ROOT, capture_output=True, text=True,
                        timeout=600, env=dict(os.environ, OMP_NUM_THREADS="2"))
     assert p.returncode == 0, p.stderr[-2000:]
@@ -124,8 +127,9 @@ def test_run_loads_no_jax():
     assert not names & {"jax", "jaxlib", "flax", "word2bits_tpu"}
 
 
-def test_reference_loads_nothing_of_either_package():
-    names = _top_level(REF)
+@pytest.mark.parametrize("module", MODEL_MODULES)
+def test_reference_loads_nothing_of_either_package(module):
+    names = _top_level(REF, module=module)
     assert not names & {"jax", "jaxlib", "flax", "word2bits_tpu",
                         "word2bits_tpu_torch"}
 

@@ -1,6 +1,7 @@
-"""Tiny cells of the two kinds, for the CPU tests: the shipped cells'
-flags at a size a test run holds, with limits set from CPU readings at
-this size (far below the control's and the faults')."""
+"""Tiny cells for the CPU tests: the shipped cells' flags at a size a test
+run holds ("capacity", "shipped"), and the Quick start's split float32
+tables with the `add` scatter ("split"), with limits set from CPU readings
+at this size (far below the control's and the faults')."""
 
 from benchmark.cells import Cell
 
@@ -22,13 +23,18 @@ def cell(kind: str) -> Cell:
                         "-min-count", "5", "-sample", "1e-3",
                         "-bitlevel", "1"],
               "corpus": {"n_types": 400, "head": 3000, "s": 1.05,
-                         "min_count": 5, "sentence": 0 if one_line else 20}}
+                         "min_count": 5, "sentence": 0 if one_line else 20},
+              "reference": "benchmark/reference.py"}
     if kind == "capacity":
         flags = ["-dtype", "bfloat16", "-fused-tables", "1",
                  "-neg-sharing", "16", "-batch-size", "64",
                  "-steps-per-chunk", "4", "-loop-mode", "fori",
                  "-scatter-impl", "grmw", "-banded-tile", "32",
                  "-context-pallas", "1"]
+        wl = {"flags": flags, "epoch_s": 0.1}
+    elif kind == "split":
+        flags = ["-batch-size", "64", "-steps-per-chunk", "4",
+                 "-scatter-impl", "add"]
         wl = {"flags": flags, "epoch_s": 0.1}
     else:
         flags = ["-alpha", "0.1", "-dtype", "bfloat16", "-fused-tables",

@@ -1,17 +1,22 @@
 """The work a training step needs, from the cell's shapes and its own
 unigram counts, never from the program's arguments: the rows a step
-touches, its operations and its bytes.  Each input byte counts as read
-once and each output byte as written once (chip_smoke.py's rule, commit
+touches, its operations and its bytes.  The negatives a step draws (one
+step of the model's `negative_shape`), its operations and its bytes are
+the model's (the cell's model module: `negative_shape`, `step_flops`,
+`step_bytes`); the rows expected from them and the kernels' byte counts
+are here.  Each input byte counts as read once and each output byte as
+written once (chip_smoke.py's rule, commit
 26809b4dee3683ec1871bc5d1e1a6fa56c4992c9)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import cached_property
+from types import ModuleType
 
 import numpy as np
 
-from benchmark import reference as ref
+from benchmark import plain
 
 
 def expected_distinct(*draws) -> float:
@@ -25,23 +30,23 @@ def expected_distinct(*draws) -> float:
 
 @dataclass
 class StepShape:
-    """A step of a cell: its flags and its corpus's counts."""
+    """A step of a cell: its flags, its corpus's counts and its model
+    module, which counts the step's negatives, operations and bytes."""
 
     B: int
     W: int
     D: int
     K: int
-    G: int          # shared-negative tile; 0 = per-center negatives
-    P: int          # pools per tile
+    n_negs: int     # negative ids drawn a step
     fused: bool     # one (V, 2D) table
     elt: int        # bytes of a table element
     counts: np.ndarray
     sample: float
+    model: ModuleType
     tile: int = 0   # banded tile (kernel 1)
 
     @classmethod
-    def of(cls, cfg, counts) -> "StepShape":
-        G = cfg.neg_sharing
+    def of(cls, cfg, counts, model: ModuleType) -> "StepShape":
         tile = 0
         if cfg.banded_tile:
             t = min(cfg.banded_tile, cfg.batch_size)
@@ -49,36 +54,30 @@ class StepShape:
                 t -= 1
             tile = t
         return cls(B=cfg.batch_size, W=cfg.window, D=cfg.size,
-                   K=cfg.negative, G=G,
-                   P=cfg.neg_pool if (G and cfg.neg_pool > 1) else 1,
+                   K=cfg.negative,
+                   n_negs=int(np.prod(model.negative_shape(cfg, 1)[1:])),
                    fused=bool(cfg.fused_on),
                    elt=2 if cfg.dtype == "bfloat16" else 4,
-                   counts=np.asarray(counts), sample=cfg.sample, tile=tile)
+                   counts=np.asarray(counts), sample=cfg.sample,
+                   model=model, tile=tile)
 
     @property
     def n_slab(self) -> int:
         return self.B + 2 * self.W
 
-    @property
-    def n_negs(self) -> int:
-        """Negative ids drawn a step."""
-        if self.G:
-            return (self.B // self.G) * self.P * self.K
-        return self.B * self.K
-
     @cached_property
     def p_kept(self) -> np.ndarray:
         """Distribution of a word of the subsampled stream."""
         c = self.counts.astype(np.float64)
-        keep = np.minimum(ref.keep_probs(self.counts, self.sample,
-                                         int(c.sum())), 1.0)
+        keep = np.minimum(plain.keep_probs(self.counts, self.sample,
+                                           int(c.sum())), 1.0)
         p = c * keep
         p[0] = 0.0
         return p / p.sum()
 
     @cached_property
     def p_neg(self) -> np.ndarray:
-        return ref.negative_probs(self.counts)
+        return plain.negative_probs(self.counts)
 
     @cached_property
     def rows_slab(self) -> float:
@@ -98,17 +97,12 @@ class StepShape:
                                  (self.p_neg, self.n_negs))
 
     def step_flops(self) -> float:
-        """Context sums and u sums over 2W offsets, and per center and
-        target (center + K negatives) a dot product, its u-gradient term
-        and its v row, each 2D operations; the scatter adds."""
-        B, W, D, K = self.B, self.W, self.D, self.K
-        adds = (self.n_slab + self.n_negs) * (2 * D if self.fused else D)
-        return 2.0 * (B * 2 * W * D) + 6.0 * B * (K + 1) * D + adds
+        """The step's operations, as its model counts them."""
+        return self.model.step_flops(self)
 
     def step_bytes(self) -> float:
-        """Each touched u row and v row read and written once."""
-        D, e = self.D, self.elt
-        return 2.0 * (self.rows_slab + self.rows_v) * D * e
+        """The step's bytes, as its model counts them."""
+        return self.model.step_bytes(self)
 
 
 def span_bytes(N: int, C: int, U: float, elt: int) -> float:
