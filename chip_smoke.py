@@ -22,7 +22,8 @@ four blocks, [spank edges]: kernels 2 and 3 on one id holding
 102,400 rows, runs about the tile length, sentinels only and N = 0, in
 three dtype pairs at four widths, bit-equal to each other and from
 launch to launch, and [span paths]: kernel 2 through ops/scatter.
-scatter_add at the `add` routes' shapes, with one scatter timed through
+scatter_add at the `add` routes' shapes (the per-pair skip-gram step's
+at 692,001 x 300 among them), with one scatter timed through
 `index_add_` and through the sort and kernel 2), checks
 the steps and chunks of both engines on the card against the same code on
 the CPU ([step], the fused chunk's "sweep" scatter among them), and then
@@ -114,7 +115,8 @@ kernels' launch counts set to 0 just before and read just after:
                 scatter_impl="sweep" (kernel 9; the config rejects the
                 flag, as the JAX package's does), against the same chunk
                 with "span";
-  [skipgram]    the skip-gram step and chunk card vs CPU, then the Quick
+  [skipgram]    the skip-gram step and chunk card vs CPU (per-center,
+                shared, dense-hot and per pair), then the Quick
                 start's flags with -model skipgram for 2,048 steps, and
                 with -hot-rows 2048 -neg-dense-hot 1 on bf16, vectors
                 written (kernel 4) and read back;
@@ -656,8 +658,11 @@ def check_span(dev) -> dict:
 # into float32 [V, D]; the hot head buffer, float32 [HOT, 2D] (the fused
 # slab rows of a step, ids >= HOT dropped); a 2 x 2 mesh's v delta, float32
 # [V/2, D] on vocab shard 0 (one data shard's B/2 centers and their
-# negatives, the other shard's ids dropped)
+# negatives, the other shard's ids dropped); the per-pair skip-gram step
+# at the published widths (benchmark cell sgns.pair-add): v (B + B*2W*K
+# rows) and u (B + 2W rows) into float32 [692,001, 300]
 QS_B = 256
+SG_V, SG_D, SG_B, SG_W, SG_K = 692_001, 300, 8192, 5, 15
 
 
 def check_span_paths(dev) -> dict:
@@ -669,9 +674,10 @@ def check_span_paths(dev) -> dict:
     card's clock, one `add`-route scatter through `index_add_` (the rows
     cast to the table dtype, as the routes called it) and through
     scatter_add (the stable sort and kernel 2), with the host's time to
-    issue each (_host_us), at the Quick start's shapes
-    and at the shipped shape ([span]'s 14,352 float32 rows into a
-    [70,000, 400] bf16 table)."""
+    issue each (_host_us), at the Quick start's shapes, at the per-pair
+    skip-gram step's (1,236,992 and 8,202 float32 rows into a
+    [692,001, 300] float32 table) and at the shipped shape ([span]'s
+    14,352 float32 rows into a [70,000, 400] bf16 table)."""
     from word2bits_tpu_torch.kernels.span_scatter import (
         SENTINEL, scatter_add_span_plain, scatter_add_span_planned, span_plan)
     from word2bits_tpu_torch.ops.scatter import scatter_add
@@ -683,10 +689,14 @@ def check_span_paths(dev) -> dict:
     hot_ids = _step_ids(rng, V, B + 2 * W, 0, 0)
     mesh_ids = _step_ids(rng, V, B // 2, (B // 2 // G) * P * K, 0)
     mesh_ids = np.where(mesh_ids < Vs, mesh_ids, SENTINEL)
+    sg_v = _step_ids(rng, SG_V, SG_B, SG_B * 2 * SG_W * SG_K, 0)
+    sg_u = _step_ids(rng, SG_V, SG_B + 2 * SG_W, 0, 0)
     cases = (("quickstart v", qs_v, V, D, torch.float32),
              ("quickstart u", qs_u, V, D, torch.float32),
              ("hot head", hot_ids, HOT, 2 * D, torch.float32),
-             ("mesh delta", mesh_ids, Vs, D, torch.float32))
+             ("mesh delta", mesh_ids, Vs, D, torch.float32),
+             ("sgns v", sg_v, SG_V, SG_D, torch.float32),
+             ("sgns u", sg_u, SG_V, SG_D, torch.float32))
     out, times = {}, {}
     for name, ids_np, rows_t, C, tdt in cases:
         ids = torch.from_numpy(ids_np).to(dev)
@@ -721,6 +731,7 @@ def check_span_paths(dev) -> dict:
               f"launch bit-equal (digest "
               f"{_digest(got[0])}), max abs err {err:.3e} against the float64 "
               f"sum (the plain version {out[name]['plain_err']:.3e})")
+        del got, planned, plain, exact
     # one scatter through index_add_ and through sort + kernel 2
     span_ids = torch.from_numpy(_step_ids(np.random.default_rng(SEED), V,
                                           B + 2 * W, SCATTER_N - B - 2 * W,
@@ -728,6 +739,10 @@ def check_span_paths(dev) -> dict:
     timed = (("quickstart v", torch.from_numpy(qs_v).to(dev), V, D,
               torch.float32),
              ("quickstart u", torch.from_numpy(qs_u).to(dev), V, D,
+              torch.float32),
+             ("sgns v", torch.from_numpy(sg_v).to(dev), SG_V, SG_D,
+              torch.float32),
+             ("sgns u", torch.from_numpy(sg_u).to(dev), SG_V, SG_D,
               torch.float32),
              ("shipped", span_ids, V, 2 * D, torch.bfloat16))
     for name, ids, rows_t, C, tdt in timed:
@@ -3533,7 +3548,8 @@ def check_skipgram_step(dev) -> None:
     """One skip-gram step and a 3-step chunk on the card against the same
     calls on the CPU, at a small shape with injected draws, float32
     tables: atol 1e-4 + rtol 1e-4, loss rtol 1e-5 (as [step]); per-center,
-    shared with 2 pools, and dense-hot."""
+    shared with 2 pools, dense-hot, and per pair (-neg-per-pair 1: 2W*K
+    draws a center)."""
     from word2bits_tpu_torch.models import cbow_slab as cs
     from word2bits_tpu_torch.models import skipgram as sg
     from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
@@ -3553,14 +3569,16 @@ def check_skipgram_step(dev) -> None:
                       wca_per_step=float(b), denom=1e4)
     st = build_stratified_tables(np.arange(v, 0, -1.0) ** 0.75, h)
     dense = st.dense_split(k)
-    for name, gg, pp, dh in (("per-center", 0, 1, False),
-                             ("shared, 2 pools", 8, 2, False),
-                             ("dense-hot", 0, 1, True)):
+    for name, gg, pp, dh, npp in (("per-center", 0, 1, False, False),
+                                  ("shared, 2 pools", 8, 2, False, False),
+                                  ("dense-hot", 0, 1, True, False),
+                                  ("per pair", 0, 1, False, True)):
         kk = dense[0] if dh else k
         hyper = CBOWHyper(bitlevel=1, size=d, window=w, negative=kk)
         rows = b // gg if gg else b
+        lanes = 2 * w * kk if npp else pp * kk
         negs = torch.from_numpy(rng.integers(h if dh else 1, v,
-                                             (s, rows, pp * kk)))
+                                             (s, rows, lanes)))
         outs = {}
         for where in ("cpu", dev):
             step_dense = ((dense[1], torch.from_numpy(dense[2]).to(where))
@@ -3571,10 +3589,11 @@ def check_skipgram_step(dev) -> None:
             su, sv, loss = sg.skipgram_slab_step(
                 u0.clone().to(where), v0.clone().to(where), st_in,
                 torch.tensor(0.05, device=where), hyper, b, gg,
-                neg_pool=pp, dense_hot=step_dense)
+                neg_pool=pp, dense_hot=step_dense, neg_per_pair=npp)
             chunk = sg.make_skipgram_train_chunk(
                 hyper, v, b, s, neg_sharing=gg, neg_pool=pp,
-                hot_rows=h if dh else 0, dense_hot=dense if dh else None)
+                hot_rows=h if dh else 0, dense_hot=dense if dh else None,
+                neg_per_pair=npp)
             atab = (st.cold if dh else build_alias_table(np.ones(v))
                     ).to(where)
             cu, cv, closs = chunk(u0.clone().to(where), v0.clone().to(where),

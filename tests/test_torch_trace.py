@@ -29,12 +29,15 @@ FUSED = ["-fused-tables", "1", "-neg-sharing", "8", "-dtype", "bfloat16",
 FUSED_SPAN = FUSED + ["-scatter-impl", "span", "-device-epoch", "1"]
 STEP_PARTS = {"step.gather", "step.positive", "step.negative", "step.rows",
               "step.scatter"}
+# skip-gram's step has no separate rows phase (both routes)
+SKIPGRAM_PARTS = STEP_PARTS - {"step.rows"}
 ENGINES = {
     "fused-span": FUSED_SPAN,
     "fused-grmw-host-epoch": FUSED + ["-scatter-impl", "grmw",
                                       "-device-epoch", "0"],
     "slab": [],
     "skipgram": ["-model", "skipgram"],
+    "skipgram-pairs": ["-model", "skipgram", "-neg-per-pair", "1"],
     "mesh": ["-neg-sharing", "8", "-mesh-shape", "data=1,vocab=1"],
 }
 
@@ -97,13 +100,17 @@ def test_spans_of_a_recorded_train_call(tmp_path, engine):
             "step", "fetch"}
     if cfg.device_epoch_on:
         want.add("epoch_build.wait")
+    parts = set()
     if fused:
-        want |= {"chunk.draws", "chunk.plan"} | STEP_PARTS
+        parts = STEP_PARTS
+        want |= {"chunk.draws", "chunk.plan"} | parts
+    elif engine.startswith("skipgram"):
+        parts = SKIPGRAM_PARTS
+        want |= {"chunk.draws"} | parts
     assert set(names) == want
     assert names["step"] == res.steps > 0
     assert names["epoch"] == cfg.iter
-    if fused:
-        assert all(names[p] == res.steps for p in STEP_PARTS)
+    assert all(names[p] == res.steps for p in parts)
 
     def parent(i):
         return sp[sp[i][3]][0] if sp[i][3] >= 0 else None
@@ -129,7 +136,7 @@ def test_spans_of_a_recorded_train_call(tmp_path, engine):
         elif name in ("init", "alias", "epoch"):
             assert p == -1
     # on the profiler's clock: every scatter span holds the ops it issued
-    if fused:
+    if parts:
         starts = [a for n, a, _ in events if n.startswith("aten::")]
         for name, a, b, _ in sp:
             if name == "step.scatter":

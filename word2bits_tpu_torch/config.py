@@ -5,7 +5,10 @@ flags and defaults (reference src/word2bits.cpp:48-59, flag names
 :596-611) plus the JAX package's extensions, with the same field names,
 defaults, validation, `auto_lr` and `config_from_argv`, so one argv
 resolves to equal fields in both packages.  What each extension does is
-documented there.
+documented there.  The port has one field more, `neg_per_pair`
+(`-neg-per-pair 1`, skip-gram's per-pair negatives as word2vec draws
+them, models/skipgram.py); at its default 0 every field equals the JAX
+package's.
 
 The port implements everything the JAX package runs: the
 two CBOW engines, the split-table slab engine (the reference default:
@@ -73,6 +76,7 @@ class Word2BitsConfig:
     neg_pool: int = 1          # negative pools per tile
     fused_tables: bool = False # interleaved (V, 2D) table
     model: str = "cbow"
+    neg_per_pair: bool = False  # skip-gram: K draws per (center, context)
     use_pallas: bool = False
     dedup_block: int = 0
     hot_rows: int = 0
@@ -105,9 +109,12 @@ class Word2BitsConfig:
         self._reject_unported()
 
     def _validate(self):
-        """The JAX package's validation, check for check."""
+        """The JAX package's validation, check for check (the port's
+        -neg-per-pair first)."""
         if self.batch_size == 0:
             object.__setattr__(self, "batch_size", 256)
+        if self.neg_per_pair:
+            self._validate_per_pair()
         if self.bitlevel == 3:
             raise ValueError(
                 "bitlevel=3 is rejected: the reference quantizer maps every "
@@ -302,6 +309,24 @@ class Word2BitsConfig:
             raise ValueError(
                 f"model must be 'cbow' or 'skipgram', got {self.model!r}")
 
+    def _validate_per_pair(self):
+        """-neg-per-pair 1 runs on the single-card skip-gram engine with
+        the sampled negatives of each pair and the plain sorted scatter,
+        and with nothing that shares or replaces them."""
+        if self.model != "skipgram":
+            raise ValueError("-neg-per-pair 1 runs with -model skipgram "
+                             "(-cbow 0) only")
+        for flag, on in (("-neg-sharing", self.neg_sharing),
+                         ("-neg-pool > 1", self.neg_pool > 1),
+                         ("-hot-rows", self.hot_rows),
+                         ("-neg-dense-hot", self.neg_dense_hot),
+                         ("-dedup-block", self.dedup_block),
+                         ("-mesh-shape", self.mesh_shape)):
+            if on:
+                raise ValueError(f"-neg-per-pair 1 does not compose with "
+                                 f"{flag}: each pair draws its own K "
+                                 "negatives")
+
     def _reject_unported(self):
         """Flags whose code the port does not have yet: rejected by name."""
         for flag, field, selected in UNSUPPORTED:
@@ -388,6 +413,7 @@ REFERENCE_FLAGS = {
     "-neg-pool": ("neg_pool", int),
     "-fused-tables": ("fused_tables", lambda s: bool(int(s))),
     "-model": ("model", str),
+    "-neg-per-pair": ("neg_per_pair", lambda s: bool(int(s))),
     "-packed": ("packed", lambda s: bool(int(s))),
     "-checkpoint-dir": ("checkpoint_dir", str),
     "-checkpoint-every-epoch": ("checkpoint_every_epoch",

@@ -22,6 +22,26 @@ scatter_add, or the block dedup `-dedup-block`), the v scatters centers
 first, negatives
 second; all compute is float32.  Skip-gram reaches no TPU kernel in the
 JAX package, so none runs here.
+
+Per-pair negatives (`-neg-per-pair 1`, the port's own route; the JAX
+package has none): word2vec.c's skip-gram loop and arXiv 1310.4546 §2.2,
+where every (center, context) pair draws its own K negatives.  A chunk
+draws [S, B, 2W*K], pair-major (pair oi's K draws at lanes oi*K ..
+oi*K+K-1); the step scores each pair against its own K rows, so it
+gathers and updates 2W*K negative rows a center where the per-center
+route takes K.  The v update is ONE scatter of B + B*2W*K rows (centers
+first, then the pairs' negatives in lane order, the order the stable
+sort keeps), the u update the same B+2W-row scatter as above: two sorted
+scatters a step.  The [B*2W*K, D] float32 intermediates are whole (at
+B 8192, W 5, K 15, D 300 each is 1.47 GB).  Departures from word2vec.c:
+a step is a synchronous minibatch of B centers, not Hogwild per pair;
+pairs masked (padding, a sentence boundary, outside the shrunk window)
+draw negatives that are then masked rather than drawing none; the v
+update of an id is summed in float32 and rounded once a step.
+
+Spans (utils/trace.py, no-ops unless a profiler records): `chunk.draws`
+around the chunk's draws; `step.gather`, `step.positive`,
+`step.negative` and `step.scatter` in the step, on every route.
 """
 
 from __future__ import annotations
@@ -55,12 +75,14 @@ def _neg_terms(f: torch.Tensor, m: torch.Tensor, alpha: torch.Tensor,
 def skipgram_slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs,
                        alpha, hyper: CBOWHyper, batch_size: int,
                        neg_sharing: int = 0, dedup_block: int = 0,
-                       neg_pool: int = 1, dense_hot=None):
+                       neg_pool: int = 1, dense_hot=None,
+                       neg_per_pair: bool = False):
     """One synchronous skip-gram step over B consecutive centers on u and v
     IN PLACE; returns (u, v, loss) with loss a float32 0-d tensor.
 
     dense_hot = (w_cold, hot_w [H]): exact hot-stratum negatives per pair;
-    inputs.neg_ids then holds cold draws (ids >= H) weighted by w_cold."""
+    inputs.neg_ids then holds cold draws (ids >= H) weighted by w_cold.
+    neg_per_pair: inputs.neg_ids is [B, 2W*K], K draws for each pair."""
     B, W, D = batch_size, hyper.window, u.shape[1]
     bl, reg = hyper.bitlevel, hyper.reg
     dt = torch.float32
@@ -73,135 +95,181 @@ def skipgram_slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs,
         else:
             scatter_add(tab, ids, rows)
 
-    slab_ids = inputs.slab_tokens.clamp_min(0)
-    centers = slab_ids[W:W + B]
-    u_slab = u[slab_ids].to(dt)                                # [B+2W, D]
-    q_slab = quantize(u_slab, bl)
-    offsets, mask, valid = _context_masks(inputs, B, W)
-    mf = (mask & valid[:, None]).to(dt)                         # [B, 2W]
-    # pair input rows as shifted slices: q_in[b, oi] = q_slab[W + b + o]
-    q_in = torch.stack([q_slab[W + o:W + o + B] for o in offsets], dim=1)
+    with span("step.gather"):
+        slab_ids = inputs.slab_tokens.clamp_min(0)
+        centers = slab_ids[W:W + B]
+        u_slab = u[slab_ids].to(dt)                            # [B+2W, D]
+        q_slab = quantize(u_slab, bl)
+        offsets, mask, valid = _context_masks(inputs, B, W)
+        mf = (mask & valid[:, None]).to(dt)                     # [B, 2W]
+        # pair input rows as shifted slices: q_in[b, oi] = q_slab[W + b + o]
+        q_in = torch.stack([q_slab[W + o:W + o + B] for o in offsets], dim=1)
     two_ar = 2.0 * alpha * reg
 
     # --- the positive (center) target of every pair ---
-    v_c = v[centers].to(dt)
-    q_vc = quantize(v_c, bl)
-    f_pos = torch.bmm(q_in, q_vc[:, :, None])[..., 0]           # [B, 2W]
-    g_pos = (1.0 - sigmoid_lut(f_pos)) * alpha * mf
-    if reg:
-        pos_reg = reg * ((q_vc * q_vc).sum(dim=-1)[:, None]
-                         + (q_in * q_in).sum(dim=-1))
-    else:
-        pos_reg = 0.0
-    loss = ((torch.log(sigmoid_exact(f_pos)) - pos_reg) * mf).sum()
-    dv_center = torch.bmm(g_pos[:, None, :], q_in)[:, 0]        # [B, D]
-    if reg:
-        dv_center = dv_center - two_ar * v_c * mf.sum(dim=1)[:, None]
-    din = g_pos[..., None] * q_vc[:, None, :]                   # [B, 2W, D]
-
-    dv_hot = None
-    if dense_hot is not None:
-        hot_w = torch.as_tensor(dense_hot[1], dtype=dt, device=dev)
-        H = hot_w.shape[0]
-        v_h = v[:H].to(dt)                # the head before this step
-        q_vh = quantize(v_h, bl)
-        q_in2 = q_in.reshape(B * 2 * W, D)
-        f_h = q_in2 @ q_vh.T                                    # [B*2W, H]
-        c_rep = centers[:, None].expand(B, 2 * W).reshape(-1)
-        mh = ((torch.arange(H, device=dev)[None, :] != c_rep[:, None])
-              .to(dt) * mf.reshape(-1)[:, None] * hot_w[None, :])
-        hot_reg = (reg * (q_vh * q_vh).sum(dim=-1)[None, :] if reg
-                   else 0.0)
-        g_h, hloss = _neg_terms(f_h, mh, alpha, hot_reg)
-        del f_h                           # [B*2W, H]: keep g_h only
-        loss = loss + hloss
-        hot_visits = mh.sum(dim=0) if reg else None
-        del mh
-        din = din + (g_h @ q_vh).reshape(B, 2 * W, D)
-        dv_hot = g_h.T @ q_in2                                  # [H, D]
-        del g_h
+    with span("step.positive"):
+        v_c = v[centers].to(dt)
+        q_vc = quantize(v_c, bl)
+        f_pos = torch.bmm(q_in, q_vc[:, :, None])[..., 0]       # [B, 2W]
+        g_pos = (1.0 - sigmoid_lut(f_pos)) * alpha * mf
         if reg:
-            dv_hot = dv_hot - two_ar * v_h * hot_visits[:, None]
-
-    w_cold = (torch.tensor(dense_hot[0], dtype=dt, device=dev)
-              if dense_hot is not None else None)
-    negs = inputs.neg_ids
-    v_n = v[negs].to(dt)
-    q_vn = quantize(v_n, bl)
-    if neg_sharing:
-        G = neg_sharing
-        if B % G:
-            raise ValueError(f"batch {B} not divisible by neg tile {G}")
-        T = B // G
-        P = neg_pool if neg_pool and neg_pool > 1 else 1
-        PK = negs.shape[1]                                     # [T, P*K]
-        q_in4 = to_tiles(q_in, T, G).reshape(T, G * 2 * W, D)
-        f_neg = torch.bmm(q_in4, q_vn.transpose(1, 2)).reshape(
-            T, G, 2 * W, PK)
-        eligible = (negs[:, None, :]
-                    != to_tiles(centers, T, G)[:, :, None]).to(dt)
-        if P > 1:
-            eligible = eligible * pool_mask(G, PK // P, P, dt, dev)[None]
-        m4 = to_tiles(mf, T, G)[..., None] * eligible[:, :, None, :]
-        if w_cold is not None:
-            m4 = m4 * w_cold
-        vn_reg = (reg * (q_vn * q_vn).sum(dim=-1)[:, None, None, :] if reg
-                  else 0.0)
-        g_neg, nloss = _neg_terms(f_neg, m4, alpha, vn_reg)
-        loss = loss + nloss
-        g2 = g_neg.reshape(T, G * 2 * W, PK)
-        dv_neg = torch.bmm(g2.transpose(1, 2), q_in4)           # [T, PK, D]
+            pos_reg = reg * ((q_vc * q_vc).sum(dim=-1)[:, None]
+                             + (q_in * q_in).sum(dim=-1))
+        else:
+            pos_reg = 0.0
+        loss = ((torch.log(sigmoid_exact(f_pos)) - pos_reg) * mf).sum()
+        dv_center = torch.bmm(g_pos[:, None, :], q_in)[:, 0]    # [B, D]
         if reg:
-            dv_neg = dv_neg - two_ar * v_n * m4.sum(dim=(1, 2))[..., None]
-        din = din + from_tiles(
-            torch.bmm(g2, q_vn).reshape(T, G, 2 * W, D), B)
-    else:
-        f_neg = torch.bmm(q_in, q_vn.transpose(1, 2))           # [B, 2W, K]
-        m3 = (mf[..., None]
-              * (negs != centers[:, None])[:, None, :].to(dt))
-        if w_cold is not None:
-            m3 = m3 * w_cold
-        vn_reg = (reg * (q_vn * q_vn).sum(dim=-1)[:, None, :] if reg
-                  else 0.0)
-        g_neg, nloss = _neg_terms(f_neg, m3, alpha, vn_reg)
-        loss = loss + nloss
-        dv_neg = torch.bmm(g_neg.transpose(1, 2), q_in)         # [B, K, D]
-        if reg:
-            dv_neg = dv_neg - two_ar * v_n * m3.sum(dim=1)[..., None]
-        din = din + torch.bmm(g_neg, q_vn)
-    scat(v, centers, dv_center)
-    scat(v, negs.reshape(-1), dv_neg.reshape(-1, D))
-    if dv_hot is not None:
-        H = dv_hot.shape[0]
-        v[:H] = (v[:H].to(dt) + dv_hot).to(v.dtype)
+            dv_center = dv_center - two_ar * v_c * mf.sum(dim=1)[:, None]
+        din = g_pos[..., None] * q_vc[:, None, :]               # [B, 2W, D]
 
-    # --- u updates, summed by slab position from the 2W shifted pairs ---
-    din = din * mf[..., None]
-    if reg:
-        u_in = torch.stack([u_slab[W + o:W + o + B] for o in offsets], dim=1)
-        din = din - two_ar * u_in * mf[..., None]
-    du_slab = torch.zeros((B + 2 * W, D), dtype=dt, device=dev)
-    for oi, o in enumerate(offsets):
-        du_slab[W + o:W + o + B] += din[:, oi]
-    scat(u, slab_ids, du_slab)
+    with span("step.negative"):
+        dv_hot = None
+        if dense_hot is not None:
+            hot_w = torch.as_tensor(dense_hot[1], dtype=dt, device=dev)
+            H = hot_w.shape[0]
+            v_h = v[:H].to(dt)                # the head before this step
+            q_vh = quantize(v_h, bl)
+            q_in2 = q_in.reshape(B * 2 * W, D)
+            f_h = q_in2 @ q_vh.T                                # [B*2W, H]
+            c_rep = centers[:, None].expand(B, 2 * W).reshape(-1)
+            mh = ((torch.arange(H, device=dev)[None, :] != c_rep[:, None])
+                  .to(dt) * mf.reshape(-1)[:, None] * hot_w[None, :])
+            hot_reg = (reg * (q_vh * q_vh).sum(dim=-1)[None, :] if reg
+                       else 0.0)
+            g_h, hloss = _neg_terms(f_h, mh, alpha, hot_reg)
+            del f_h                           # [B*2W, H]: keep g_h only
+            loss = loss + hloss
+            hot_visits = mh.sum(dim=0) if reg else None
+            del mh
+            din = din + (g_h @ q_vh).reshape(B, 2 * W, D)
+            dv_hot = g_h.T @ q_in2                              # [H, D]
+            del g_h
+            if reg:
+                dv_hot = dv_hot - two_ar * v_h * hot_visits[:, None]
+
+        w_cold = (torch.tensor(dense_hot[0], dtype=dt, device=dev)
+                  if dense_hot is not None else None)
+        negs = inputs.neg_ids
+        v_n = v[negs].to(dt)
+        q_vn = quantize(v_n, bl)
+        if neg_per_pair:
+            v_rows, din, nloss = _pair_negative_phase(
+                q_in, q_vn, v_n if reg else None, negs, centers, mf,
+                dv_center, din, alpha, reg)
+            loss = loss + nloss
+        elif neg_sharing:
+            G = neg_sharing
+            if B % G:
+                raise ValueError(f"batch {B} not divisible by neg tile {G}")
+            T = B // G
+            P = neg_pool if neg_pool and neg_pool > 1 else 1
+            PK = negs.shape[1]                                 # [T, P*K]
+            q_in4 = to_tiles(q_in, T, G).reshape(T, G * 2 * W, D)
+            f_neg = torch.bmm(q_in4, q_vn.transpose(1, 2)).reshape(
+                T, G, 2 * W, PK)
+            eligible = (negs[:, None, :]
+                        != to_tiles(centers, T, G)[:, :, None]).to(dt)
+            if P > 1:
+                eligible = eligible * pool_mask(G, PK // P, P, dt, dev)[None]
+            m4 = to_tiles(mf, T, G)[..., None] * eligible[:, :, None, :]
+            if w_cold is not None:
+                m4 = m4 * w_cold
+            vn_reg = (reg * (q_vn * q_vn).sum(dim=-1)[:, None, None, :]
+                      if reg else 0.0)
+            g_neg, nloss = _neg_terms(f_neg, m4, alpha, vn_reg)
+            loss = loss + nloss
+            g2 = g_neg.reshape(T, G * 2 * W, PK)
+            dv_neg = torch.bmm(g2.transpose(1, 2), q_in4)       # [T, PK, D]
+            if reg:
+                dv_neg = dv_neg - two_ar * v_n * m4.sum(dim=(1, 2))[..., None]
+            din = din + from_tiles(
+                torch.bmm(g2, q_vn).reshape(T, G, 2 * W, D), B)
+        else:
+            f_neg = torch.bmm(q_in, q_vn.transpose(1, 2))       # [B, 2W, K]
+            m3 = (mf[..., None]
+                  * (negs != centers[:, None])[:, None, :].to(dt))
+            if w_cold is not None:
+                m3 = m3 * w_cold
+            vn_reg = (reg * (q_vn * q_vn).sum(dim=-1)[:, None, :] if reg
+                      else 0.0)
+            g_neg, nloss = _neg_terms(f_neg, m3, alpha, vn_reg)
+            loss = loss + nloss
+            dv_neg = torch.bmm(g_neg.transpose(1, 2), q_in)     # [B, K, D]
+            if reg:
+                dv_neg = dv_neg - two_ar * v_n * m3.sum(dim=1)[..., None]
+            din = din + torch.bmm(g_neg, q_vn)
+        del v_n, q_vn
+
+    with span("step.scatter"):
+        if neg_per_pair:
+            # ONE v scatter: the centers, then every pair's negatives
+            scat(v, torch.cat([centers, negs.reshape(-1)]), v_rows)
+        else:
+            scat(v, centers, dv_center)
+            scat(v, negs.reshape(-1), dv_neg.reshape(-1, D))
+        if dv_hot is not None:
+            H = dv_hot.shape[0]
+            v[:H] = (v[:H].to(dt) + dv_hot).to(v.dtype)
+
+        # --- u updates, summed by slab position from the 2W shifted pairs
+        din = din * mf[..., None]
+        if reg:
+            u_in = torch.stack([u_slab[W + o:W + o + B] for o in offsets],
+                               dim=1)
+            din = din - two_ar * u_in * mf[..., None]
+        du_slab = torch.zeros((B + 2 * W, D), dtype=dt, device=dev)
+        for oi, o in enumerate(offsets):
+            du_slab[W + o:W + o + B] += din[:, oi]
+        scat(u, slab_ids, du_slab)
     return u, v, loss
+
+
+def _pair_negative_phase(q_in, q_vn, v_n, negs, centers, mf, dv_center,
+                         din, alpha, reg):
+    """The per-pair negative phase: pair (b, oi) against its own K rows
+    (lanes oi*K .. oi*K+K-1 of negs [B, 2W*K]; q_vn [B, 2W*K, D] their
+    quantized rows, v_n the rows themselves where reg is on).  Returns
+    (v_rows [B + B*2W*K, D]: dv_center then the negatives' v update,
+    din plus the negatives' input gradients, the negatives' loss)."""
+    B, W2, D = q_in.shape
+    K = negs.shape[1] // W2
+    P = B * W2
+    q_vn3 = q_vn.reshape(P, K, D)
+    f_neg = torch.bmm(q_vn3, q_in.reshape(P, D, 1)).reshape(B, W2, K)
+    m3 = mf[..., None] * (negs.reshape(B, W2, K)
+                          != centers[:, None, None]).to(mf.dtype)
+    vn_reg = (reg * (q_vn3 * q_vn3).sum(dim=-1).reshape(B, W2, K) if reg
+              else 0.0)
+    g_neg, nloss = _neg_terms(f_neg, m3, alpha, vn_reg)
+    din = din + torch.bmm(g_neg.reshape(P, 1, K), q_vn3).reshape(B, W2, D)
+    # the v rows of the one v scatter, the negatives' written in place
+    v_rows = torch.empty((B + P * K, D), dtype=q_in.dtype,
+                         device=q_in.device)
+    v_rows[:B] = dv_center
+    dv_neg = v_rows[B:].view(B, W2, K, D)
+    torch.mul(g_neg[..., None], q_in[:, :, None, :], out=dv_neg)
+    if reg:
+        two_ar = 2.0 * alpha * reg
+        dv_neg -= two_ar * v_n.reshape(B, W2, K, D) * m3[..., None]
+    return v_rows, din, nloss
 
 
 def make_skipgram_train_chunk(hyper: CBOWHyper, vocab_size: int,
                               batch_size: int, steps: int,
                               neg_sharing: int = 0, dedup_block: int = 0,
                               neg_pool: int = 1, hot_rows: int = 0,
-                              dense_hot=None):
+                              dense_hot=None, neg_per_pair: bool = False):
     """chunk(u, v, tokens, sent_ids, atab, scalars, gen=None, n_steps=None,
     shrinks=None, negs=None) -> (u, v, loss_sum), the CBOW slab chunk's
     signature with the skip-gram step.
 
     The shrinks [S, B] and negatives ([S, B, K] per-center, [S, B/G, P*K]
-    shared) of the n_steps (default `steps`) steps are drawn from `gen` at
-    chunk entry unless injected.  dense_hot = (kc, w_cold, hot_w [H]) with
-    hot_rows = H: `atab` is the cold stratum's alias table, and kc cold
-    lanes a pool are drawn and offset by H.  At steps == 1 (the JAX
-    package's no-scan path) the chunk is one step."""
+    shared, [S, B, 2W*K] per pair) of the n_steps (default `steps`) steps
+    are drawn from `gen` at chunk entry unless injected.  dense_hot = (kc,
+    w_cold, hot_w [H]) with hot_rows = H: `atab` is the cold stratum's
+    alias table, and kc cold lanes a pool are drawn and offset by H.  At
+    steps == 1 (the JAX package's no-scan path) the chunk is one step."""
     B, W, K = batch_size, hyper.window, hyper.negative
     if neg_sharing and B % neg_sharing:
         raise ValueError(f"neg_sharing ({neg_sharing}) must divide "
@@ -209,9 +277,16 @@ def make_skipgram_train_chunk(hyper: CBOWHyper, vocab_size: int,
     if dense_hot is not None and not hot_rows:
         raise ValueError("dense_hot requires hot_rows (the hot-stratum "
                          "boundary)")
+    if neg_per_pair and (neg_sharing or dedup_block
+                         or dense_hot is not None):
+        raise ValueError("neg_per_pair draws each pair's own negatives "
+                         "and scatters them whole: no neg_sharing, "
+                         "dedup_block or dense_hot")
     P = neg_pool if (neg_sharing and neg_pool and neg_pool > 1) else 1
     neg_rows = B // neg_sharing if neg_sharing else B
     lanes = P * (dense_hot[0] if dense_hot is not None else K)
+    if neg_per_pair:
+        lanes = 2 * W * K
     step_dense = None if dense_hot is None else (dense_hot[1], dense_hot[2])
 
     def chunk(u: torch.Tensor, v: torch.Tensor, tokens: torch.Tensor,
@@ -224,14 +299,17 @@ def make_skipgram_train_chunk(hyper: CBOWHyper, vocab_size: int,
         S = steps if n_steps is None else n_steps
         slab_tokens, slab_sents = chunk_slabs(tokens, sent_ids,
                                               scalars.base0, S, B, W)
-        if shrinks is None:
-            shrinks = torch.randint(0, W, (S, B), generator=gen, device=dev)
-        if negs is None:
-            if dense_hot is not None:
-                negs = draw_cold(gen, atab, (S, neg_rows, lanes), hot_rows)
-            else:
-                negs = draw_negatives(gen, atab, (S, neg_rows, lanes),
-                                      vocab_size)
+        with span("chunk.draws"):
+            if shrinks is None:
+                shrinks = torch.randint(0, W, (S, B), generator=gen,
+                                        device=dev)
+            if negs is None:
+                if dense_hot is not None:
+                    negs = draw_cold(gen, atab, (S, neg_rows, lanes),
+                                     hot_rows)
+                else:
+                    negs = draw_negatives(gen, atab, (S, neg_rows, lanes),
+                                          vocab_size)
         alphas = step_alphas(scalars, S, dev)
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for s in range(S):
@@ -242,7 +320,7 @@ def make_skipgram_train_chunk(hyper: CBOWHyper, vocab_size: int,
                 u, v, step_loss = skipgram_slab_step(
                     u, v, inputs, alphas[s], hyper, B, neg_sharing,
                     dedup_block=dedup_block, neg_pool=P,
-                    dense_hot=step_dense)
+                    dense_hot=step_dense, neg_per_pair=neg_per_pair)
                 loss = loss + step_loss
         return u, v, loss
 

@@ -201,8 +201,9 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
     parallel/trainer.py); else, on one device, the fused-table engine with
     -fused-tables 1 on CBOW (shared negatives; the `add`, `span`, `grmw` or
     RMW scatter, the block dedup, the hot/cold split; optional context and
-    score kernels), skip-gram with -model skipgram (per-center or shared
-    negatives, dense-hot, the block dedup), else the split-table slab
+    score kernels), skip-gram with -model skipgram (per-center, shared or,
+    with -neg-per-pair 1, per-pair negatives, dense-hot, the block
+    dedup), else the split-table slab
     engine (per-center or shared negatives; the `add` or `span` scatter or
     the block dedup; optional context and score kernels)."""
     B, S, V = cfg.batch_size, cfg.steps_per_chunk, vocab.size
@@ -249,7 +250,8 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
         chunk_fn = make_skipgram_train_chunk(
             hyper, V, B, S, neg_sharing=cfg.neg_sharing,
             dedup_block=cfg.dedup_block, neg_pool=cfg.neg_pool,
-            hot_rows=cfg.hot_rows, dense_hot=dense_hot)
+            hot_rows=cfg.hot_rows, dense_hot=dense_hot,
+            neg_per_pair=cfg.neg_per_pair)
     else:
         chunk_fn = make_slab_train_chunk(
             hyper, V, B, S, neg_sharing=cfg.neg_sharing,
