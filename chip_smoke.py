@@ -5,8 +5,9 @@
 from the root of a checkout.  It builds the port's CUDA kernels from
 word2bits_tpu_torch/csrc/ (one nvcc per source, all at once; [ptxas]
 prints each kernel's registers, shared memory and spills, and kernels 1,
-2, 3, 5, 6, 7, 8 and 9 must not spill), holds each against its plain
-PyTorch version at the shapes of the paths that run it ([context], [span]
+2, 3, 5, 6, 7, 8 and 9 and the banded u-sum must not spill), holds each
+against its plain PyTorch version at the shapes of the paths that run it
+([band usum@800] and [band usum@200] at the CBOW cells', [context], [span]
 and [grmw] each printing a digest of the table it wrote, to hold kernels 2
 and 7 bit-equal across commits, [score], [score edges] ragged tiles at
 bitlevels 0/1/2/4/8, [rank1] with kernel 2 on its float32 table, [hotk],
@@ -590,6 +591,84 @@ def check_context_masks(dev) -> float:
         print(f"[{tag}] {int(args[2].sum())} ones of {args[2].numel()}")
         worst = max(worst, _hold_context(args, b, tag))
     return worst
+
+
+# ------------------------------------------------------ the banded u-sum
+def _band_usum_inputs(dev, b: int, d: int, seed: int):
+    """The step's banded masks (W = 8, tile 256) on sentences of ~20 words
+    with -1 padding at both ends, its shrinks, af from the valid centers,
+    float32 cavge rows [b, d]."""
+    from word2bits_tpu_torch.ops.windowed import build_banded_masks
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = b + 2 * W
+    sents = torch.cumsum((torch.rand(n, generator=g) < 0.05).long(), 0)
+    sents[:W] = sents[-W:] = -1
+    shrink = torch.randint(0, W, (b,), generator=g)
+    Mb, _, valid = build_banded_masks(sents.to(dev), shrink.to(dev), b, W,
+                                      TILE)
+    return Mb, valid.float(), torch.randn((b, d), generator=g).to(dev)
+
+
+def check_band_usum(dev) -> dict:
+    """The banded u-sum kernel (kernels/band_usum.py) against its plain
+    version at the two CBOW cells' shapes (wiki B = 16384, D = 800; text8
+    B = 8192, D = 200; W = 8, tile 256): within atol 1e-5 + rtol 1e-5 of
+    the float64 sum and of the plain version, cnt equal to the plain
+    version's, two launches bit-equal; then timed beside its bound, the
+    plain version and torch.bmm of the dense mask alone (`library_ms`: the
+    product the plain version's GEMM computes)."""
+    import ctypes
+    from word2bits_tpu_torch.kernels.band_usum import (
+        _library, band_usum, band_usum_plain)
+    from word2bits_tpu_torch.ops.windowed import banded_usum
+    out = {}
+    for tag, b, d in (("band usum@800", FLAG_B, FLAG_D),
+                      ("band usum@200", B, D)):
+        Mb, af, cav = _band_usum_inputs(dev, b, d, b + d)
+        shape = (ctypes.c_int * 4)()
+        if _library().w2b_band_usum_launch_shape(b, d, W, TILE,
+                                                 ctypes.addressof(shape)):
+            _fail(f"{tag}: the kernel refuses B = {b}, D = {d}")
+        print(f"[{tag}] launch: {shape[1]} CTAs of {shape[2]} threads, "
+              f"{shape[0]} slab rows a CTA, {shape[3]} bytes of dynamic "
+              "shared memory")
+        du, cnt = band_usum(Mb, af, cav, W, True)
+        du2, cnt2 = band_usum(Mb, af, cav, W, True)
+        torch.cuda.synchronize()
+        if not (torch.equal(du, du2) and torch.equal(cnt, cnt2)):
+            _fail(f"{tag}: two launches differ")
+        plain_du, plain_cnt = band_usum_plain(Mb, af, cav, W, True)
+        if not torch.equal(cnt, plain_cnt):
+            _fail(f"{tag}: cnt differs from the plain version's")
+        M_af = Mb * af.reshape(b // TILE, TILE)[:, :, None]
+        du64, _ = banded_usum(M_af.double(), cav.double(), b, W)
+        for name, want in (("float64", du64), ("plain", plain_du)):
+            excess = ((du.double() - want.double()).abs()
+                      - (1e-5 + 1e-5 * want.double().abs())).max()
+            if excess > 0:
+                _fail(f"{tag}: {excess:.3g} beyond atol 1e-5 + rtol 1e-5 "
+                      f"of the {name} sum")
+        err = _max_err(du, du64)
+        ms = _time_ms(lambda: band_usum(Mb, af, cav, W, False))
+        plain_ms = _time_ms(lambda: band_usum_plain(Mb, af, cav, W, False))
+        cav3 = cav.reshape(b // TILE, TILE, d)
+        library_ms = _time_ms(lambda: torch.bmm(M_af.transpose(1, 2), cav3))
+        # bytes: cavge read once, du written once, the mask's band and af
+        nbytes = b * d * 4 + (b + 2 * W) * d * 4 + b * (2 * W + 1) * 4 + b * 4
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"[{tag}] max |err| {err:.3g} against the float64 sum; kernel "
+              f"{ms:.5f} ms, plain {plain_ms:.5f} ms, torch.bmm of the "
+              f"dense mask {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
+              f"({nbytes} bytes)")
+        out[d] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, library_ms=library_ms,
+                      shapes=f"B={b}, D={d}, W={W}, tile {TILE}")
+    return dict(name="band_usum", route="cuda",
+                source="word2bits_tpu_torch/csrc/band_usum.cu",
+                replaces="none: the dense torch.bmm of "
+                         "ops/windowed.banded_usum (left to XLA by the JAX "
+                         "package)",
+                bound_by="bytes", at_d200=out[D], **out[FLAG_D])
 
 
 # ---------------------------------------------------------------- kernel 2
@@ -2217,7 +2296,7 @@ def train_main_path(work: str):
     if not path or path.group(1) != "device" or not epochs:
         _fail("the shipped flags did not build the epoch on the device "
               "(the auto -device-epoch resolves on, as in the JAX package)")
-    for name in ("fused_context_pallas", "scatter_add_span"):
+    for name in ("fused_context_pallas", "scatter_add_span", "band_usum"):
         if launches[name] <= 0:
             _fail(f"{name} was not launched on the main path")
     if not all(math.isfinite(x) for x in losses):
@@ -2308,7 +2387,7 @@ def train_flagship(work: str, dev) -> tuple:
     rss_life = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     if res.steps != FLAG_STEPS:
         _fail(f"flagship trained {res.steps} steps, not {FLAG_STEPS}")
-    for name in ("fused_context_pallas", "scatter_add_grmw"):
+    for name in ("fused_context_pallas", "scatter_add_grmw", "band_usum"):
         if launches[name] != res.steps:
             _fail(f"flagship: {name} launched {launches[name]} times in "
                   f"{res.steps} steps (once per step expected)")
@@ -2426,7 +2505,8 @@ def run_flagship_tool(work: str) -> dict:
     launches = _read_launches()
     tr, rs, ev = t["train"], t["resume"], t["eval"]
     for leg, rec in (("leg 1", tr), ("leg 2", rs)):
-        for name in ("fused_context_pallas", "scatter_add_grmw"):
+        for name in ("fused_context_pallas", "scatter_add_grmw",
+                     "band_usum"):
             if rec["launches"][name] != rec["steps"]:
                 _fail(f"flagship run {leg}: {name} launched "
                       f"{rec['launches'][name]} times in {rec['steps']} "
@@ -2454,7 +2534,7 @@ def run_flagship_tool(work: str) -> dict:
               f"first chunk's loss a step {rs['first_chunk_loss_per_step']} "
               f"(leg 1 {tr['first_chunk_loss_per_step']}), epoch loss "
               f"{rs['epoch_losses']} (leg 1 {tr['epoch_losses']})")
-    for name in ("fused_context_pallas", "scatter_add_grmw",
+    for name in ("fused_context_pallas", "scatter_add_grmw", "band_usum",
                  "quantize_pallas"):
         if launches[name] != tr["launches"][name] + rs["launches"][name]:
             _fail(f"flagship run: {name} launched {launches[name]} times, "
@@ -2532,7 +2612,7 @@ def run_resume(dev, vocab, encoded, ckdir: str) -> dict:
               f"checkpoint's {saved_words}")
     if not all(math.isfinite(x) for x in res.epoch_losses):
         _fail(f"resume epoch loss not finite: {res.epoch_losses}")
-    for name in ("fused_context_pallas", "scatter_add_grmw"):
+    for name in ("fused_context_pallas", "scatter_add_grmw", "band_usum"):
         if launches[name] != res.steps:
             _fail(f"resume: {name} launched {launches[name]} times in "
                   f"{res.steps} steps")
@@ -2574,9 +2654,11 @@ def run_rmw(dev, vocab, encoded) -> dict:
     if res.steps != RMW_STEPS:
         _fail(f"rmw trained {res.steps} steps, not {RMW_STEPS}")
     if (launches["scatter_add_rmw"] != 2 * res.steps
-            or launches["fused_context_pallas"] != res.steps):
+            or launches["fused_context_pallas"] != res.steps
+            or launches["band_usum"] != res.steps):
         _fail(f"rmw: launches {launches} in {res.steps} steps (kernel 8 "
-              "twice and kernel 1 once per step expected)")
+              "twice, kernel 1 and the banded u-sum once per step "
+              "expected)")
     if not all(math.isfinite(x) for x in res.epoch_losses):
         _fail(f"rmw epoch loss not finite: {res.epoch_losses}")
     if peak > 1.25 * table_bytes:
@@ -2596,6 +2678,7 @@ def run_rmw(dev, vocab, encoded) -> dict:
 # ------------------------------------- [quickstart]: reference default
 def _launch_counters():
     """Every ported kernel's wrapper, by the name in the kernels line."""
+    from word2bits_tpu_torch.kernels.band_usum import band_usum
     from word2bits_tpu_torch.kernels.context_pallas import \
         fused_context_pallas
     from word2bits_tpu_torch.kernels.group_rmw import \
@@ -2617,7 +2700,8 @@ def _launch_counters():
             "scatter_add_grmw": scatter_add_grmw_planned,
             "scatter_add_rmw": scatter_add_rmw,
             "quantize_pallas": quantize_pallas,
-            "scatter_add_sweep": scatter_add_sweep_planned}
+            "scatter_add_sweep": scatter_add_sweep_planned,
+            "band_usum": band_usum}
 
 
 def _zero_launches() -> None:
@@ -4247,10 +4331,10 @@ def run_mesh_capacity(dev, vocab, encoded) -> tuple:
 
 def report_ptxas() -> None:
     """Each kernel's registers, static shared memory and spills as ptxas
-    reported them in this run's build; kernels 1, 5 and 9 and every
-    instantiation of the tile template (kernels 2 and 3, both row sources;
-    6, its head-fold epilogue in hot_slice.cu; 7 and 8 in group_rmw.cu)
-    must not spill."""
+    reported them in this run's build; kernels 1, 5 and 9, the banded
+    u-sum and every instantiation of the tile template (kernels 2 and 3,
+    both row sources; 6, its head-fold epilogue in hot_slice.cu; 7 and 8 in
+    group_rmw.cu) must not spill."""
     from word2bits_tpu_torch.kernels._build import (BUILD_LOGS,
                                                     KERNEL_SOURCES,
                                                     ptxas_usage)
@@ -4265,12 +4349,13 @@ def report_ptxas() -> None:
                   f"spill stores {u['spill_stores']} B, spill loads "
                   f"{u['spill_loads']} B")
             held = (name in ("context", "span_scatter", "sweep_scatter",
-                             "score")
+                             "score", "band_usum")
                     or "tile_scatter_kernel" in u["function"])
             if held and (u["spill_stores"] or u["spill_loads"]):
                 spills.append(u["function"])
     if spills:
-        _fail(f"kernels 1, 2, 3, 5, 6, 7, 8 and 9 must not spill: {spills}")
+        _fail(f"kernels 1, 2, 3, 5, 6, 7, 8, 9 and the banded u-sum must "
+              f"not spill: {spills}")
 
 
 def main() -> int:
@@ -4300,6 +4385,7 @@ def main() -> int:
     report_ptxas()
 
     ctx200 = check_context(dev, B, D, "context")
+    band = check_band_usum(dev)
     span = check_span(dev)
     span["paths"] = check_span_paths(dev)
     score = check_score(dev)
@@ -4411,7 +4497,7 @@ def main() -> int:
     span["mesh"] = {t: m["kernel2"] for t, m in mesh["local"].items()
                     if "kernel2" in m}
     rmw["mesh"] = {f"vocab={MESH_CAP_NV}": mesh["capacity"]["kernel8"]}
-    kernels = [ctx, span, rank1, score, hot, grmw, rmw, quant, sweep]
+    kernels = [ctx, span, rank1, score, hot, grmw, rmw, quant, sweep, band]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

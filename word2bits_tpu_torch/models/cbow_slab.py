@@ -19,7 +19,8 @@ u and v, and the JAX package's whole `scat` switch besides (the block
 dedup, `dedup_block`, ops/scatter.py; the hot/cold split `scatter_add_hot`,
 `hot_rows`, reachable through this API only: the configuration asks for
 fused tables with -hot-rows); the fused context kernel on split tables
-(`context_pallas`); the fused score kernel (`use_pallas`, csrc/score.cu);
+(`context_pallas`); the banded u-sum kernel on every banded step of a card
+(kernels/band_usum.py); the fused score kernel (`use_pallas`, csrc/score.cu);
 and the rank-1 span scatter of the per-center v update (`span_rank1`).
 The tables are stored unpadded and updated IN PLACE; `params_from_jax`
 trims the JAX package's span padding.  The fused-table step
@@ -33,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from word2bits_tpu_torch.kernels.band_usum import band_usum
 from word2bits_tpu_torch.kernels.context_pallas import fused_context_pallas
 from word2bits_tpu_torch.kernels.score_pallas import (  # noqa: F401
     pool_mask, quantized_scores_pallas, quantized_scores_plain)
@@ -46,7 +48,7 @@ from word2bits_tpu_torch.ops.scatter import (add_rows_where, hot_slice_add,
                                              scatter_add, scatter_add_dedup)
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.ops.windowed import (
-    _tile_windows, banded_context, banded_usum, build_banded_masks, pick_tile)
+    _tile_windows, banded_context, build_banded_masks, pick_tile)
 from word2bits_tpu_torch.sampling.unigram import AliasTable, draw_negatives
 from word2bits_tpu_torch.utils.trace import span
 
@@ -166,9 +168,8 @@ def u_update_rows(pos: Positive, cavge: torch.Tensor, alpha: torch.Tensor,
     the active centers' cavge, minus the per-visit decay at reg > 0."""
     W = hyper.window
     if pos.windows[0] == "banded":
-        Mb = pos.windows[1]
-        M_af = Mb * pos.af.reshape(Mb.shape[0], Mb.shape[1])[:, :, None]
-        du_slab, cnt = banded_usum(M_af, cavge, B, W)
+        du_slab, cnt = band_usum(pos.windows[1], pos.af, cavge, W,
+                                 with_cnt=bool(hyper.reg))
     else:
         _, mf, offsets = pos.windows
         mc = mf * pos.af[:, None]

@@ -1,11 +1,11 @@
 """The fused CBOW step replayed from a CUDA graph.
 
 A fused step (models/cbow_fused.fused_slab_step) issues about a hundred
-kernels from Python: kernels 1, 2 and 7 and the torch ops around them.  On
-the card the host then sets the pace, not the device (PERF.md section 5).
-So a chunk of a replayable route captures its step once into a CUDA graph
-and replays that graph for every later step: the host issues a few copies
-and one replay a step.
+kernels from Python: kernels 1, 2 and 7, the banded u-sum and the torch ops
+around them.  On the card the host then sets the pace, not the device
+(PERF.md section 5).  So a chunk of a replayable route captures its step
+once into a CUDA graph and replays that graph for every later step: the
+host issues a few copies and one replay a step.
 
 What the graph reads sits at fixed addresses, owned by `_Graph`: the
 step's inputs (slab tokens and sentence ids, shrinks, negatives), its
@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from word2bits_tpu_torch.kernels import span_scatter
+from word2bits_tpu_torch.kernels.band_usum import band_usum
 from word2bits_tpu_torch.kernels.context_pallas import fused_context_pallas
 from word2bits_tpu_torch.kernels.group_rmw import scatter_add_grmw_planned
 from word2bits_tpu_torch.utils.trace import phase, span
@@ -82,9 +83,10 @@ def eager_reason(scatter_impl: str, **options) -> Optional[str]:
 
 def _counted() -> Tuple[Callable, ...]:
     """The launch-counting wrappers (`.launches`) of the kernels that a
-    replayed route's step launches: kernel 1, kernel 2 and kernel 7."""
+    replayed route's step launches: kernel 1, kernel 2, kernel 7 and the
+    banded u-sum."""
     return (fused_context_pallas, span_scatter.scatter_add_span_planned,
-            scatter_add_grmw_planned)
+            scatter_add_grmw_planned, band_usum)
 
 
 @dataclass

@@ -8,8 +8,10 @@ only F = tile + 2W slab positions, so with a per-tile [tile, F] 0/1 mask M
 
 and the du windows overlap-add by their 2W halo.  The two contractions are
 plain batched products (`torch.bmm`), as the JAX package left them to XLA
-outside any kernel.  Same sums as the reference's per-(center, context)
-loops (reference src/word2bits.cpp:431-449, :494-503) modulo float order.
+outside any kernel; on the card the step takes the u-sum from the banded
+kernel of kernels/band_usum.py instead, whose plain version is
+`banded_usum`.  Same sums as the reference's per-(center, context) loops
+(reference src/word2bits.cpp:431-449, :494-503) modulo float order.
 """
 
 from __future__ import annotations

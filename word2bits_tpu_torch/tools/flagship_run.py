@@ -70,6 +70,7 @@ from word2bits_tpu_torch.data.structured import structured_corpus
 from word2bits_tpu_torch.eval.analogy import (evaluate_analogies,
                                               load_questions)
 from word2bits_tpu_torch.io.vectors import read_vectors
+from word2bits_tpu_torch.kernels.band_usum import band_usum
 from word2bits_tpu_torch.kernels.context_pallas import fused_context_pallas
 from word2bits_tpu_torch.kernels.group_rmw import scatter_add_grmw_planned
 from word2bits_tpu_torch.kernels.quantize_pallas import quantize_pallas
@@ -191,6 +192,7 @@ def flagship_fields(args) -> dict:
 def launch_counts() -> dict:
     """The launch counters of the kernels this path can run."""
     return {"fused_context_pallas": fused_context_pallas.launches,
+            "band_usum": band_usum.launches,
             "scatter_add_grmw": scatter_add_grmw_planned.launches,
             "scatter_add_rmw": scatter_add_rmw.launches,
             "quantize_pallas": quantize_pallas.launches}
