@@ -681,7 +681,7 @@ def check_span(dev) -> dict:
     inputs are bit-equal; the table's digest (_digest) is printed, to be
     held equal across commits."""
     from word2bits_tpu_torch.kernels.span_scatter import (
-        scatter_add_span_plain, scatter_add_span_planned, span_plan)
+        scatter_add_span_plain, scatter_add_span_planned, sort_plan)
     rng = np.random.default_rng(SEED)
     V, C, N = SCATTER_V, 2 * D, SCATTER_N
     ids = torch.from_numpy(_step_ids(rng, V, B + 2 * W, N - B - 2 * W,
@@ -691,7 +691,7 @@ def check_span(dev) -> dict:
     table0 = (torch.rand((V, C), generator=torch.Generator(
         device=dev).manual_seed(SEED + 1), device=dev) - 0.5).to(
         torch.bfloat16)
-    plan = span_plan(ids, V)
+    plan = sort_plan(ids)
     got = scatter_add_span_planned(table0.clone(), plan, rows)
     again = scatter_add_span_planned(table0.clone(), plan, rows)
     want = scatter_add_span_plain(table0.clone(), ids, rows)
@@ -705,9 +705,7 @@ def check_span(dev) -> dict:
         _fail("span scatter: two launches on the same inputs differ")
     if torch.equal(got, table0):
         _fail("span scatter changed nothing")
-    n_unique = int(plan.n_runs)
-    longest = int((plan.run_start[1:n_unique + 1]
-                   - plan.run_start[:n_unique]).max())
+    n_unique, longest = _sorted_runs(plan, V)
     print(f"[span] max abs err {err:.3e}; {N} rows, {n_unique} distinct "
           f"ids, longest run {longest}; the table's digest {_digest(got)}")
     scratch = table0.clone()
@@ -746,7 +744,7 @@ SG_V, SG_D, SG_B, SG_W, SG_K = 692_001, 300, 8192, 5, 15
 
 def check_span_paths(dev) -> dict:
     """Kernel 2 on the `add` routes' shapes through scatter_add: two calls
-    bit-equal, and bit-equal to kernel 2 launched through span_plan; each
+    bit-equal, and bit-equal to kernel 2 launched through sort_plan; each
     float32 table held against the float64 sum of its rows
     (atol 1e-5 + rtol 1e-5, as [spank edges] holds float32 tables; the
     plain version's own float32 sums are printed beside).  Then, on the
@@ -758,7 +756,7 @@ def check_span_paths(dev) -> dict:
     [692,001, 300] float32 table) and at the shipped shape ([span]'s
     14,352 float32 rows into a [70,000, 400] bf16 table)."""
     from word2bits_tpu_torch.kernels.span_scatter import (
-        SENTINEL, scatter_add_span_plain, scatter_add_span_planned, span_plan)
+        SENTINEL, scatter_add_span_plain, scatter_add_span_planned, sort_plan)
     from word2bits_tpu_torch.ops.scatter import scatter_add
     rng = np.random.default_rng(SEED + 13)
     V, Vs = SCATTER_V, SCATTER_V // 2
@@ -785,7 +783,7 @@ def check_span_paths(dev) -> dict:
                 else torch.zeros((rows_t, C), device=dev))
         got = [scatter_add(base.clone().to(tdt), ids, rows) for _ in range(2)]
         planned = scatter_add_span_planned(base.clone().to(tdt),
-                                           span_plan(ids, rows_t), rows)
+                                           sort_plan(ids), rows)
         plain = scatter_add_span_plain(base.clone().to(tdt), ids, rows)
         keep = (ids >= 0) & (ids < rows_t)
         exact = base.double().index_add_(0, ids[keep],
@@ -795,7 +793,7 @@ def check_span_paths(dev) -> dict:
             _fail(f"span paths ({name}): two calls not bit-equal")
         if not torch.equal(_bits(got[0]), _bits(planned)):
             _fail(f"span paths ({name}): not bit-equal to kernel 2 through "
-                  "span_plan")
+                  "sort_plan")
         err = _max_err(got[0], exact)
         if not torch.allclose(got[0], exact, atol=1e-5, rtol=1e-5):
             _fail(f"span paths ({name}): max abs err {err:.3e} against the "
@@ -806,7 +804,7 @@ def check_span_paths(dev) -> dict:
                          rows=int(ids.numel()), table=[rows_t, C],
                          digest=_digest(got[0]))
         print(f"[span paths] {name}: {ids.numel()} rows into "
-              f"[{rows_t}, {C}] float32, two calls and the span_plan "
+              f"[{rows_t}, {C}] float32, two calls and the sort_plan "
               f"launch bit-equal (digest "
               f"{_digest(got[0])}), max abs err {err:.3e} against the float64 "
               f"sum (the plain version {out[name]['plain_err']:.3e})")
@@ -1059,7 +1057,7 @@ def check_rank1(dev) -> dict:
     materialized rows."""
     from word2bits_tpu_torch.kernels.span_scatter import (
         scatter_add_span_plain, scatter_add_span_planned,
-        scatter_add_span_rank1, scatter_add_span_rank1_plain, span_plan)
+        scatter_add_span_rank1, scatter_add_span_rank1_plain, sort_plan)
     rng = np.random.default_rng(SEED + 3)
     V, nd = RANK1_V, RANK1_ND
     nn = nd * K
@@ -1069,7 +1067,7 @@ def check_rank1(dev) -> dict:
     g = torch.randn((nn,), generator=gen, device=dev) * 0.01
     cavg = torch.randn((nd, D), generator=gen, device=dev) * 0.1
     table0 = torch.rand((V, D), generator=gen, device=dev) - 0.5
-    plan = span_plan(ids, V)
+    plan = sort_plan(ids)
     got = scatter_add_span_rank1(table0.clone(), plan, dense, g, cavg, K)
     want = scatter_add_span_rank1_plain(table0.clone(), plan, dense, g,
                                         cavg, K)
@@ -1098,7 +1096,7 @@ def check_rank1(dev) -> dict:
     if not torch.equal(got, mat):
         _fail(f"rank-1 span scatter vs kernel 2 on its rows materialized: "
               f"max abs err {_max_err(got, mat):.3e}, not bit-equal")
-    n_unique = int(plan.n_runs)
+    n_unique, _ = _sorted_runs(plan, V)
     print(f"[rank1] max abs err {err:.3e} against the plain version; "
           f"kernel 2 on the materialized rows {mat_err:.3e} against the "
           f"plain versions, bit-equal to kernel 3; "
@@ -1175,7 +1173,7 @@ def check_span_edges(dev, widths=(200, 400, 37, 1600)) -> None:
     it than that; its distance is printed."""
     from word2bits_tpu_torch.kernels.span_scatter import (
         SENTINEL, _library, scatter_add_span_plain, scatter_add_span_planned,
-        scatter_add_span_rank1, span_plan)
+        scatter_add_span_rank1, sort_plan)
     TILE = _library().w2b_span_tile()
     rng = np.random.default_rng(SEED + 7)
     V, per_src = 4096, K
@@ -1188,7 +1186,7 @@ def check_span_edges(dev, widths=(200, 400, 37, 1600)) -> None:
     plain_f32 = 0.0
     for what, ids_np in plans.items():
         ids = torch.from_numpy(ids_np).to(dev)
-        plan = span_plan(ids, V)
+        plan = sort_plan(ids)
         nd = ids.numel() // (1 + per_src)
         nn = ids.numel() - nd
         for C in widths:
@@ -1269,8 +1267,8 @@ def check_grmw(dev, n_slab: int = FLAG_B + 2 * W,
     The digest of the touched rows (in id order) is printed, to be held
     equal across commits."""
     from word2bits_tpu_torch.kernels.group_rmw import (
-        group_plan, group_rows, scatter_add_grmw_plain,
-        scatter_add_grmw_planned, tile_config)
+        scatter_add_grmw_plain, scatter_add_grmw_planned, tile_config)
+    from word2bits_tpu_torch.kernels.span_scatter import sort_plan
     rng = np.random.default_rng(SEED + 7)
     V, C, N = FLAG_V, 2 * FLAG_D, n_slab + n_neg
     ids = torch.from_numpy(_step_ids(rng, V, n_slab, n_neg, 64)).to(dev)
@@ -1280,7 +1278,7 @@ def check_grmw(dev, n_slab: int = FLAG_B + 2 * W,
     got.uniform_(-0.5, 0.5, generator=torch.Generator(
         device=dev).manual_seed(SEED + 1))
     want = got.clone()
-    plan = group_plan(ids, group_rows(got.dtype))
+    plan = sort_plan(ids)
     touched = torch.unique(ids[ids < V])
     before = got[touched]
     scatter_add_grmw_planned(got, plan, rows)
@@ -1365,10 +1363,9 @@ def check_grmw_edges(dev, widths=(37, 200, 1600)) -> dict:
     of its rows (atol 1e-5 + rtol 1e-5).  Kernel 7 and kernel 2 are timed
     on the "head 80%" rows at each width (bf16 table, float32 rows)."""
     from word2bits_tpu_torch.kernels.group_rmw import (
-        group_plan, group_rows, scatter_add_grmw_plain,
-        scatter_add_grmw_planned, tile_config)
+        scatter_add_grmw_plain, scatter_add_grmw_planned, tile_config)
     from word2bits_tpu_torch.kernels.span_scatter import (
-        scatter_add_span_planned, span_plan)
+        scatter_add_span_planned, sort_plan)
     L = tile_config()["L"]
     rng = np.random.default_rng(SEED + 8)
     V = 4096
@@ -1376,6 +1373,7 @@ def check_grmw_edges(dev, widths=(37, 200, 1600)) -> dict:
     times = {}
     for what, ids_np in _grmw_edge_plans(rng, L).items():
         ids = torch.from_numpy(ids_np).to(dev)
+        plan = sort_plan(ids)       # kernels 7 and 2 read the same sort
         for C in widths:
             gen = torch.Generator(device=dev).manual_seed(SEED + C)
             rows = torch.randn((ids.numel(), C), generator=gen,
@@ -1385,7 +1383,6 @@ def check_grmw_edges(dev, widths=(37, 200, 1600)) -> dict:
                              (torch.bfloat16, torch.bfloat16),
                              (torch.float32, torch.float32)):
                 table0 = base.to(tdt)
-                plan = group_plan(ids, group_rows(tdt))
                 r = rows.to(rdt)
                 k7 = [scatter_add_grmw_planned(table0.clone(), plan, r)
                       for _ in range(2)]
@@ -1421,12 +1418,11 @@ def check_grmw_edges(dev, widths=(37, 200, 1600)) -> dict:
                 if what == "head 80%" and tdt == torch.bfloat16 \
                         and rdt == torch.float32:
                     scratch = table0.clone()
-                    splan = span_plan(ids, V)
                     times[C] = (
                         _time_ms(lambda: scatter_add_grmw_planned(
                             scratch, plan, r)),
                         _time_ms(lambda: scatter_add_span_planned(
-                            scratch, splan, r)))
+                            scratch, plan, r)))
     print(f"[grmw edges] tiles of {L} slots; "
           f"{', '.join(_grmw_edge_plans(np.random.default_rng(0), L))} at "
           f"widths {', '.join(map(str, widths))} in 3 dtype pairs: two "
@@ -1665,11 +1661,10 @@ def check_rmw(dev) -> dict:
     (|got - want| <= 2^-6 (|want| + A) + 1e-6, A the per-id sum of |rows|);
     every other row must be untouched in both; the two calls run twice on
     the same inputs give bit-equal rows."""
-    from word2bits_tpu_torch.kernels.group_rmw import group_plan
     from word2bits_tpu_torch.kernels.scatter_pallas import (
-        group_rows, rmw_plan, scatter_add_rmw, scatter_add_rmw_plain,
-        scatter_add_rmw_planned, tile_config)
-    from word2bits_tpu_torch.kernels.span_scatter import SENTINEL
+        scatter_add_rmw, scatter_add_rmw_plain, scatter_add_rmw_planned,
+        tile_config)
+    from word2bits_tpu_torch.kernels.span_scatter import SENTINEL, sort_plan
     rng = np.random.default_rng(SEED + 8)
     V, C = FLAG_V, 2 * FLAG_D
     n_slab, n_neg = RMW_N
@@ -1726,9 +1721,8 @@ def check_rmw(dev) -> dict:
           f"{longest[1]} rows; two launches bit-equal; tiles of {cfg['L']} "
           f"slots, {cfg['THREADS']} threads, chunks of {cfg['SUB']} rows, "
           f"{cfg['IB']} in flight, groups of at most {cfg['GROUP']} columns")
-    # kernel 8 reads each call's sorted ids and source rows (group_plan's
-    # are rmw_plan's)
-    plans = [group_plan(ids, group_rows(got.dtype)) for ids, _ in calls]
+    # kernel 8 reads each call's sorted ids and source rows
+    plans = [sort_plan(ids) for ids, _ in calls]
 
     def kernel():
         for (ids, rows), pl in zip(calls, plans):
@@ -1744,7 +1738,7 @@ def check_rmw(dev) -> dict:
         for ids, rows in inside:
             got.index_add_(0, ids, rows)
     ms = _time_ms(kernel)
-    plan_ms = _time_ms(lambda: [rmw_plan(ids) for ids, _ in calls])
+    plan_ms = _time_ms(lambda: [sort_plan(ids) for ids, _ in calls])
     plain_ms = _time_ms(plain)
     library_ms = _time_ms(library)
     # bytes, both calls: the rows, the sorted ids and their source rows
@@ -1859,6 +1853,15 @@ def check_rmw_edges(dev, widths=(37, 200, 1600)) -> None:
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """The raw bits of a float32 or bfloat16 tensor (-0.0 is not +0.0)."""
     return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _sorted_runs(plan, V: int):
+    """(distinct ids in [0, V), longest run of one of them) of a sort
+    plan."""
+    s = plan.sids
+    _, n = torch.unique_consecutive(s[(s >= 0) & (s < V)],
+                                    return_counts=True)
+    return n.numel(), int(n.max()) if n.numel() else 0
 
 
 def _digest(t: torch.Tensor) -> str:
@@ -2111,12 +2114,12 @@ def _step_cases() -> tuple:
     hot_kw = dict(banded=8, neg_pool=p, hot_rows=h)
     # (name, fused, neg_sharing, negatives, cold map, kwargs)
     configs = (
-        ("span (scan)", True, g, "plain", False,
+        ("span", True, g, "plain", False,
          dict(fused_kw, scatter_impl="span")),
-        ("sweep (scan)", True, g, "plain", False,
+        ("sweep", True, g, "plain", False,
          dict(fused_kw, scatter_impl="sweep")),
-        ("grmw (fori)", True, g, "plain", False,
-         dict(fused_kw, scatter_impl="grmw", loop_mode="fori")),
+        ("grmw", True, g, "plain", False,
+         dict(fused_kw, scatter_impl="grmw")),
         ("quickstart", False, 0, "plain", False, dict(banded=0)),
         ("exact", False, 0, "plain", False,
          dict(banded=8, scatter_impl="span", context_pallas=True)),
@@ -2190,7 +2193,7 @@ def _run_step_case(data: dict, case: tuple, where, what=("step", "chunk")):
         atab = build_alias_table(np.ones(v)).to(where)
     chunk_data = (tokens.to(where), sents.to(where), atab, data["sc"])
     draws = dict(shrinks=shrinks.to(where), negs=negs.to(where))
-    step_kw = {x: y for x, y in kw.items() if x != "loop_mode"}
+    step_kw = dict(kw)
     if with_map:
         step_kw["cold_pos"] = data["cold"][0].to(where)
         draws["cold_pos"] = data["cold"].to(where)
@@ -2227,9 +2230,8 @@ def check_step_and_chunk(dev) -> None:
     against the same calls on the CPU (plain versions), at a small shape
     with injected draws, float32 tables: atol 1e-4 + rtol 1e-4, loss rtol
     1e-5.  Configurations (_step_cases): the fused table with the span
-    scatter, with the sweep scatter (kernel 9) and with grmw under
-    -loop-mode fori (context kernel); the split tables at the
-    Quick start (per-center, shifted sums, add) and in the exact mode with
+    scatter, with the sweep scatter (kernel 9) and with grmw (context
+    kernel); the split tables at the Quick start (per-center, shifted sums, add) and in the exact mode with
     materialized and with rank-1 negative rows (span, banded, context
     kernel); the score kernel on split and on fused tables; the hot/cold
     split (with and without kernel 6, and with the score kernel), the
@@ -4095,7 +4097,7 @@ def check_local_mesh(dev, vocab, encoded) -> dict:
     in float32 and bf16 (RESYNC_TOL); kernel 2's time on one shard's
     step-0 lists beside the single card's."""
     from word2bits_tpu_torch.kernels.span_scatter import (
-        scatter_add_span_planned, span_plan)
+        scatter_add_span_planned, sort_plan)
     from word2bits_tpu_torch.models.cbow import (CBOWHyper, ChunkScalars,
                                                  chunk_slabs)
     from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
@@ -4168,7 +4170,7 @@ def check_local_mesh(dev, vocab, encoded) -> dict:
         for name, ids_m, ids_1 in zip(
                 ("u", "v"), gathered_update_ids(slab, negs[:1], nd, W, G),
                 single_ids):
-            plan_1 = span_plan(ids_1[0], V)
+            plan_1 = sort_plan(ids_1[0])
             tab_1 = torch.zeros((V, D), dtype=torch.bfloat16, device=dev)
             rows_1 = torch.randn((ids_1.shape[1], D), device=dev) * 1e-3
             t = times[name] = dict(single_ms=_time_ms(
@@ -4176,7 +4178,7 @@ def check_local_mesh(dev, vocab, encoded) -> dict:
                 single_slots=int(ids_1.shape[1]))
             for vi in (0, nv - 1):
                 loc = to_local(ids_m[0], vi, Vs)
-                plan_s = span_plan(loc, Vs)
+                plan_s = sort_plan(loc)
                 tab_s = torch.zeros((Vs, D), dtype=torch.bfloat16,
                                     device=dev)
                 rows_s = torch.randn((loc.shape[0], D), device=dev) * 1e-3

@@ -1,6 +1,7 @@
 """The port's capacity path == the JAX package's (CPU): the grmw training
-chunk under every loop mode, the fused table's row-block init, and the
-row-block export of vectors and `.pack` files.
+chunk against the JAX chunk under every loop mode (the port's one loop
+takes none), the fused table's row-block init, and the row-block export
+of vectors and `.pack` files.
 
 The grmw chunk runs the JAX make_fused_train_chunk (group-RMW kernel and
 context kernel in interpret mode, table padded to its 8-row float32
@@ -77,8 +78,7 @@ def test_grmw_chunk_matches_jax_chunk(rng, loop_mode):
     port = tf.make_fused_train_chunk(CBOWHyper(**hyper_kw), V, B, S,
                                      neg_sharing=G, neg_pool=P,
                                      banded=BANDED, scatter_impl="grmw",
-                                     context_pallas=True,
-                                     loop_mode=loop_mode)
+                                     context_pallas=True)
     got = tf.params_from_jax(np.pad(table, ((0, vpad), (0, 0))),
                              dtype=torch.float32, device="cpu",
                              table_pad=(vpad, 0))
@@ -93,9 +93,9 @@ def test_grmw_chunk_matches_jax_chunk(rng, loop_mode):
 
 
 def test_loop_mode_rejects_unknown():
-    with pytest.raises(ValueError, match="loop_mode"):
-        tf.make_fused_train_chunk(CBOWHyper(size=D), V, B, S, neg_sharing=G,
-                                  banded=BANDED, loop_mode="while")
+    with pytest.raises(ValueError, match="-loop-mode 'while'"):
+        config_from_argv(["-fused-tables", "1", "-neg-sharing", str(G),
+                          "-loop-mode", "while"])
 
 
 @pytest.mark.parametrize("start,n", [(0, 1), (12345, 200_000),

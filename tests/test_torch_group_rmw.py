@@ -107,8 +107,8 @@ def test_sparse_tail(rng):
 
 def test_group_spans_chunk_boundary(rng):
     """One hot group spans many of the JAX kernel's blocks (visited once
-    per block there, ordered by its drain); the port gives each of its ids
-    one visit (a group above SPLIT_ROWS rows is split by id)."""
+    per block there, ordered by its drain); the port sums each of its ids
+    over the whole sorted stream."""
     V, C, N = 512, 128, 640
     table = rng.normal(size=(V, C)).astype(np.float32)
     ids = rng.integers(0, 8, size=N).astype(np.int32)   # all in group 0
@@ -116,11 +116,6 @@ def test_group_spans_chunk_boundary(rng):
     want = _jax(table, ids, rows, chunk=64, slots=8)
     got = _port(table, ids, rows, chunk=64, slots=8)
     _assert_f32_close(got, want, table, ids, rows)
-    plan = tg.group_plan(torch.from_numpy(ids), tg.group_rows(torch.float32),
-                         chunk=64)
-    assert int(plan.n_vis) == len(np.unique(ids)) == 8
-    few = tg.group_plan(torch.from_numpy(ids[:tg.SPLIT_ROWS]), 8)
-    assert int(few.n_vis) == 1
 
 
 @pytest.mark.parametrize("dup_heavy", [False, True])
@@ -195,7 +190,7 @@ def test_planned_batched_matches_jax_scan(rng):
 
     want, _ = jax.lax.scan(step, jnp.asarray(table),
                            (plans, jnp.asarray(rows_all)))
-    tplans = tg.group_plan(torch.from_numpy(ids_all), 8)
+    tplans = tg.sort_plan(torch.from_numpy(ids_all))
     got = torch.from_numpy(table.copy())
     for s in range(S):
         tg.scatter_add_grmw_planned(got, tplans.step(s),
@@ -210,69 +205,11 @@ def test_chunk_below_slots_raises(rng):
             torch.from_numpy(rows))
     with pytest.raises(ValueError, match="slots"):
         tg.scatter_add_grmw(*args, chunk=8, slots=16)
-    plan = tg.group_plan(args[1], 8, chunk=8)
+    plan = tg.sort_plan(args[1])
     with pytest.raises(ValueError, match="slots"):
         tg.scatter_add_grmw_planned(args[0], plan, args[2], chunk=8,
                                     slots=16)
     tg.scatter_add_grmw(*args, chunk=16, slots=16)    # equal is fine
-
-
-def _walk(table, plan, rows, V):
-    """Kernel 8's traversal (the visits' CTAs; kernel 7 reads only the
-    sorted ids and order), in Python: CTA per visit, its runs in order,
-    each run summed in float32 and added once."""
-    seen = set()
-    for v in range(int(plan.n_vis)):
-        r0, r1 = int(plan.vis_run[v]), int(plan.vis_run[v + 1])
-        assert r1 > r0
-        for r in range(r0, r1):
-            b, e = int(plan.run_start[r]), int(plan.run_start[r + 1])
-            rid = int(plan.sids[b])
-            assert e > b and (plan.sids[b:e] == rid).all()
-            assert rid not in seen
-            seen.add(rid)
-            assert rid >> 3 == int(plan.sids[plan.run_start[r0]]) >> 3
-            if 0 <= rid < V:
-                table[rid] += rows[plan.order[b:e].long()].sum(dim=0)
-    return seen
-
-
-def test_plan_gives_each_group_one_visit(rng):
-    """Every id below the sentinel lies in exactly one run and one visit
-    over the whole sorted stream (no two CTAs share a row); a visit is a
-    whole group, or one id of a group above SPLIT_ROWS rows; and walking
-    the plan as the kernel does gives the scatter."""
-    V, C, N = 300, 8, 1000
-    ids = np.minimum(rng.zipf(1.2, size=N) - 1, V + 40).astype(np.int32)
-    ids[rng.choice(N, 50, replace=False)] = SENTINEL
-    ids[:3] = -1
-    table = rng.normal(size=(V, C)).astype(np.float32)
-    rows = rng.normal(size=(N, C)).astype(np.float32)
-    plan = tg.group_plan(torch.from_numpy(ids), 8)
-    walked = torch.from_numpy(table.astype(np.float64))
-    seen = _walk(walked, plan, torch.from_numpy(rows).double(), V)
-    valid = ids[(ids >= 0) & (ids < SENTINEL)]
-    assert seen == set(valid.tolist())
-    groups, rows_in = np.unique(valid >> 3, return_counts=True)
-    ids_in = [len(np.unique(valid[valid >> 3 == g])) for g in groups]
-    assert int(plan.n_vis) == sum(
-        n if r > tg.SPLIT_ROWS else 1 for r, n in zip(rows_in, ids_in))
-    assert max(rows_in) > tg.SPLIT_ROWS      # the head group is split
-    assert int(plan.run_start[plan.vis_run[int(plan.n_vis)]]) == (
-        (ids >= 0) & (ids < SENTINEL)).sum() + 3
-    want = _port(table, ids, rows)
-    _assert_f32_close(walked.numpy(), want, table, ids, rows)
-
-
-def test_plan_batched_equals_per_step(rng):
-    V, S, N = 100, 3, 257
-    ids = rng.integers(0, V + 20, (S, N))
-    ids[ids >= V] = SENTINEL
-    ids_t = torch.from_numpy(ids)
-    batched = tg.group_plan(ids_t, 16)
-    for s in range(S):
-        for a, b in zip(batched.step(s), tg.group_plan(ids_t[s], 16)):
-            np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_wrapper_counts_only_launches(rng):
@@ -280,8 +217,6 @@ def test_wrapper_counts_only_launches(rng):
     before = tg.scatter_add_grmw_planned.launches
     _port(table, ids, rows)           # CPU: plain version, no launch
     assert tg.scatter_add_grmw_planned.launches == before
-    assert tg.group_rows(torch.bfloat16) == 16
-    assert tg.group_rows(torch.float32) == 8
 
 
 @pytest.mark.parametrize("V,C,N,head,n_sentinel", [
@@ -311,7 +246,7 @@ def test_grmw_drops_negative_ids(rng):
     np.add.at(want, ids[keep], rows[keep])
     got = _port(table, ids, rows)
     _assert_f32_close(got, want, table, ids, rows)
-    plan = tg.group_plan(torch.from_numpy(ids), 8)
+    plan = tg.sort_plan(torch.from_numpy(ids))
     assert (plan.sids[:int((ids < 0).sum())] < 0).all()
 
 
@@ -320,7 +255,7 @@ def _bad_grmw_call(rng, bad):
     V, C, N = 64, 16, 40
     table, ids, rows = _case(rng, V, C, N, dup_heavy=True)
     table, rows = torch.from_numpy(table), torch.from_numpy(rows)
-    plan = tg.group_plan(torch.from_numpy(ids), 8)
+    plan = tg.sort_plan(torch.from_numpy(ids))
     if bad == "table dtype":
         table = table.double()
     elif bad == "row dtype":
@@ -330,15 +265,13 @@ def _bad_grmw_call(rng, bad):
     elif bad == "width":
         rows = rows[:, :C - 1]
     elif bad == "batched plan":
-        plan = tg.group_plan(torch.from_numpy(ids)[None], 8)
+        plan = tg.sort_plan(torch.from_numpy(ids)[None])
     elif bad == "plan dtype":
         plan = plan._replace(order=plan.order.long())
     elif bad == "not contiguous":
         rows = torch.from_numpy(np.asfortranarray(rows.numpy()))
-    elif bad == "run_start length":
-        plan = plan._replace(run_start=plan.run_start[:-1])
-    elif bad == "vis_run length":
-        plan = plan._replace(vis_run=plan.vis_run[:-1])
+    elif bad == "order length":
+        plan = plan._replace(order=plan.order[:-1])
     elif bad == "device":
         rows = rows.to("meta")
     return table, plan, rows
@@ -346,13 +279,13 @@ def _bad_grmw_call(rng, bad):
 
 @pytest.mark.parametrize("bad", [
     "table dtype", "row dtype", "bf16 rows into a float32 table", "width",
-    "batched plan", "plan dtype", "not contiguous", "run_start length",
-    "vis_run length", "device"])
+    "batched plan", "plan dtype", "not contiguous", "order length",
+    "device"])
 def test_grmw_wrapper_raises_on_what_the_kernel_does_not_take(rng, bad):
     """The checks kernel 7's wrapper makes before a launch (on a CUDA
     tensor it launches the kernel or raises; it does not fall back)."""
     table, plan, rows = _bad_grmw_call(rng, bad)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="scatter_add_grmw"):
         tg._check("scatter_add_grmw", table, plan, rows)
 
 

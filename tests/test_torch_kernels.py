@@ -121,7 +121,7 @@ def _bad_span_call(rng, bad):
     V, C, N = 64, 16, 40
     table, ids, rows = _scatter_case(rng, V, C, N, 2)
     table, rows = torch.from_numpy(table), torch.from_numpy(rows)
-    plan = tspan.span_plan(torch.from_numpy(ids).long(), V)
+    plan = tspan.sort_plan(torch.from_numpy(ids).long())
     if bad == "table dtype":
         table = table.double()
     elif bad == "row dtype":
@@ -131,13 +131,13 @@ def _bad_span_call(rng, bad):
     elif bad == "width":
         rows = rows[:, :C - 1]
     elif bad == "batched plan":
-        plan = tspan.span_plan(torch.from_numpy(ids).long()[None], V)
+        plan = tspan.sort_plan(torch.from_numpy(ids).long()[None])
     elif bad == "plan dtype":
         plan = plan._replace(order=plan.order.long())
     elif bad == "not contiguous":
         rows = torch.from_numpy(np.asfortranarray(rows.numpy()))
-    elif bad == "run_start length":
-        plan = plan._replace(run_start=plan.run_start[:-1])
+    elif bad == "order length":
+        plan = plan._replace(order=plan.order[:-1])
     elif bad == "device":
         rows = rows.to("meta")
     return table, plan, rows
@@ -145,14 +145,14 @@ def _bad_span_call(rng, bad):
 
 @pytest.mark.parametrize("bad", [
     "table dtype", "row dtype", "bf16 rows into a float32 table", "width",
-    "batched plan", "plan dtype", "not contiguous", "run_start length",
+    "batched plan", "plan dtype", "not contiguous", "order length",
     "device"])
 def test_span_wrapper_raises_on_what_the_kernel_does_not_take(rng, bad):
     """The checks the wrapper makes before a launch (on a CUDA tensor it
     launches the kernel or raises; it never falls back)."""
     table, plan, rows = _bad_span_call(rng, bad)
-    with pytest.raises(ValueError):
-        tspan._check("scatter_add_span", table, plan, rows, table.shape[1])
+    with pytest.raises(ValueError, match="scatter_add_span"):
+        tspan.check_sorted("scatter_add_span", table, plan, rows)
 
 
 def test_span_wrapper_raises_off_cpu_and_cuda(rng):
@@ -184,27 +184,60 @@ def test_span_plain_bf16_one_rounding_per_row(rng):
                                want16.numpy(), atol=1e-3, rtol=2 ** -7)
 
 
-def test_span_plan_batched_equals_per_step(rng):
+@pytest.mark.parametrize("dropped", ["sentinels", "negative ids"])
+def test_sort_plan_batched_equals_per_step(rng, dropped):
+    """The plan of S steps at once is each step's plan, and each step's is
+    the stable sort of its ids: ids outside [0, V) stay in it (sentinels
+    sort last, negative ids first)."""
     V, S, N = 100, 3, 257
     ids = rng.integers(0, V + 20, (S, N))
-    ids[ids >= V] = tspan.SENTINEL
+    ids[ids >= V] = tspan.SENTINEL if dropped == "sentinels" else -1
     ids_t = torch.from_numpy(ids)
-    batched = tspan.span_plan(ids_t, V)
+    batched = tspan.sort_plan(ids_t)
     for s in range(S):
-        one = tspan.span_plan(ids_t[s], V)
+        one = tspan.sort_plan(ids_t[s])
         for a, b in zip(batched.step(s), one):
+            assert a.dtype == torch.int32
             np.testing.assert_array_equal(a.numpy(), b.numpy())
-        # runs cover exactly the in-range ids, one run per distinct id
-        p = one
-        n = int(p.n_runs)
-        starts = p.run_start[:n + 1].numpy()
-        valid = np.sort(ids[s][ids[s] < V])
-        assert n == len(np.unique(valid))
-        assert starts[n] == len(valid)
-        run_ids = p.sids.numpy()[starts[:n]]
-        np.testing.assert_array_equal(run_ids, np.unique(valid))
-        np.testing.assert_array_equal(ids[s][p.order.numpy()],
-                                      p.sids.numpy())
+        np.testing.assert_array_equal(one.order.numpy(),
+                                      np.argsort(ids[s], kind="stable"))
+        np.testing.assert_array_equal(ids[s][one.order.numpy()],
+                                      one.sids.numpy())
+
+
+@pytest.mark.parametrize("kernel", [2, 3, 7, 8])
+def test_one_sort_plan_drives_every_sorted_kernel(rng, kernel):
+    """One sort_plan of Zipf ids with drop sentinels and negative ids
+    drives each sorted scatter's entry point (kernels 2, 3, 7 and 8; on
+    the CPU their plain versions) to the table of the plain scatter, the
+    float64 sum of every in-range row."""
+    from word2bits_tpu_torch.kernels.group_rmw import scatter_add_grmw_planned
+    from word2bits_tpu_torch.kernels.scatter_pallas import \
+        scatter_add_rmw_planned
+    V, C, nd, per_src = 200, 24, 40, 4
+    N = nd * (1 + per_src)
+    table, ids, _ = _scatter_case(rng, V, C, N, 6)
+    ids[rng.choice(N, 5, replace=False)] = -3
+    dense = rng.normal(size=(nd, C)).astype(np.float32)
+    g = rng.normal(size=N - nd).astype(np.float32)
+    cavg = rng.normal(size=(nd, C)).astype(np.float32)
+    rows = np.concatenate([dense, g[:, None] * cavg[np.arange(N - nd)
+                                                    // per_src]])
+    plan = tspan.sort_plan(torch.from_numpy(ids))
+    got = torch.from_numpy(table.copy())
+    if kernel == 3:
+        tspan.scatter_add_span_rank1(got, plan, torch.from_numpy(dense),
+                                     torch.from_numpy(g),
+                                     torch.from_numpy(cavg), per_src)
+    else:
+        planned = {2: tspan.scatter_add_span_planned,
+                   7: scatter_add_grmw_planned,
+                   8: scatter_add_rmw_planned}[kernel]
+        planned(got, plan, torch.from_numpy(rows))
+    want = table.astype(np.float64)
+    keep = (ids >= 0) & (ids < V)
+    np.add.at(want, ids[keep], rows[keep].astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
 def test_span_planned_matches_unplanned(rng):
@@ -213,7 +246,7 @@ def test_span_planned_matches_unplanned(rng):
     t1 = tspan.scatter_add_span(torch.from_numpy(table.copy()),
                                 torch.from_numpy(ids),
                                 torch.from_numpy(rows))
-    plan = tspan.span_plan(torch.from_numpy(ids)[None], V).step(0)
+    plan = tspan.sort_plan(torch.from_numpy(ids)[None]).step(0)
     t2 = tspan.scatter_add_span_planned(torch.from_numpy(table.copy()), plan,
                                         torch.from_numpy(rows))
     np.testing.assert_allclose(t2.numpy(), t1.numpy(), atol=1e-5, rtol=1e-6)

@@ -48,8 +48,8 @@ def test_rank1_plain_matches_pallas(rng, V, C, nd, per_src, n_sentinel):
                               dtype=torch.float32, device="cpu",
                               table_pad=(vp, cp))
     got = tspan.scatter_add_span_rank1(
-        torch.from_numpy(table.copy()), tspan.span_plan(
-            torch.from_numpy(ids).long(), V), torch.from_numpy(dense),
+        torch.from_numpy(table.copy()), tspan.sort_plan(
+            torch.from_numpy(ids).long()), torch.from_numpy(dense),
         torch.from_numpy(g), torch.from_numpy(cavg), per_src)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
                                rtol=1e-4)
@@ -74,8 +74,8 @@ def test_rank1_plain_matches_pallas_dominant_head(rng, V, C, nd, per_src,
                               dtype=torch.float32, device="cpu",
                               table_pad=(vp, cp))
     got = tspan.scatter_add_span_rank1(
-        torch.from_numpy(table.copy()), tspan.span_plan(
-            torch.from_numpy(ids).long(), V), torch.from_numpy(dense),
+        torch.from_numpy(table.copy()), tspan.sort_plan(
+            torch.from_numpy(ids).long()), torch.from_numpy(dense),
         torch.from_numpy(g), torch.from_numpy(cavg), per_src)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4,
                                rtol=1e-4)
@@ -88,7 +88,7 @@ def test_rank1_equals_materialized_rows(rng, dtype):
     V, C, nd, per_src = 200, 12, 20, 6
     table, ids, dense, g, cavg = _case(rng, V, C, nd, per_src, 4)
     t0 = torch.from_numpy(table).to(dtype)
-    plan = tspan.span_plan(torch.from_numpy(ids).long(), V)
+    plan = tspan.sort_plan(torch.from_numpy(ids).long())
     rows = np.concatenate([dense, g[:, None] * cavg[np.arange(
         nd * per_src) // per_src]])
     want = tspan.scatter_add_span_planned(t0.clone(), plan,

@@ -8,8 +8,9 @@ package's (tests/test_scatter.py:25-60); the steps of both engines with
 `dedup_block`, and the fused step with `rmw_scatter`, against the JAX
 steps on the same SlabInputs (JAX's RMW table is padded to its 8-row
 groups and trimmed through params_from_jax).  Kernel 8's per-call plan
-(`rmw_plan`, one sort) against group_plan's sorted ids and order, its
-routes against each other, and its wrapper's argument checks.
+(`sort_plan`, one stable sort) against numpy's stable argsort and the JAX
+plans' sorted ids, its routes against each other, and its wrapper's
+argument checks.
 
 The JAX kernel combines duplicates per `block` of rows and adds once per
 block; the port combines over the whole call and adds once.  In float32
@@ -31,11 +32,12 @@ from word2bits_tpu.models.cbow_fused import fused_slab_step as jfused
 from word2bits_tpu.models.cbow_slab import SlabInputs as JInputs
 from word2bits_tpu.models.cbow_slab import slab_step as jslab
 from word2bits_tpu.ops.scatter import scatter_add_dedup as jdedup
-from word2bits_tpu_torch.kernels.group_rmw import group_plan
+from word2bits_tpu.kernels.group_rmw import group_plan as jgroup_plan
+from word2bits_tpu.kernels.span_scatter import span_plan as jspan_plan
 from word2bits_tpu_torch.kernels import scatter_pallas as sp
 from word2bits_tpu_torch.kernels.scatter_pallas import (
-    group_rows, rmw_plan, scatter_add_rmw, scatter_add_rmw_plain,
-    scatter_add_rmw_planned)
+    scatter_add_rmw, scatter_add_rmw_plain, scatter_add_rmw_planned)
+from word2bits_tpu_torch.kernels.span_scatter import sort_plan
 from word2bits_tpu_torch.models import cbow_fused as tf
 from word2bits_tpu_torch.models import cbow_slab as ts
 from word2bits_tpu_torch.models.cbow import CBOWHyper
@@ -137,8 +139,7 @@ def test_rmw_plain_bfloat16_table():
 @pytest.mark.parametrize("V", [61, 64])
 def test_rmw_any_vocab_and_planned(V):
     """Any V (the JAX kernel needs V % 8 == 0) and any width; the planned
-    entry point (group_plan at the table dtype's group) gives the same
-    table as scatter_add_rmw."""
+    entry point (sort_plan) gives the same table as scatter_add_rmw."""
     rng = np.random.default_rng(V)
     C, N = 12, 150
     table = rng.normal(size=(V, C)).astype(np.float32)
@@ -150,8 +151,8 @@ def test_rmw_any_vocab_and_planned(V):
     np.add.at(want, ids[keep], rows[keep])
     for got in (scatter_add_rmw(_t(table), _t(ids), _t(rows)),
                 scatter_add_rmw_plain(_t(table), _t(ids), _t(rows)),
-                scatter_add_rmw_planned(_t(table), group_plan(
-                    _t(ids), group_rows(torch.float32)), _t(rows))):
+                scatter_add_rmw_planned(_t(table), sort_plan(_t(ids)),
+                                        _t(rows))):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
@@ -162,8 +163,8 @@ def test_rmw_rejects_bad_sizes_and_devices():
                         torch.zeros((2, 4)), block=0)
     m = torch.zeros((4, 4), device="meta")
     with pytest.raises(ValueError, match="cpu .* or cuda"):
-        scatter_add_rmw_planned(m, group_plan(
-            torch.zeros(2, dtype=torch.long, device="meta"), 8),
+        scatter_add_rmw_planned(m, sort_plan(
+            torch.zeros(2, dtype=torch.long, device="meta")),
             torch.zeros((2, 4), device="meta"))
 
 
@@ -181,24 +182,34 @@ def _rmw_ids(rng, case: str) -> np.ndarray:
 
 
 @pytest.mark.parametrize("case", ["zipf", "dropped only", "N = 0"])
-def test_rmw_plan_is_group_plans_sort(rng, case):
-    """The one sort scatter_add_rmw builds gives group_plan's sids and
-    order (per step and batched)."""
-    ids = torch.from_numpy(_rmw_ids(rng, case))
-    for x in (ids, torch.stack([ids, ids.flip(0)])):
-        sids, order = rmw_plan(x)
-        plan = group_plan(x, group_rows(torch.bfloat16))
-        assert sids.dtype == order.dtype == torch.int32
-        assert torch.equal(sids, plan.sids)
-        assert torch.equal(order, plan.order)
+def test_sort_plan_is_the_stable_sort(rng, case):
+    """The one sort scatter_add_rmw builds (sort_plan) gives numpy's
+    stable argsort as its order and the JAX plans' sorted ids in their
+    first N slots (per step and batched)."""
+    ids_np = _rmw_ids(rng, case).astype(np.int32)
+    ids = torch.from_numpy(ids_np)
+    N = ids_np.size
+    batched = torch.stack([ids, ids.flip(0)])
+    steps = [(sort_plan(ids), ids)] + [(sort_plan(batched).step(s),
+                                        batched[s]) for s in range(2)]
+    for got, one in steps:
+        one = one.numpy()
+        assert got.sids.dtype == got.order.dtype == torch.int32
+        np.testing.assert_array_equal(got.order.numpy(),
+                                      np.argsort(one, kind="stable"))
+        if N:
+            for jplan in (jgroup_plan(jnp.asarray(one), 16),
+                          jspan_plan(jnp.asarray(one), 128, 64, 32)):
+                np.testing.assert_array_equal(got.sids.numpy(),
+                                              np.asarray(jplan.sids)[:N])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmw_routes_give_one_table(rng, dtype):
-    """scatter_add_rmw, scatter_add_rmw_planned(group_plan(...)), kernel
-    8's launch path on rmw_plan and the plain version give the same table
-    on the CPU, bit for bit (the stable sort keeps each id's row order),
-    sentinels and negative ids dropped and other rows untouched."""
+    """scatter_add_rmw, scatter_add_rmw_planned(sort_plan(...)) and the
+    plain version give the same table on the CPU, bit for bit (the stable
+    sort keeps each id's row order), sentinels and negative ids dropped and
+    other rows untouched."""
     V, C = 97, 24
     ids = torch.from_numpy(_rmw_ids(rng, "zipf"))
     rows = torch.from_numpy(rng.normal(size=(ids.numel(), C)).astype(
@@ -207,9 +218,8 @@ def test_rmw_routes_give_one_table(rng, dtype):
         np.float32)).to(dtype)
     want = scatter_add_rmw_plain(table.clone(), ids, rows)
     for got in (scatter_add_rmw(table.clone(), ids, rows),
-                scatter_add_rmw_planned(table.clone(), group_plan(
-                    ids, group_rows(dtype)), rows),
-                sp._apply(table.clone(), *rmw_plan(ids), rows)):
+                scatter_add_rmw_planned(table.clone(), sort_plan(ids),
+                                        rows)):
         assert torch.equal(got, want)
     keep = torch.zeros(V, dtype=torch.bool)
     keep[ids[(ids >= 0) & (ids < V)]] = True
@@ -217,30 +227,30 @@ def test_rmw_routes_give_one_table(rng, dtype):
 
 
 def _bad_rmw_call(rng, bad):
-    """(table, sids, order, rows) of a call kernel 8 does not take."""
+    """(table, plan, rows) of a call kernel 8 does not take."""
     V, C = 64, 16
     ids = torch.from_numpy(_rmw_ids(rng, "zipf"))
     rows = torch.from_numpy(rng.normal(size=(ids.numel(), C)).astype(
         np.float32))
     table = torch.zeros((V, C))
-    sids, order = rmw_plan(ids)
+    plan = sort_plan(ids)
     if bad == "sids dtype":
-        sids = sids.long()
+        plan = plan._replace(sids=plan.sids.long())
     elif bad == "sids length":
-        sids = sids[:-1]
+        plan = plan._replace(sids=plan.sids[:-1])
     elif bad == "order length":
-        order = order[:-1]
+        plan = plan._replace(order=plan.order[:-1])
     elif bad == "batched plan":
-        sids, order = rmw_plan(ids[None])
+        plan = sort_plan(ids[None])
     elif bad == "device":
-        order = order.to("meta")
+        plan = plan._replace(order=plan.order.to("meta"))
     elif bad == "table dtype":
         table = table.double()
     elif bad == "row dtype":
         rows = rows.to(torch.float16)
     elif bad == "width":
         rows = rows[:, :C - 1]
-    return table, sids, order, rows
+    return table, plan, rows
 
 
 @pytest.mark.parametrize("bad", [
@@ -249,15 +259,15 @@ def _bad_rmw_call(rng, bad):
 def test_rmw_wrapper_raises_on_what_the_kernel_does_not_take(rng, bad):
     """The checks kernel 8's wrapper makes before a launch (on a CUDA
     tensor it launches the kernel or raises; it does not fall back)."""
-    table, sids, order, rows = _bad_rmw_call(rng, bad)
-    with pytest.raises(ValueError):
-        sp._check("scatter_add_rmw", table, sids, order, rows)
+    table, plan, rows = _bad_rmw_call(rng, bad)
+    with pytest.raises(ValueError, match="scatter_add_rmw"):
+        sp._check("scatter_add_rmw", table, plan, rows)
 
 
 def test_rmw_check_takes_a_good_call(rng):
-    table, sids, order, rows = _bad_rmw_call(rng, "none")
-    sp._check("scatter_add_rmw", table, sids, order, rows)
-    sp._check("scatter_add_rmw", table.to(torch.bfloat16), sids, order,
+    table, plan, rows = _bad_rmw_call(rng, "none")
+    sp._check("scatter_add_rmw", table, plan, rows)
+    sp._check("scatter_add_rmw", table.to(torch.bfloat16), plan,
               rows.to(torch.bfloat16))
 
 

@@ -243,6 +243,10 @@ class Word2BitsConfig:
                                  "(the kernel consumes the banded masks)")
             if self.reg:
                 raise ValueError("-context-pallas supports -reg 0 only")
+        # -loop-mode is checked as in the JAX package but chooses nothing
+        # here: the JAX modes differ in how XLA carries the table (lax.scan
+        # double-buffers it), and the port's table is updated in place by
+        # one Python loop whatever the mode
         if self.loop_mode not in ("scan", "fori", "unroll"):
             raise ValueError(f"unknown -loop-mode {self.loop_mode!r} "
                              "(supported: scan, fori, unroll)")

@@ -20,9 +20,9 @@
 // sorted stream, placed by a one-hot MXU matmul, the blocks in order.
 //
 // Kernel 7 is the tiled template of csrc/w2b_tiles.cuh (kernels 2, 3, 6 and 8
-// run it too) with the plain AddSum epilogue, fed by the group plan's sorted
-// ids and source rows (kernels/group_rmw.py group_plan; it reads no visit or
-// run table): the sorted stream is cut into tiles of L slots and the row's
+// run it too) with the plain AddSum epilogue, fed by the sort plan's sorted
+// ids and source rows (kernels/span_scatter.py sort_plan, as kernels 2, 3 and
+// 8 are): the sorted stream is cut into tiles of L slots and the row's
 // columns into groups of at most GROUP, one CTA each, all at once; each chunk
 // of at most SUB rows of a run goes to one thread, with the rows and the table
 // row in flight together; a run cut by tile edges (the Zipf head) is summed
@@ -132,7 +132,7 @@ using RmwCfg = w2b::TileCfg<W2B_RMW_L, W2B_RMW_THREADS, W2B_RMW_SUB,
 extern "C" {
 
 // Kernel 7.  table_dtype / row_dtype: 0 = float32, 1 = bfloat16 (rows in
-// float32 or in the table dtype).  sids/order: [N] int32 (group_plan);
+// float32 or in the table dtype).  sids/order: [N] int32 (sort_plan);
 // part/count: the workspace (w2b_group_rmw_partials / _counters floats and
 // counters, the counters zero between calls).  Returns cudaGetLastError()
 // after the launch (0 = launched).

@@ -27,7 +27,7 @@
 // bit-equal.
 //
 // The plan (sorted ids and their source rows; kernels/span_scatter.py
-// span_plan) is built by plain PyTorch, hoisted per chunk.  The Zipf head
+// sort_plan) is built by plain PyTorch, hoisted per chunk.  The Zipf head
 // makes a few runs of equal ids long (2,214 of 102,400 rows at the exact
 // mode's shape) and most runs one to three rows; a run summed by one CTA
 // would set the kernel's time by its length.  So the sorted stream is cut
@@ -89,7 +89,7 @@ long long w2b_span_partials(int N, int C) { return Cfg::partials(N, C); }
 long long w2b_span_counters(int N, int C) { return Cfg::counters(N, C); }
 
 // table_dtype / row_dtype: 0 = float32, 1 = bfloat16 (rows in float32 or
-// in the table dtype).  sids/order: [N] int32 (span_plan); part/count: the
+// in the table dtype).  sids/order: [N] int32 (sort_plan); part/count: the
 // workspace.  Returns cudaGetLastError() after the launch (0 = launched).
 int w2b_span_scatter(void* table, const void* rows, const int* sids,
                      const int* order, float* part, int* count, int N, int V,

@@ -10,25 +10,17 @@ table dtype with no atomics on the table or on a sum, ids outside [0, V) —
 negative ids, the 0x7FFFFFF0 drop sentinel — are dropped, and the table is
 updated in place with no table-sized temporary.
 
-The plan is plain PyTorch, a pure function of the ids (batched over leading
-dimensions, so the training chunk builds it once for all S steps): one
-stable sort, the runs of equal ids, and the VISITS — the runs grouped by
-their `grp`-row table group (16 rows bf16, 8 float32, the JAX kernel's DMA
-granule), one visit per touched group over the whole sorted stream, or one
-per run for a group holding more than SPLIT_ROWS rows.  Kernel 7 reads only
-the sorted ids and their source rows: it is the tiled template of
+The plan is kernel 2's `sort_plan` (kernels/span_scatter.py), a pure
+function of the ids batched over leading dimensions, so the training chunk
+builds it once for all S steps: the stable sort of the ids and the source
+row of each sorted slot.  Kernel 7 is the tiled template of
 csrc/w2b_tiles.cuh (kernels 2, 3, 6 and 8 run it too, with their own
 constants), which cuts the sorted stream into tiles and the columns into
 groups, one CTA each, and sums a run cut by tile edges piece by piece
 into float32 partials of the per-device workspace
 (`span_scatter.workspace`), the CTA whose piece arrives last adding them
-in tile order.  Kernel 8
-(kernels/scatter_pallas.py) runs the same template on the same sorted
-stream with a rounding epilogue.  No kernel reads the run and visit tables
-(`run_start`, `vis_run`, `n_vis`): they stay in the plan for its JAX
-counterpart's contract and its tests.  The earlier design gave one CTA to
-each visit, a chain of dependent loads per run (PERF.md section 6 has its
-times).
+in tile order.  Kernel 8 (kernels/scatter_pallas.py) runs the same
+template on the same plan with a rounding epilogue.
 
 `chunk` and `slots` size the TPU kernel's blocks and DMA slots; they have no
 role on the card and are kept for the signature, with the JAX kernel's one
@@ -44,9 +36,10 @@ table row read and written once, and the plan (~70 us at the flagship's
 `scatter_add_grmw_planned` / `scatter_add_grmw` run the plain version for
 CPU tensors (an f32 `index_add_` into a temporary holding the touched rows,
 then one cast-add) and launch the kernel for CUDA tensors, raising on what
-it does not take; there is no fallback.  Every launch on a device uses the
-workspace shared with kernels 2, 3, 6 and 8, so two calls must not run at
-once on different streams; no path of the port does that.
+it does not take (`_check`, shared with kernel 8); there is no fallback.
+Every launch on a device uses the workspace shared with kernels 2, 3, 6
+and 8, so two calls must not run at once on different streams; no path of
+the port does that.
 `scatter_add_grmw_planned.launches` counts kernel launches.
 """
 
@@ -54,88 +47,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
 
 import torch
 
 from word2bits_tpu_torch.kernels._build import check_launch, load_library
-from word2bits_tpu_torch.kernels.span_scatter import (SENTINEL,
-                                                      scatter_add_span_plain,
-                                                      tile_constants,
-                                                      workspace)
+from word2bits_tpu_torch.kernels.span_scatter import (
+    SortPlan, check_sorted, scatter_add_span_plain, sort_plan,
+    tile_constants, workspace)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# a group with more rows than this gets one visit per run (per id)
-SPLIT_ROWS = 64
-
-
-def group_rows(dtype: torch.dtype) -> int:
-    """Rows per group: the JAX kernel's sublane tile, 32 bytes of rows
-    (16 bf16 rows, 8 float32)."""
-    return 32 // dtype.itemsize
-
-
-class GroupPlan(NamedTuple):
-    """Pure function of (ids, grp); leading dimensions batch S steps."""
-
-    order: torch.Tensor      # [..., N] int32 source row of each sorted slot
-    sids: torch.Tensor       # [..., N] int32 sorted ids
-    run_start: torch.Tensor  # [..., N+1] int32 start of each run of equal
-    #                          ids in [0, SENTINEL); run_start[n_runs] = end
-    #                          of those ids, N after that
-    vis_run: torch.Tensor    # [..., N+1] int32 first run of each visit (a
-    #                          touched group, or one id of a group above
-    #                          SPLIT_ROWS rows); vis_run[n_vis] = n_runs
-    n_vis: torch.Tensor      # [...] int32 number of visits
-
-    def step(self, s: int) -> "GroupPlan":
-        """The plan of step s of a batched plan."""
-        return GroupPlan(*(a[s] for a in self))
-
-
-def group_plan(ids: torch.Tensor, grp: int, chunk: int = 128) -> GroupPlan:
-    """Sorted-visit plan of `ids` ([..., N]) for groups of `grp` rows.
-    `chunk` (the JAX plan's block size) does not shape this plan."""
-    if grp <= 0 or grp & (grp - 1):
-        raise ValueError(f"group_plan: grp must be a power of two, got {grp}")
-    if chunk <= 0:
-        raise ValueError(f"group_plan: chunk must be positive, got {chunk}")
-    N = ids.shape[-1]
-    sids, order = torch.sort(ids, dim=-1, stable=True)
-    valid = (sids >= 0) & (sids < SENTINEL)
-    wid = sids >> (grp.bit_length() - 1)
-    new_run = torch.ones_like(valid)
-    new_run[..., 1:] = sids[..., 1:] != sids[..., :-1]
-    new_run &= valid
-    new_grp = torch.ones_like(valid)
-    new_grp[..., 1:] = wid[..., 1:] != wid[..., :-1]
-    new_grp &= valid
-    # rows per group, seen from each position: the sorted group ids' run
-    # length (valid groups never share a group id with an invalid id)
-    wid = wid.contiguous()
-    grp_rows = (torch.searchsorted(wid, wid, right=True)
-                - torch.searchsorted(wid, wid))
-    heavy = grp_rows > SPLIT_ROWS
-    new_vis = new_grp | (new_run & heavy)
-    run_idx = torch.cumsum(new_run, dim=-1) - 1
-    n_runs = new_run.sum(dim=-1)
-    pos = torch.arange(N, device=ids.device).expand(sids.shape)
-    # starts go to their run's (visit's) slot, everything else to spare N+1
-    run_start = torch.full(ids.shape[:-1] + (N + 2,), N, dtype=torch.int64,
-                           device=ids.device)
-    run_start.scatter_(-1, torch.where(new_run, run_idx, N + 1), pos)
-    # negative ids sort first, so the valid ids end at (#ids < SENTINEL)
-    run_start.scatter_(-1, n_runs[..., None],
-                       (sids < SENTINEL).sum(dim=-1, keepdim=True))
-    vis_run = n_runs[..., None].expand(ids.shape[:-1] + (N + 2,)).clone()
-    vis_run.scatter_(-1, torch.where(new_vis,
-                                     torch.cumsum(new_vis, dim=-1) - 1,
-                                     N + 1), run_idx)
-    i32 = torch.int32
-    return GroupPlan(order=order.to(i32), sids=sids.to(i32),
-                     run_start=run_start[..., :N + 1].to(i32),
-                     vis_run=vis_run[..., :N + 1].to(i32),
-                     n_vis=new_vis.sum(dim=-1).to(i32))
 
 
 def scatter_add_grmw_plain(table: torch.Tensor, ids: torch.Tensor,
@@ -178,38 +98,16 @@ def _check_slots(chunk: int, slots: int) -> None:
             "refuses the combination")
 
 
-def _check(fn: str, table, plan: GroupPlan, rows) -> None:
-    """Raise on anything kernel 7 does not take; `fn` names the caller in
-    errors."""
-    V, C = table.shape
-    N = plan.sids.shape[-1]
-    dev = table.device
-    if table.dtype not in _DTYPES:
-        raise ValueError(f"{fn}: table dtype {table.dtype} is not float32 "
-                         "or bfloat16")
-    if rows.dtype not in (torch.float32, table.dtype):
-        raise ValueError(f"{fn}: rows must be float32 or {table.dtype}, got "
-                         f"{rows.dtype}")
-    if rows.shape != (N, C):
-        raise ValueError(f"{fn}: rows {tuple(rows.shape)} vs plan of {N} ids "
-                         f"into width {C}")
-    if plan.sids.dim() != 1:
-        raise ValueError(f"{fn}: pass one step's plan (GroupPlan.step)")
-    for name, t in (("table", table), ("rows", rows)) + tuple(
-            zip(GroupPlan._fields, plan)):
-        if t.device != dev:
-            raise ValueError(f"{fn}: {name} is on {t.device}, table on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
-    for name, t in zip(GroupPlan._fields, plan):
-        if t.dtype != torch.int32:
-            raise ValueError(f"{fn}: plan.{name} must be int32")
-    if plan.run_start.shape[-1] != N + 1 or plan.vis_run.shape[-1] != N + 1:
-        raise ValueError(f"{fn}: plan.run_start and plan.vis_run must have "
-                         "N+1 entries")
+def _check(fn: str, table, plan: SortPlan, rows) -> None:
+    """Raise on anything kernels 7 and 8 do not take (check_sorted, and
+    one row per sorted id); `fn` names the caller in errors."""
+    check_sorted(fn, table, plan, rows)
+    if rows.shape[0] != plan.sids.shape[0]:
+        raise ValueError(f"{fn}: rows {tuple(rows.shape)} vs plan of "
+                         f"{plan.sids.shape[0]} ids")
 
 
-def _launch(table, plan: GroupPlan, rows) -> None:
+def _launch(table, plan: SortPlan, rows) -> None:
     """Kernel 7 on one step's plan: the sorted ids, their source rows and
     the device's workspace."""
     _check("scatter_add_grmw", table, plan, rows)
@@ -226,10 +124,10 @@ def _launch(table, plan: GroupPlan, rows) -> None:
     check_launch("w2b_group_rmw", err)
 
 
-def scatter_add_grmw_planned(table: torch.Tensor, plan: GroupPlan,
+def scatter_add_grmw_planned(table: torch.Tensor, plan: SortPlan,
                              rows: torch.Tensor, chunk: int = 128,
                              slots: int = 16) -> torch.Tensor:
-    """Apply one step's group_plan: table[ids] += rows, in place.
+    """Apply one step's sort_plan: table[ids] += rows, in place.
     rows [N, C] in float32 or the table dtype, in the ids' original order."""
     _check_slots(chunk, slots)
     if table.device.type == "cpu":
@@ -251,7 +149,5 @@ def scatter_add_grmw(table: torch.Tensor, ids: torch.Tensor,
                      slots: int = 16) -> torch.Tensor:
     """table[ids] += rows in place (ids [N], rows [N, C]) via the sorted
     group-RMW kernel; builds the plan and applies it."""
-    _check_slots(chunk, slots)
-    plan = group_plan(ids, group_rows(table.dtype), chunk=chunk)
-    return scatter_add_grmw_planned(table, plan, rows, chunk=chunk,
-                                    slots=slots)
+    return scatter_add_grmw_planned(table, sort_plan(ids), rows,
+                                    chunk=chunk, slots=slots)

@@ -18,7 +18,7 @@ the card needs no such mechanism.  The plan (`hot_plan`, plain PyTorch) is
 one stable sort of the ids keyed H outside [0, H): the sorted keys
 (`sids`), their source rows (`order`) and the start of each head row's run
 (`starts`).  It depends only on the ids, so the training chunk builds it
-once for all S steps (batched over a leading dimension, as the span plan)
+once for all S steps (batched over a leading dimension, as the sort plan)
 and passes each step's.  The kernel is the tiled sorted scatter-add of
 csrc/w2b_tiles.cuh (kernels 2, 3, 7 and 8 run it too) on `sids` and
 `order` with V = H, so the cold key drops out like any id outside [0, V):

@@ -23,9 +23,7 @@ table dtype before the add, where kernel 7 adds the float32 sum.  The two
 JAX and port versions differ only in where the table-dtype roundings fall;
 the tests state the tolerance.  Kernel 8 reads the sorted ids and their
 source rows alone, so `scatter_add_rmw`, which the step calls twice, builds
-only those: one stable sort of the ids (`rmw_plan`).  The earlier design
-(one CTA per visit of a touched 16-row group) read the group plan's run
-and visit tables, whose ~25 tensor operations were built twice a step.
+only those: one stable sort of the ids (span_scatter.sort_plan).
 
 `block` and `slots` size the TPU kernel's blocks and DMA chains and have no
 role on the card.  Unlike the JAX kernel, any V and any row width are
@@ -35,31 +33,23 @@ Bound on the H100 (3.35 TB/s): bytes — the rows, the sorted ids and their
 source rows read once, each touched table row read and written once; the
 time is in PERF.md.
 
-`scatter_add_rmw` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors, raising on what it does not take; there is no
-fallback.  Its launches share the workspace of kernels 2, 3, 6 and 7, so
-two calls must not run at once on different streams; no path of the port
-does that.  `scatter_add_rmw.launches` counts kernel launches.
+`scatter_add_rmw` / `scatter_add_rmw_planned` run the plain version for
+CPU tensors and launch the kernel for CUDA tensors, raising on what it does
+not take (kernel 7's `_check`); there is no fallback.  Its launches share
+the workspace of kernels 2, 3, 6 and 7, so two calls must not run at once
+on different streams; no path of the port does that.
+`scatter_add_rmw.launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import torch
 
 from word2bits_tpu_torch.kernels._build import check_launch
-from word2bits_tpu_torch.kernels.group_rmw import (  # noqa: F401
-    _DTYPES, GroupPlan, _library, group_plan, group_rows)
-from word2bits_tpu_torch.kernels.span_scatter import (tile_constants,
+from word2bits_tpu_torch.kernels.group_rmw import _DTYPES, _check, _library
+from word2bits_tpu_torch.kernels.span_scatter import (SortPlan, sort_plan,
+                                                      tile_constants,
                                                       workspace)
-
-
-def rmw_plan(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sids, order) of `ids` ([..., N]): the ids sorted (stable) and the
-    source row of each sorted slot, int32, as group_plan's."""
-    sids, order = torch.sort(ids, dim=-1, stable=True)
-    return sids.to(torch.int32), order.to(torch.int32)
 
 
 def scatter_add_rmw_plain(table: torch.Tensor, ids: torch.Tensor,
@@ -84,78 +74,44 @@ def tile_config() -> dict:
     return tile_constants(_library().w2b_scatter_rmw_config)
 
 
-def _check(fn: str, table, sids, order, rows) -> None:
-    """Raise on anything kernel 8 does not take; `fn` names the caller in
-    errors."""
-    C = table.shape[1]
-    dev = table.device
-    if table.dtype not in _DTYPES:
-        raise ValueError(f"{fn}: table dtype {table.dtype} is not float32 "
-                         "or bfloat16")
-    if rows.dtype not in (torch.float32, table.dtype):
-        raise ValueError(f"{fn}: rows must be float32 or {table.dtype}, got "
-                         f"{rows.dtype}")
-    if sids.dim() != 1:
-        raise ValueError(f"{fn}: pass one step's plan (GroupPlan.step)")
-    N = sids.shape[0]
-    if rows.shape != (N, C):
-        raise ValueError(f"{fn}: rows {tuple(rows.shape)} vs plan of {N} ids "
-                         f"into width {C}")
-    for name, t in (("table", table), ("rows", rows), ("sids", sids),
-                    ("order", order)):
-        if t.device != dev:
-            raise ValueError(f"{fn}: {name} is on {t.device}, table on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
-    for name, t in (("sids", sids), ("order", order)):
-        if t.dtype != torch.int32 or tuple(t.shape) != (N,):
-            raise ValueError(f"{fn}: plan.{name} must be int32 [{N}]")
-
-
-def _apply(table, sids, order, rows) -> torch.Tensor:
-    """One call's sorted ids and their source rows through kernel 8 (on
-    the CPU, its plain version)."""
+def scatter_add_rmw_planned(table: torch.Tensor, plan: SortPlan,
+                            rows: torch.Tensor) -> torch.Tensor:
+    """Apply a sort_plan of the ids with kernel 8, in place: rows [N, C]
+    in float32 or the table dtype, in the ids' original order."""
     if table.device.type == "cpu":
-        return scatter_add_rmw_plain(table, sids, rows[order.long()])
+        return scatter_add_rmw_plain(table, plan.sids,
+                                     rows[plan.order.long()])
     if table.device.type != "cuda":
         raise ValueError("scatter_add_rmw runs on cpu (plain version) or "
                          f"cuda (kernel), not {table.device}")
-    _check("scatter_add_rmw", table, sids, order, rows)
+    _check("scatter_add_rmw", table, plan, rows)
     V, C = table.shape
-    N = sids.shape[0]
+    N = plan.sids.shape[0]
     lib = _library()
     part, count = workspace(table.device, lib.w2b_scatter_rmw_partials(N, C),
                             lib.w2b_scatter_rmw_counters(N, C))
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = lib.w2b_scatter_rmw(
-        table.data_ptr(), rows.data_ptr(), sids.data_ptr(), order.data_ptr(),
-        part.data_ptr(), count.data_ptr(), N, V, C, _DTYPES[table.dtype],
-        _DTYPES[rows.dtype], stream)
+        table.data_ptr(), rows.data_ptr(), plan.sids.data_ptr(),
+        plan.order.data_ptr(), part.data_ptr(), count.data_ptr(), N, V, C,
+        _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
     check_launch("w2b_scatter_rmw", err)
     scatter_add_rmw.launches += 1
     return table
-
-
-def scatter_add_rmw_planned(table: torch.Tensor, plan: GroupPlan,
-                            rows: torch.Tensor) -> torch.Tensor:
-    """Apply a group_plan of the ids with kernel 8, in place: rows [N, C]
-    in float32 or the table dtype, in the ids' original order.  Kernel 8
-    reads the plan's `sids` and `order` alone."""
-    return _apply(table, plan.sids, plan.order, rows)
 
 
 def scatter_add_rmw(table: torch.Tensor, ids: torch.Tensor,
                     rows: torch.Tensor, block: int = 512,
                     slots: int = 32) -> torch.Tensor:
     """table.at[ids].add(rows) in place: table [V, C] (any V), ids [N],
-    rows [N, C] in float32 or the table dtype.  Sorts the ids (rmw_plan)
+    rows [N, C] in float32 or the table dtype.  Sorts the ids (sort_plan)
     and applies them."""
     if block <= 0 or slots <= 0:
         raise ValueError(f"scatter_add_rmw: block ({block}) and slots "
                          f"({slots}) must be positive")
     if table.device.type == "cpu":
         return scatter_add_rmw_plain(table, ids, rows)
-    return _apply(table, *rmw_plan(ids), rows)
+    return scatter_add_rmw_planned(table, sort_plan(ids), rows)
 
 
 scatter_add_rmw.launches = 0

@@ -9,17 +9,18 @@ on the table or on a sum (deterministic), ids outside [0, V) — the
 0x7FFFFFF0 drop sentinel — are dropped, and the table is updated in place
 with no table-sized temporary.
 
-The plan is plain PyTorch: one stable sort of the ids plus the start of
-every run of equal in-range ids.  It depends only on the ids, so the
+The plan is plain PyTorch: the stable sort of the ids (`sort_plan`, a
+`SortPlan` of the sorted ids and the source row of each), all that
+kernels 2, 3, 7 and 8 read of the ids.  It depends only on the ids, so the
 training chunk builds it once for all S steps (batched over a leading
 dimension) and each step launches only the kernel.  The kernel cuts the
 sorted stream into tiles of 64 slots (and the columns into groups of at
-most 128), one CTA each: a run inside a tile is summed there in chunks of
-at most 4 rows, one thread each, and the chunks added in order; a run cut
-by tile edges (the Zipf head) is summed piece by piece, in parallel, into
-float32 partials, and the CTA of its last-arriving piece adds them in
-tile order to the row.  So no thread sums more than 4 of a run's rows in
-series, and the order is fixed by the plan.
+most 128), one CTA each: a run of equal ids inside a tile is summed there
+in chunks of at most 4 rows, one thread each, and the chunks added in
+order; a run cut by tile edges (the Zipf head) is summed piece by piece,
+in parallel, into float32 partials, and the CTA of its last-arriving piece
+adds them in tile order to the row.  So no thread sums more than 4 of a
+run's rows in series, and the order is fixed by the sort.
 
 Bound on the H100 (3.35 TB/s): bytes — the rows read once, each touched
 table row read and written once (~10 us at the main path); the kernel's
@@ -35,22 +36,20 @@ its gather; PyTorch fuses nothing, so here it saves a write and a read of
 that block (PERF.md has both times).  The two entry points sum in one
 order, so they are bit-equal on the same rows.
 
-`scatter_add_span_sorted` launches the kernel from the two arrays it reads
-of a plan, the stable sort's sorted ids and order: ops/scatter.scatter_add
-sorts once per call and takes it for every plain scatter-add of the
-training path on the card (the `add` routes, the cold rows of the hot/cold
-split, the block dedup, the hot head's float32 sum, the mesh's deltas), so
-the same seed gives the same tables.
+ops/scatter.scatter_add sorts once per call and takes kernel 2 for every
+plain scatter-add of the training path on the card (the `add` routes, the
+cold rows of the hot/cold split, the block dedup, the hot head's float32
+sum, the mesh's deltas), so the same seed gives the same tables.
 
-`scatter_add_span_planned` / `scatter_add_span` / `scatter_add_span_sorted`
-/ `scatter_add_span_rank1` run the plain version for CPU tensors (an f32 `index_add_` into a temporary
-holding the touched rows, then one cast-add) and launch the kernel for
-CUDA tensors, raising on what it does not take; there is no fallback.
-Every launch on a device uses the same workspace (`workspace`, shared
-with kernels 6, 7 and 8), so two calls must not run at once on different
-streams; no path of the port does that.
-`scatter_add_span_planned.launches` (kernel 2, through either of its entry
-points) and `scatter_add_span_rank1.launches` count kernel launches.
+`scatter_add_span_planned` / `scatter_add_span` / `scatter_add_span_rank1`
+run the plain version for CPU tensors (an f32 `index_add_` into a
+temporary holding the touched rows, then one cast-add) and launch the
+kernel for CUDA tensors, raising on what it does not take (`check_sorted`,
+shared with kernels 7 and 8); there is no fallback.  Every launch on a
+device uses the same workspace (`workspace`, shared with kernels 6, 7 and
+8), so two calls must not run at once on different streams; no path of
+the port does that.  `scatter_add_span_planned.launches` (kernel 2) and
+`scatter_add_span_rank1.launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -67,43 +66,24 @@ SENTINEL = 0x7FFFFFF0   # drop id, as in the JAX package
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-class SpanPlan(NamedTuple):
-    """Pure function of (ids, V); leading dimensions batch S steps."""
+class SortPlan(NamedTuple):
+    """The stable sort of a scatter's ids; leading dimensions batch S
+    steps."""
 
     order: torch.Tensor      # [..., N] int32 source row of each sorted slot
     sids: torch.Tensor       # [..., N] int32 sorted ids
-    run_start: torch.Tensor  # [..., N+1] int32 start of each run of equal
-    #                          in-range ids; run_start[n_runs] = end of the
-    #                          in-range ids, N after that
-    n_runs: torch.Tensor     # [...] int32 number of runs
 
-    def step(self, s: int) -> "SpanPlan":
+    def step(self, s: int) -> "SortPlan":
         """The plan of step s of a batched plan."""
-        return SpanPlan(*(a[s] for a in self))
+        return SortPlan(*(a[s] for a in self))
 
 
-def span_plan(ids: torch.Tensor, V: int) -> SpanPlan:
-    """Sort/run plan of `ids` ([..., N]) against a table of V rows."""
-    N = ids.shape[-1]
+def sort_plan(ids: torch.Tensor) -> SortPlan:
+    """One stable sort of `ids` ([..., N]) along its last dimension.  Ids
+    outside [0, V) stay in it: the kernels and their plain versions drop
+    them."""
     sids, order = torch.sort(ids, dim=-1, stable=True)
-    in_range = (sids >= 0) & (sids < V)
-    new = torch.ones_like(in_range)
-    new[..., 1:] = sids[..., 1:] != sids[..., :-1]
-    start = new & in_range
-    n_runs = start.sum(dim=-1)
-    pos = torch.arange(N, device=ids.device).expand(sids.shape)
-    # starts go to their run's slot, everything else to a spare slot N+1
-    dest = torch.where(start, torch.cumsum(start, dim=-1) - 1, N + 1)
-    run_start = torch.full(ids.shape[:-1] + (N + 2,), N, dtype=torch.int64,
-                           device=ids.device)
-    run_start.scatter_(-1, dest, pos)
-    # ids < 0 sort first, so the in-range ids end at (#ids < V)
-    run_start.scatter_(-1, n_runs[..., None],
-                       (sids < V).sum(dim=-1, keepdim=True))
-    i32 = torch.int32
-    return SpanPlan(order=order.to(i32), sids=sids.to(i32),
-                    run_start=run_start[..., :N + 1].to(i32),
-                    n_runs=n_runs.to(i32))
+    return SortPlan(order=order.to(torch.int32), sids=sids.to(torch.int32))
 
 
 def scatter_add_span_plain(table: torch.Tensor, ids: torch.Tensor,
@@ -173,13 +153,12 @@ def tile_constants(config_fn) -> dict:
     return dict(zip(("L", "THREADS", "SUB", "IB", "GROUP"), out))
 
 
-def _check_sorted(fn: str, table, sids, order, rows, C: int,
-                  *others) -> None:
-    """Raise on anything the kernel does not take; `sids` and `order` are
-    one step's sorted ids and their source rows (what the kernel reads of
-    a plan), `rows` the materialized (or dense) row block, `others`
-    (name, tensor) pairs of further float32 inputs."""
-    dev = table.device
+def check_sorted(fn: str, table, plan: SortPlan, rows, *others) -> None:
+    """Raise on anything a tiled scatter kernel (2, 3, 7 or 8) does not
+    take: `plan` one step's SortPlan, `rows` the materialized (or dense)
+    row block, `others` (name, tensor) pairs of further float32 inputs;
+    `fn` names the caller in errors.  The caller checks the row count."""
+    dev, C = table.device, table.shape[1]
     if table.dtype not in _DTYPES:
         raise ValueError(f"{fn}: table dtype {table.dtype} is not float32 "
                          "or bfloat16")
@@ -189,10 +168,14 @@ def _check_sorted(fn: str, table, sids, order, rows, C: int,
     if rows.dim() != 2 or rows.shape[1] != C:
         raise ValueError(f"{fn}: rows {tuple(rows.shape)} do not have the "
                          f"table's width {C}")
-    if sids.dim() != 1 or order.shape != sids.shape:
-        raise ValueError(f"{fn}: pass one step's plan (SpanPlan.step)")
-    for name, t in (("table", table), ("rows", rows), ("order", order),
-                    ("sids", sids), *others):
+    if plan.sids.dim() != 1:
+        raise ValueError(f"{fn}: pass one step's plan (SortPlan.step)")
+    if plan.order.shape != plan.sids.shape:
+        raise ValueError(f"{fn}: plan.order {tuple(plan.order.shape)} vs "
+                         f"plan.sids {tuple(plan.sids.shape)}")
+    named = (("table", table), ("rows", rows), ("plan.order", plan.order),
+             ("plan.sids", plan.sids), *others)
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{fn}: {name} is on {t.device}, table on {dev}")
         if not t.is_contiguous():
@@ -200,53 +183,40 @@ def _check_sorted(fn: str, table, sids, order, rows, C: int,
     for name, t in others:
         if t.dtype != torch.float32:
             raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
-    for name, t in (("order", order), ("sids", sids)):
-        if t.dtype != torch.int32:
-            raise ValueError(f"{fn}: {name} must be int32")
-
-
-def _check(fn: str, table, plan: SpanPlan, rows, C: int, *others) -> None:
-    """_check_sorted on a plan, whose other fields must be well formed
-    too."""
-    _check_sorted(fn, table, plan.sids, plan.order, rows, C, *others)
-    for name, t in (("run_start", plan.run_start), ("n_runs", plan.n_runs)):
-        if t.device != table.device or not t.is_contiguous():
-            raise ValueError(f"{fn}: plan.{name} must be contiguous on "
-                             f"{table.device}")
+    for name, t in zip(SortPlan._fields, plan):
         if t.dtype != torch.int32:
             raise ValueError(f"{fn}: plan.{name} must be int32")
-    if plan.run_start.shape[-1] != plan.sids.shape[-1] + 1:
-        raise ValueError(f"{fn}: plan.run_start must have N+1 entries")
 
 
-def _plan_ptrs(sids, order, C: int):
+def _plan_ptrs(plan: SortPlan, C: int):
     """The kernel's sorted-id, order and workspace pointers."""
-    lib, N = _library(), sids.shape[-1]
-    part, count = workspace(sids.device, lib.w2b_span_partials(N, C),
+    lib, N = _library(), plan.sids.shape[-1]
+    part, count = workspace(plan.sids.device, lib.w2b_span_partials(N, C),
                             lib.w2b_span_counters(N, C))
-    return (sids.data_ptr(), order.data_ptr(), part.data_ptr(),
+    return (plan.sids.data_ptr(), plan.order.data_ptr(), part.data_ptr(),
             count.data_ptr())
 
 
-def _launch(table, sids, order, rows):
-    """Kernel 2 on checked inputs (_check_sorted)."""
+def _launch(table, plan: SortPlan, rows):
+    """Kernel 2 on one step's plan."""
     V, C = table.shape
-    N = sids.shape[-1]
+    N = plan.sids.shape[-1]
+    check_sorted("scatter_add_span", table, plan, rows)
     if rows.shape[0] != N:
         raise ValueError(f"scatter_add_span: {rows.shape[0]} rows vs "
                          f"{N} sorted ids")
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _library().w2b_span_scatter(
-        table.data_ptr(), rows.data_ptr(), *_plan_ptrs(sids, order, C), N,
-        V, C, _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
+        table.data_ptr(), rows.data_ptr(), *_plan_ptrs(plan, C), N, V, C,
+        _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
     check_launch("w2b_span_scatter", err)
     scatter_add_span_planned.launches += 1
     return table
 
 
-def scatter_add_span_planned(table: torch.Tensor, plan: SpanPlan,
+def scatter_add_span_planned(table: torch.Tensor, plan: SortPlan,
                              rows: torch.Tensor) -> torch.Tensor:
-    """Apply one step's span_plan: table[ids] += rows, in place.
+    """Apply one step's sort_plan: table[ids] += rows, in place.
     rows [N, C] in float32 or the table dtype, in the ids' original order."""
     if table.device.type == "cpu":
         return scatter_add_span_plain(table, plan.sids,
@@ -254,42 +224,20 @@ def scatter_add_span_planned(table: torch.Tensor, plan: SpanPlan,
     if table.device.type != "cuda":
         raise ValueError("scatter_add_span runs on cpu (plain version) or "
                          f"cuda (kernel), not {table.device}")
-    _check("scatter_add_span", table, plan, rows, table.shape[1])
-    return _launch(table, plan.sids, plan.order, rows)
+    return _launch(table, plan, rows)
 
 
 scatter_add_span_planned.launches = 0
-
-
-def scatter_add_span_sorted(table: torch.Tensor, sids: torch.Tensor,
-                            order: torch.Tensor,
-                            rows: torch.Tensor) -> torch.Tensor:
-    """table[ids] += rows in place from the ids' stable sort alone: sids
-    [N] int32 the sorted ids and order [N] int32 the source row of each
-    sorted slot (torch.sort(ids, stable=True)), rows [N, C] in float32 or
-    the table dtype, in the ids' original order.  What the kernel reads of
-    a span_plan, for a caller that sorts once per call
-    (ops/scatter.scatter_add); its launches count with
-    scatter_add_span_planned's."""
-    if table.device.type == "cpu":
-        return scatter_add_span_plain(table, sids, rows[order.long()])
-    if table.device.type != "cuda":
-        raise ValueError("scatter_add_span runs on cpu (plain version) or "
-                         f"cuda (kernel), not {table.device}")
-    _check_sorted("scatter_add_span", table, sids, order, rows,
-                  table.shape[1])
-    return _launch(table, sids, order, rows)
 
 
 def scatter_add_span(table: torch.Tensor, ids: torch.Tensor,
                      rows: torch.Tensor) -> torch.Tensor:
     """table[ids] += rows in place (ids [N], rows [N, C]); builds the plan
     and applies it."""
-    return scatter_add_span_planned(table, span_plan(ids, table.shape[0]),
-                                    rows)
+    return scatter_add_span_planned(table, sort_plan(ids), rows)
 
 
-def scatter_add_span_rank1_plain(table: torch.Tensor, plan: SpanPlan,
+def scatter_add_span_rank1_plain(table: torch.Tensor, plan: SortPlan,
                                  dense_rows: torch.Tensor, g: torch.Tensor,
                                  cavg: torch.Tensor,
                                  per_src: int) -> torch.Tensor:
@@ -303,12 +251,12 @@ def scatter_add_span_rank1_plain(table: torch.Tensor, plan: SpanPlan,
     return scatter_add_span_plain(table, plan.sids, rows[plan.order.long()])
 
 
-def _launch_rank1(table, plan: SpanPlan, dense_rows, g, cavg, per_src: int):
+def _launch_rank1(table, plan: SortPlan, dense_rows, g, cavg, per_src: int):
     V, C = table.shape
     N = plan.sids.shape[-1]
     nd, nn = dense_rows.shape[0], g.shape[0]
     fn = "scatter_add_span_rank1"
-    _check(fn, table, plan, dense_rows, C, ("g", g), ("cavg", cavg))
+    check_sorted(fn, table, plan, dense_rows, ("g", g), ("cavg", cavg))
     if nd + nn != N or per_src < 1 or nn % per_src:
         raise ValueError(f"{fn}: {nd} dense + {nn} rank-1 rows vs a plan of "
                          f"{N} ids with {per_src} rows per source")
@@ -319,19 +267,18 @@ def _launch_rank1(table, plan: SpanPlan, dense_rows, g, cavg, per_src: int):
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = _library().w2b_span_scatter_rank1(
         table.data_ptr(), dense_rows.data_ptr(), g.data_ptr(),
-        cavg.data_ptr(), *_plan_ptrs(plan.sids, plan.order, C), N, nd,
-        per_src, V, C,
+        cavg.data_ptr(), *_plan_ptrs(plan, C), N, nd, per_src, V, C,
         _DTYPES[table.dtype], _DTYPES[dense_rows.dtype], stream)
     check_launch("w2b_span_scatter_rank1", err)
     scatter_add_span_rank1.launches += 1
     return table
 
 
-def scatter_add_span_rank1(table: torch.Tensor, plan: SpanPlan,
+def scatter_add_span_rank1(table: torch.Tensor, plan: SortPlan,
                            dense_rows: torch.Tensor, g: torch.Tensor,
                            cavg: torch.Tensor,
                            per_src: int) -> torch.Tensor:
-    """table[ids] += rows in place, where `plan` is the span_plan of the
+    """table[ids] += rows in place, where `plan` is the sort_plan of the
     ids [dense_ids; rank1_ids] and the rows are dense_rows [nd, C] (float32
     or the table dtype) followed by nn rank-1 rows g[j] * cavg[j //
     per_src] (g [nn] and cavg [nn / per_src, C] float32)."""

@@ -45,13 +45,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from word2bits_tpu_torch.kernels.group_rmw import (
-    GroupPlan, group_plan, group_rows, scatter_add_grmw_planned)
+from word2bits_tpu_torch.kernels.group_rmw import scatter_add_grmw_planned
 from word2bits_tpu_torch.kernels.hot_pallas import (HotPlan, hot_plan,
                                                     hot_slice_add_pallas)
 from word2bits_tpu_torch.kernels.scatter_pallas import scatter_add_rmw
 from word2bits_tpu_torch.kernels.span_scatter import (
-    SpanPlan, scatter_add_span_planned, span_plan)
+    SortPlan, scatter_add_span_planned, sort_plan)
 from word2bits_tpu_torch.kernels.sweep_scatter import scatter_add_sweep
 from word2bits_tpu_torch.models.cbow import (
     CBOWHyper, ChunkScalars, chunk_slabs, step_alphas)
@@ -69,7 +68,6 @@ from word2bits_tpu_torch.sampling.unigram import (
 from word2bits_tpu_torch.utils.trace import span
 
 SCATTER_IMPLS = ("add", "span", "grmw", "sweep")
-LOOP_MODES = ("scan", "fori", "unroll")
 
 
 def interleave(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -103,13 +101,12 @@ def params_to_numpy(table: torch.Tensor) -> np.ndarray:
     return table.detach().to("cpu", torch.float32).numpy()
 
 
-def scatter_plan(scatter_impl: str, ids: torch.Tensor, table: torch.Tensor,
-                 span_chunk: int = 128):
-    """The sort plan of the `span` or `grmw` scatter for `ids` ([..., N],
-    leading dimensions batch steps) into `table`."""
-    if scatter_impl == "span":
-        return span_plan(ids, table.shape[0])
-    return group_plan(ids, group_rows(table.dtype), chunk=span_chunk)
+def scatter_plan(scatter_impl: str, ids: torch.Tensor,
+                 table: Optional[torch.Tensor] = None) -> SortPlan:
+    """The plan of the `span` or `grmw` scatter for `ids` ([..., N],
+    leading dimensions batch steps): kernels 2 and 7 read the same stable
+    sort, whatever the route and the table."""
+    return sort_plan(ids)
 
 
 def _dense_hot_phase(table, cavg, af, centers, hot_w, alpha,
@@ -145,7 +142,7 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
                     hyper: CBOWHyper, batch_size: int, neg_sharing: int,
                     neg_pool: int = 1, banded: int = 0,
                     scatter_impl: str = "add",
-                    span_plan: Optional[SpanPlan | GroupPlan] = None,
+                    span_plan: Optional[SortPlan] = None,
                     context_pallas: bool = False, span_chunk: int = 128,
                     use_pallas: bool = False, dedup_block: int = 0,
                     hot_rows: int = 0, cold_pos=None, strat_lanes=None,
@@ -154,8 +151,8 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
                     hot_plan: Optional[HotPlan] = None):
     """One synchronous step on the fused (V, 2D) table, IN PLACE.
     Returns (table, loss) with loss a float32 0-d tensor on the device.
-    `span_plan` is the step's hoisted plan for the `span` (SpanPlan) or
-    `grmw` (GroupPlan) scatter; `span_chunk` is grmw's `chunk`.
+    `span_plan` is the step's hoisted sort_plan for the `span` or `grmw`
+    scatter; `span_chunk` is grmw's `chunk`.
     `use_pallas` runs the shared-negative phase through the fused score
     kernel (kernels/score_pallas.py).
 
@@ -249,8 +246,7 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
             plan = span_plan
             if plan is None:
                 plan = scatter_plan(scatter_impl,
-                                    torch.cat([slab_ids, neg_ids]), table,
-                                    span_chunk)
+                                    torch.cat([slab_ids, neg_ids]))
             if scatter_impl == "span":
                 scatter_add_span_planned(table, plan, all_rows)
             else:
@@ -326,7 +322,7 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
                            neg_pool: int = 1, banded: int = 0,
                            scatter_impl: str = "add",
                            context_pallas: bool = False,
-                           loop_mode: str = "scan", span_chunk: int = 128,
+                           span_chunk: int = 128,
                            use_pallas: bool = False, dedup_block: int = 0,
                            hot_rows: int = 0, strat_lanes=None,
                            dense_hot=None, hot_pallas: bool = False,
@@ -351,12 +347,6 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
     w_cold, hot_w [H]) (StratifiedSampler.dense_split) it is the cold
     stratum's table and kc cold lanes are drawn per pool.
 
-    `loop_mode` "scan", "fori" and "unroll" are accepted as in the JAX
-    package and run the same in-place Python loop: the JAX modes differ in
-    how XLA carries the table (lax.scan double-buffers it, which is why the
-    capacity runbook asks for fori), and an in-place PyTorch table is never
-    copied, so there is nothing for them to choose between here.
-
     On a CUDA table the routes that models/step_graph.eager_reason passes
     (the span and grmw scatters) replay their step from a CUDA graph,
     captured at the first step of a new key, with the same results bit for
@@ -365,9 +355,6 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
     if scatter_impl not in SCATTER_IMPLS:
         raise ValueError(f"unknown scatter_impl {scatter_impl!r} "
                          f"(supported: {', '.join(SCATTER_IMPLS)})")
-    if loop_mode not in LOOP_MODES:
-        raise ValueError(f"unknown loop_mode {loop_mode!r} "
-                         f"(supported: {', '.join(LOOP_MODES)})")
     if use_pallas and scatter_impl != "add":
         raise ValueError("use_pallas runs with scatter_impl='add' only")
     hot_rows = min(int(hot_rows), vocab_size)
@@ -437,8 +424,7 @@ def make_fused_train_chunk(hyper: CBOWHyper, vocab_size: int,
                 # hoisted: every step's scatter ids are known at chunk entry
                 ids_all = torch.cat([slab_tokens.clamp_min(0),
                                      negs.reshape(S, -1)], dim=1)
-                plans = scatter_plan(scatter_impl, ids_all, table,
-                                     span_chunk)
+                plans = scatter_plan(scatter_impl, ids_all)
             hot_plans = None
             if hot_pallas and cold_pos is not None:
                 # hoisted: the rows of the head accumulation are the slab's

@@ -39,7 +39,7 @@ from word2bits_tpu_torch.kernels.context_pallas import fused_context_pallas
 from word2bits_tpu_torch.kernels.score_pallas import (  # noqa: F401
     pool_mask, quantized_scores_pallas, quantized_scores_plain)
 from word2bits_tpu_torch.kernels.span_scatter import (
-    SpanPlan, scatter_add_span_planned, scatter_add_span_rank1, span_plan)
+    SortPlan, scatter_add_span_planned, scatter_add_span_rank1, sort_plan)
 from word2bits_tpu_torch.models.cbow import (
     CBOWHyper, ChunkScalars, chunk_slabs, step_alphas)
 from word2bits_tpu_torch.ops.consts import const
@@ -260,13 +260,13 @@ def slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs, alpha,
               use_pallas: bool = False, hot_rows: int = 0,
               dedup_block: int = 0, neg_pool: int = 1, banded: int = 0,
               scatter_impl: str = "add",
-              span_plans: Optional[Tuple[SpanPlan, SpanPlan]] = None,
+              span_plans: Optional[Tuple[SortPlan, SortPlan]] = None,
               span_rank1: bool = False, context_pallas: bool = False):
     """One synchronous step over B consecutive centers on u and v IN PLACE.
     Returns (u, v, loss) with loss a float32 0-d tensor on the device.
 
     span_plans = (plan of the slab ids, plan of [centers; negatives]) is
-    the step's hoisted pair of span plans.  `span_rank1` (span, reg == 0,
+    the step's hoisted pair of sort plans.  `span_rank1` (span, reg == 0,
     per-center) forms the negative v rows inside the scatter kernel."""
     _check_slab_options(hot_rows, dedup_block, scatter_impl)
     if use_pallas and not neg_sharing:
@@ -280,7 +280,7 @@ def slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs, alpha,
     def scat(tab, ids, rows, plan):
         if spanning:
             if plan is None:
-                plan = span_plan(ids, tab.shape[0])
+                plan = sort_plan(ids)
             scatter_add_span_planned(tab, plan, rows)
         elif dedup_block:
             scatter_add_dedup(tab, ids, rows.to(tab.dtype), dedup_block)
@@ -315,7 +315,7 @@ def slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs, alpha,
         if spanning and reg == 0.0 and span_rank1:
             # rows centers: dv_center; negative (b, k): g_neg[b, k]*cavg[b]
             if plan_v is None:
-                plan_v = span_plan(ids_v, v.shape[0])
+                plan_v = sort_plan(ids_v)
             scatter_add_span_rank1(v, plan_v, pos.dv_center,
                                    g_neg.reshape(-1).contiguous(), pos.cavg,
                                    K)
@@ -372,10 +372,9 @@ def make_slab_train_chunk(hyper: CBOWHyper, vocab_size: int, batch_size: int,
         if scatter_impl == "span":
             # hoisted: every step's scatter ids are known at chunk entry
             slab_ids = slab_tokens.clamp_min(0)
-            plans_u = span_plan(slab_ids, u.shape[0])
-            plans_v = span_plan(torch.cat([slab_ids[:, W:W + B],
-                                           negs.reshape(S, -1)], dim=1),
-                                v.shape[0])
+            plans_u = sort_plan(slab_ids)
+            plans_v = sort_plan(torch.cat([slab_ids[:, W:W + B],
+                                           negs.reshape(S, -1)], dim=1))
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for s in range(S):
             inputs = SlabInputs(slab_tokens=slab_tokens[s],

@@ -9,13 +9,11 @@ host issues a few copies and one replay a step.
 
 What the graph reads sits at fixed addresses, owned by `_Graph`: the
 step's inputs (slab tokens and sentence ids, shrinks, negatives), its
-learning rate and its scatter plan, copied in before each replay, and the
-table, which is part of the key.  Of the plan only the sorted ids and
-their order are copied: kernels 2 and 7 read nothing else of it, and the
-other arrays keep their first step's values for the checks of shape.  The
-loss of each step adds, inside the graph, into the graph's float32 scalar,
-zeroed at chunk entry, in the order of the eager chunk's sum, and the
-chunk returns a copy of it.
+learning rate and its scatter plan, each copied in whole before each
+replay, and the table, which is part of the key.  The loss of each step
+adds, inside the graph, into the graph's float32 scalar, zeroed at chunk
+entry, in the order of the eager chunk's sum, and the chunk returns a
+copy of it.
 
 A chunk whose key (the table's address, shape and dtype; the shapes and
 dtypes of the step's inputs and plan) has no graph runs its first step
@@ -116,11 +114,9 @@ class _Graph:
         self.workspace = None     # the scatter workspace it captured
 
     def load(self, inputs, alpha, plan) -> None:
-        for dst, src in zip(self.inputs, inputs):
+        for dst, src in zip((*self.inputs, self.alpha, *self.plan),
+                            (*inputs, alpha, *plan)):
             dst.copy_(src)
-        self.alpha.copy_(alpha)
-        self.plan.sids.copy_(plan.sids)
-        self.plan.order.copy_(plan.order)
 
     def replay(self) -> None:
         self.graph.replay()

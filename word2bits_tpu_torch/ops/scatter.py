@@ -11,7 +11,7 @@ on 0/1 masks and run with `allow_tf32` off, as on the whole training path).
   `index_add_`, which adds in index order; on a CUDA tensor, where
   `index_add_`'s atomics add in arrival order (so the same seed would not
   give the same vectors), a stable sort of the ids and kernel 2
-  (kernels/span_scatter.scatter_add_span_sorted), which sums each id's
+  (kernels/span_scatter.scatter_add_span_planned), which sums each id's
   rows in float32 in the sorted order and adds once.  Ids outside [0, V)
   (the drop SENTINEL, -1 padding) are dropped, as by XLA's mode="drop".
 - `scatter_add_dedup` (`-dedup-block M`): blocks of M rows; inside a block
@@ -39,9 +39,8 @@ from typing import Optional
 
 import torch
 
-from word2bits_tpu_torch.kernels.span_scatter import scatter_add_span_sorted
-
-SENTINEL = 0x7FFFFFF0   # the drop id, as in the JAX package
+from word2bits_tpu_torch.kernels.span_scatter import (
+    SENTINEL, scatter_add_span_planned, sort_plan)
 
 
 def scatter_add(table: torch.Tensor, ids: torch.Tensor,
@@ -53,11 +52,10 @@ def scatter_add(table: torch.Tensor, ids: torch.Tensor,
     if table.device.type == "cpu":
         keep = (ids >= 0) & (ids < table.shape[0])
         return table.index_add_(0, ids[keep], rows[keep].to(table.dtype))
-    sids, order = torch.sort(ids.to(torch.int32), stable=True)
     if rows.dtype not in (torch.float32, table.dtype):
         rows = rows.to(table.dtype)   # kernel 2 rounds float32 rows itself
-    return scatter_add_span_sorted(table, sids, order.to(torch.int32),
-                                   rows.contiguous())
+    return scatter_add_span_planned(table, sort_plan(ids.to(torch.int32)),
+                                    rows.contiguous())
 
 
 def add_rows_where(table: torch.Tensor, ids: torch.Tensor,

@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from word2bits_tpu_torch.kernels.span_scatter import span_plan
+from word2bits_tpu_torch.kernels.span_scatter import sort_plan
 from word2bits_tpu_torch.models.cbow import (CBOWHyper, ChunkScalars,
                                              chunk_slabs, step_alphas)
 from word2bits_tpu_torch.parallel.layout import pad_hot_weights
@@ -123,8 +123,8 @@ def make_sharded_chunk(body_fn, hyper: CBOWHyper, mesh,
             ids_u, ids_v = gathered_update_ids(slab_tokens.clamp_min(0),
                                                negs, nd, W, neg_sharing)
             vi = comm.axis_index(VOCAB_AXIS)
-            plans = (span_plan(to_local(ids_u, vi, vss, hot_layout), vss),
-                     span_plan(to_local(ids_v, vi, vss, hot_layout), vss))
+            plans = (sort_plan(to_local(ids_u, vi, vss, hot_layout)),
+                     sort_plan(to_local(ids_v, vi, vss, hot_layout)))
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for s in range(S):
             if plans is not None:

@@ -35,7 +35,7 @@ import torch
 
 from word2bits_tpu_torch.kernels.scatter_pallas import scatter_add_rmw
 from word2bits_tpu_torch.kernels.span_scatter import (
-    SENTINEL, SpanPlan, scatter_add_span_planned, span_plan)
+    SENTINEL, SortPlan, scatter_add_span_planned, sort_plan)
 from word2bits_tpu_torch.models.cbow import CBOWHyper
 from word2bits_tpu_torch.models.cbow_slab import (
     SlabInputs, per_center_negative_phase, positive_phase,
@@ -93,7 +93,7 @@ def _sharded_slab_body(comm: Collectives, u_local, v_local, slab_tokens,
                        vocab_shard_size: int, neg_pool: int = 1,
                        dense_hot=None, hot_layout=None, banded: int = 0,
                        rmw: bool = False, scatter_impl: str = "add",
-                       span_plans: Optional[Tuple[SpanPlan, SpanPlan]] = None):
+                       span_plans: Optional[Tuple[SortPlan, SortPlan]] = None):
     """One sharded slab step on this shard's tables, IN PLACE.  The step
     inputs are the global ones (replicated).  Returns (u_local, v_local,
     loss summed over "data").
@@ -211,7 +211,7 @@ def _sharded_slab_body(comm: Collectives, u_local, v_local, slab_tokens,
                 scatter_add_rmw(v_local, ids_v, rows_v)
                 scatter_add_rmw(u_local, ids_u, rows_u)
                 return u_local, v_local, comm.psum(loss, DATA_AXIS)
-            plan_u, plan_v = span_plan(ids_u, Vs), span_plan(ids_v, Vs)
+            plan_u, plan_v = sort_plan(ids_u), sort_plan(ids_v)
         scatter_add_span_planned(v_local, plan_v, rows_v)
         scatter_add_span_planned(u_local, plan_u, rows_u)
         return u_local, v_local, comm.psum(loss, DATA_AXIS)

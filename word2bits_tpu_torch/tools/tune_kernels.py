@@ -202,8 +202,7 @@ def _step_ids(rng, V: int, n_slab: int, n_neg: int, n_sentinel: int):
 
 
 def tune_grmw(dev) -> None:
-    from word2bits_tpu_torch.kernels.group_rmw import group_plan, group_rows
-    from word2bits_tpu_torch.kernels.span_scatter import workspace
+    from word2bits_tpu_torch.kernels.span_scatter import sort_plan, workspace
     libs = _build("group_rmw", _variant_defines("GRMW", GRMW_VARIANTS))
     V, C, B, W = 3_699_941, 1600, 16384, 8
     n_slab = B + 2 * W
@@ -215,7 +214,7 @@ def tune_grmw(dev) -> None:
     table = torch.empty((V, C), dtype=torch.bfloat16, device=dev)
     table.uniform_(-0.5, 0.5, generator=torch.Generator(
         device=dev).manual_seed(SEED + 1))
-    plan = group_plan(ids, group_rows(table.dtype))
+    plan = sort_plan(ids)
     keep = ids < V
     touched, slot = torch.unique(ids[keep], return_inverse=True)
     before = table[touched].clone()
@@ -336,9 +335,10 @@ def tune_hot(dev) -> None:
 
 
 def tune_rmw(dev) -> None:
-    from word2bits_tpu_torch.kernels.scatter_pallas import (
-        rmw_plan, scatter_add_rmw_plain)
-    from word2bits_tpu_torch.kernels.span_scatter import SENTINEL, workspace
+    from word2bits_tpu_torch.kernels.scatter_pallas import \
+        scatter_add_rmw_plain
+    from word2bits_tpu_torch.kernels.span_scatter import (SENTINEL, sort_plan,
+                                                          workspace)
     libs = _build("group_rmw", _variant_defines("RMW", RMW_VARIANTS))
     V, C, B, W = 3_699_941, 1600, 16384, 8
     n_slab, n_neg = B + 2 * W, (B // 64) * 24
@@ -350,7 +350,7 @@ def tune_rmw(dev) -> None:
         ids[rng.choice(ids.size, 64, replace=False)] = SENTINEL
         ids = torch.from_numpy(ids).to(dev)
         rows = torch.randn((ids.numel(), C), generator=gen, device=dev) * 0.01
-        calls.append((ids, rows, *rmw_plan(ids)))
+        calls.append((ids, rows, sort_plan(ids)))
     table = torch.empty((V, C), dtype=torch.bfloat16, device=dev)
     table.uniform_(-0.5, 0.5, generator=torch.Generator(
         device=dev).manual_seed(SEED + 9))
@@ -360,7 +360,7 @@ def tune_rmw(dev) -> None:
     # the plain version on the touched rows alone, ids as their slots
     want = before.clone()
     mags = torch.zeros((touched.numel(), C), device=dev)
-    for ids, rows, _, _ in calls:
+    for ids, rows, _ in calls:
         slot = torch.where(ids < V, torch.searchsorted(touched, ids),
                            touched.numel())
         scatter_add_rmw_plain(want, slot, rows)
@@ -374,9 +374,10 @@ def tune_rmw(dev) -> None:
         part, count = workspace(dev, n_part(N, C), n_count(N, C))
 
         def call():
-            for ids, rows, sids, order in calls:
-                err = fn(table.data_ptr(), rows.data_ptr(), sids.data_ptr(),
-                         order.data_ptr(), part.data_ptr(), count.data_ptr(),
+            for ids, rows, plan in calls:
+                err = fn(table.data_ptr(), rows.data_ptr(),
+                         plan.sids.data_ptr(), plan.order.data_ptr(),
+                         part.data_ptr(), count.data_ptr(),
                          ids.numel(), V, C, 1, 0, stream)
                 if err:
                     raise RuntimeError(f"w2b_scatter_rmw {v}: cudaError_t "

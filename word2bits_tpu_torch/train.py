@@ -241,11 +241,11 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
             hyper, V, B, S, neg_sharing=cfg.neg_sharing,
             neg_pool=cfg.neg_pool, banded=cfg.banded_tile,
             scatter_impl=cfg.scatter_impl,
-            context_pallas=cfg.context_pallas, loop_mode=cfg.loop_mode,
-            span_chunk=cfg.span_chunk, use_pallas=cfg.use_pallas,
-            dedup_block=cfg.dedup_block, hot_rows=cfg.hot_rows,
-            strat_lanes=strat_lanes, dense_hot=dense_hot,
-            hot_pallas=cfg.hot_pallas, rmw_scatter=cfg.rmw_scatter)
+            context_pallas=cfg.context_pallas, span_chunk=cfg.span_chunk,
+            use_pallas=cfg.use_pallas, dedup_block=cfg.dedup_block,
+            hot_rows=cfg.hot_rows, strat_lanes=strat_lanes,
+            dense_hot=dense_hot, hot_pallas=cfg.hot_pallas,
+            rmw_scatter=cfg.rmw_scatter)
     elif cfg.model == "skipgram":
         chunk_fn = make_skipgram_train_chunk(
             hyper, V, B, S, neg_sharing=cfg.neg_sharing,
