@@ -9,7 +9,9 @@ prints each kernel's registers, shared memory and spills, and kernels 1,
 against its plain PyTorch version at the shapes of the paths that run it
 ([band usum@800] and [band usum@200] at the CBOW cells', [context], [span]
 and [grmw] each printing a digest of the table it wrote, to hold kernels 2
-and 7 bit-equal across commits, [score], [score edges] ragged tiles at
+and 7 bit-equal across commits, and each the same kernel on the fused
+step's rows read from their three parts, bit-equal to it on them
+materialized, both timed, [score], [score edges] ragged tiles at
 bitlevels 0/1/2/4/8, [rank1] with kernel 2 on its float32 table, [hotk],
 [hot edges] kernel 6 at its tiles' edges with and without `extra`, [grmw],
 [grmw edges] kernel 7 at its tiles' edges in three dtype pairs at widths
@@ -671,7 +673,49 @@ def check_band_usum(dev) -> dict:
                 bound_by="bytes", at_d200=out[D], **out[FLAG_D])
 
 
-# ---------------------------------------------------------------- kernel 2
+# ------------------------------------------------------- kernels 2 and 7
+def _row_parts(dev, n_slab: int, n_neg: int, d: int, window: int):
+    """The fused step's update rows as its three parts (RowParts), seeded
+    float32 at the step's scale: u of the n_slab slab positions, v of the
+    n_slab - 2 * window centers and of the n_neg negatives."""
+    from word2bits_tpu_torch.kernels.span_scatter import RowParts
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    return RowParts(*(torch.randn((n, d), generator=gen, device=dev) * 0.01
+                      for n in (n_slab, n_slab - 2 * window, n_neg)),
+                    window)
+
+
+def _parts_vs_dense(run, table: torch.Tensor, plan, parts, tag: str,
+                    rows_of=None) -> dict:
+    """`run(table, plan, rows)` (kernel 2 or 7) on the fused step's three
+    parts and on the same rows materialized, each from `table`'s state
+    (restored after each call; `rows_of` the rows it compares, all by
+    default): bit-equal, both digests printed, then each call timed."""
+    dense = parts.materialize()
+    pick = (lambda t: t) if rows_of is None else (lambda t: t[rows_of])
+    before = pick(table).clone()
+    out = {}
+    for name, rows in (("parts", parts), ("dense", dense)):
+        run(table, plan, rows)
+        out[name] = pick(table).clone()
+        if rows_of is None:
+            table.copy_(before)
+        else:
+            table[rows_of] = before
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(out["parts"]), _bits(out["dense"])):
+        _fail(f"{tag}: the three-part rows and the same rows materialized "
+              f"give other tables, max abs err "
+              f"{_max_err(out['parts'], out['dense']):.3e}")
+    ms = {name: _time_ms(lambda: run(table, plan, rows))
+          for name, rows in (("parts", parts), ("dense", dense))}
+    print(f"[{tag}] three parts: digest {_digest(out['parts'])}, the "
+          f"materialized rows' {_digest(out['dense'])}; kernel "
+          f"{ms['parts']:.4f} ms from the parts, {ms['dense']:.4f} ms on "
+          "the materialized rows")
+    return dict(parts_ms=ms["parts"], parts_dense_ms=ms["dense"])
+
+
 def check_span(dev) -> dict:
     """The span scatter kernel against scatter_add_span_plain on the card:
     a bf16 [70000, 400] table, Zipf ids with duplicates plus drop
@@ -679,7 +723,9 @@ def check_span(dev) -> dict:
     float32 and round once into the table, in another order, so they agree
     to one bf16 rounding: atol 1e-5 + rtol 2^-7.  Two launches on the same
     inputs are bit-equal; the table's digest (_digest) is printed, to be
-    held equal across commits."""
+    held equal across commits.  Then the same scatter of the fused step's
+    rows from their three parts, bit-equal to kernel 2 on them
+    materialized (_parts_vs_dense)."""
     from word2bits_tpu_torch.kernels.span_scatter import (
         scatter_add_span_plain, scatter_add_span_planned, sort_plan)
     rng = np.random.default_rng(SEED)
@@ -722,12 +768,15 @@ def check_span(dev) -> dict:
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"[span] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} bytes)")
+    parts = _parts_vs_dense(scatter_add_span_planned, table0.clone(), plan,
+                            _row_parts(dev, B + 2 * W, N - B - 2 * W, D, W),
+                            "span")
     return dict(name="scatter_add_span", route="cuda",
                 source="word2bits_tpu_torch/csrc/span_scatter.cu",
                 replaces="word2bits_tpu/kernels/span_scatter.py:200",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
-                shapes=f"table [{V}, {C}] bf16, {N} f32 rows")
+                shapes=f"table [{V}, {C}] bf16, {N} f32 rows", **parts)
 
 
 # the `add` routes' scatters through ops/scatter.scatter_add (sort + kernel
@@ -1265,7 +1314,9 @@ def check_grmw(dev, n_slab: int = FLAG_B + 2 * W,
     (each id's bf16-rounded rows summed in float32 in another order, one
     rounding into the table); every other row must be untouched in both.
     The digest of the touched rows (in id order) is printed, to be held
-    equal across commits."""
+    equal across commits.  Then the same scatter of the fused step's rows
+    from their three parts (B = 16,384 centers, the window from n_slab),
+    bit-equal to kernel 7 on them materialized (_parts_vs_dense)."""
     from word2bits_tpu_torch.kernels.group_rmw import (
         scatter_add_grmw_plain, scatter_add_grmw_planned, tile_config)
     from word2bits_tpu_torch.kernels.span_scatter import sort_plan
@@ -1310,6 +1361,10 @@ def check_grmw(dev, n_slab: int = FLAG_B + 2 * W,
           f"untouched); tiles of {cfg['L']} slots, {cfg['THREADS']} threads, "
           f"chunks of {cfg['SUB']} rows, {cfg['IB']} in flight, groups of at "
           f"most {cfg['GROUP']} columns")
+    parts = _parts_vs_dense(
+        scatter_add_grmw_planned, got, plan,
+        _row_parts(dev, n_slab, n_neg, FLAG_D, (n_slab - FLAG_B) // 2), tag,
+        rows_of=touched)
     ms = _time_ms(lambda: scatter_add_grmw_planned(got, plan, rows))
     plain_ms = _time_ms(lambda: scatter_add_grmw_plain(want, ids, rows))
     keep = ids < V
@@ -1328,7 +1383,8 @@ def check_grmw(dev, n_slab: int = FLAG_B + 2 * W,
                 replaces="word2bits_tpu/kernels/group_rmw.py:184",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
-                config=cfg, shapes=f"table [{V}, {C}] bf16, {N} f32 rows")
+                config=cfg, shapes=f"table [{V}, {C}] bf16, {N} f32 rows",
+                **parts)
 
 
 def _grmw_edge_plans(rng, L: int) -> dict:
@@ -2301,6 +2357,10 @@ def train_main_path(work: str):
     for name in ("fused_context_pallas", "scatter_add_span", "band_usum"):
         if launches[name] <= 0:
             _fail(f"{name} was not launched on the main path")
+    if launches["row_parts"] != launches["scatter_add_span"]:
+        _fail(f"kernel 2 read the rows from their parts in "
+              f"{launches['row_parts']} of its {launches['scatter_add_span']} "
+              "launches on the main path (all expected)")
     if not all(math.isfinite(x) for x in losses):
         _fail(f"epoch loss not finite: {losses}")
     words, vecs = read_vectors(out)
@@ -2389,7 +2449,8 @@ def train_flagship(work: str, dev) -> tuple:
     rss_life = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     if res.steps != FLAG_STEPS:
         _fail(f"flagship trained {res.steps} steps, not {FLAG_STEPS}")
-    for name in ("fused_context_pallas", "scatter_add_grmw", "band_usum"):
+    for name in ("fused_context_pallas", "scatter_add_grmw", "row_parts",
+                 "band_usum"):
         if launches[name] != res.steps:
             _fail(f"flagship: {name} launched {launches[name]} times in "
                   f"{res.steps} steps (once per step expected)")
@@ -2508,7 +2569,7 @@ def run_flagship_tool(work: str) -> dict:
     tr, rs, ev = t["train"], t["resume"], t["eval"]
     for leg, rec in (("leg 1", tr), ("leg 2", rs)):
         for name in ("fused_context_pallas", "scatter_add_grmw",
-                     "band_usum"):
+                     "row_parts", "band_usum"):
             if rec["launches"][name] != rec["steps"]:
                 _fail(f"flagship run {leg}: {name} launched "
                       f"{rec['launches'][name]} times in {rec['steps']} "
@@ -2614,7 +2675,8 @@ def run_resume(dev, vocab, encoded, ckdir: str) -> dict:
               f"checkpoint's {saved_words}")
     if not all(math.isfinite(x) for x in res.epoch_losses):
         _fail(f"resume epoch loss not finite: {res.epoch_losses}")
-    for name in ("fused_context_pallas", "scatter_add_grmw", "band_usum"):
+    for name in ("fused_context_pallas", "scatter_add_grmw", "row_parts",
+                 "band_usum"):
         if launches[name] != res.steps:
             _fail(f"resume: {name} launched {launches[name]} times in "
                   f"{res.steps} steps")
@@ -2691,12 +2753,15 @@ def _launch_counters():
     from word2bits_tpu_torch.kernels.score_pallas import \
         quantized_scores_pallas
     from word2bits_tpu_torch.kernels.span_scatter import (
-        scatter_add_span_planned, scatter_add_span_rank1)
+        launch_parts, scatter_add_span_planned, scatter_add_span_rank1)
     from word2bits_tpu_torch.kernels.sweep_scatter import \
         scatter_add_sweep_planned
+    # row_parts: the launches of kernels 2 and 7 that read the fused step's
+    # rows from their three parts (counted in their own entries too)
     return {"fused_context_pallas": fused_context_pallas,
             "scatter_add_span": scatter_add_span_planned,
             "scatter_add_span_rank1": scatter_add_span_rank1,
+            "row_parts": launch_parts,
             "quantized_scores_pallas": quantized_scores_pallas,
             "hot_slice_add_pallas": hot_slice_add_pallas,
             "scatter_add_grmw": scatter_add_grmw_planned,
@@ -3157,6 +3222,9 @@ def run_pallas(dev, vocab, encoded) -> dict:
             if launches[name] != res.steps or res.steps != S:
                 _fail(f"{tag}: {name} launched {launches[name]} times in "
                       f"{res.steps} steps (once per step of {S} expected)")
+        if launches["row_parts"]:
+            _fail(f"{tag}: the `add` route read rows from their parts "
+                  f"{launches['row_parts']} times (never expected)")
         if not all(math.isfinite(x) for x in res.epoch_losses):
             _fail(f"{tag} epoch loss not finite: {res.epoch_losses}")
         us, wps = _steady(res)
@@ -3196,9 +3264,11 @@ def run_hot(work: str, dev, vocab, encoded) -> dict:
         if res.steps != steps:
             _fail(f"{tag} trained {res.steps} steps, not {steps}")
         if (launches["hot_slice_add_pallas"] != per_step * steps
-                or launches["fused_context_pallas"] != steps):
+                or launches["fused_context_pallas"] != steps
+                or launches["row_parts"]):
             _fail(f"{tag}: launches {launches} in {steps} steps (kernel 6 "
-                  f"{per_step} and kernel 1 once per step expected)")
+                  f"{per_step} and kernel 1 once per step, no read of row "
+                  "parts expected)")
         if not all(math.isfinite(x) for x in res.epoch_losses):
             _fail(f"{tag} epoch loss not finite: {res.epoch_losses}")
         us, wps = _steady(res)
@@ -4335,7 +4405,7 @@ def report_ptxas() -> None:
     """Each kernel's registers, static shared memory and spills as ptxas
     reported them in this run's build; kernels 1, 5 and 9, the banded
     u-sum and every instantiation of the tile template (kernels 2 and 3,
-    both row sources; 6, its head-fold epilogue in hot_slice.cu; 7 and 8 in
+    every row source; 6, its head-fold epilogue in hot_slice.cu; 7 and 8 in
     group_rmw.cu) must not spill."""
     from word2bits_tpu_torch.kernels._build import (BUILD_LOGS,
                                                     KERNEL_SOURCES,
@@ -4506,7 +4576,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shapes",
             "launches_by_path", "at_d200", "at_exact", "at_flagship_run",
-            "bmm_only_ms",
+            "bmm_only_ms", "parts_ms", "parts_dense_ms",
             "span_materialized_ms", "span_materialized_with_forming_ms",
             "config", "at_widths",
             "plan_ms", "stratified_extra_ms", "stratified_extra_bound_ms",

@@ -55,7 +55,10 @@
 // Bound on the H100 (3.35 TB/s): the bytes it must move.  At the flagship
 // (22,544 float32 rows of 1,600 columns into a 3,699,941 x 1,600 bf16
 // table) that is the rows (144 MB), the plan, and each touched row read and
-// written once (3.2 KB each way): 70.2 us.  What is left: each CTA's
+// written once (3.2 KB each way): 70.2 us.  The training step launches
+// w2b_group_rmw_parts, the same kernel reading those rows from the three
+// buffers its phases wrote (csrc/w2b_rows.cuh SlabParts): the halves that
+// are zero are not read, 124.6 of the 144 MB are.  What is left: each CTA's
 // dependent phases (staging the tile, the chunk loads, a cut run's
 // arrival); PERF.md section 6 has the times.
 //
@@ -142,6 +145,20 @@ int w2b_group_rmw(void* table, const void* rows, const int* sids,
   return w2b::tile_scatter_dense<GrmwCfg>(table, rows, sids, order, part,
                                           count, N, V, C, table_dtype,
                                           row_dtype, stream);
+}
+
+// Kernel 7 on the fused CBOW step's rows read from their three parts
+// (w2b::SlabParts), never assembled: the plan is of the N ids [slab ids;
+// negative ids]; du [n_slab, D], dvc [n_slab - 2W, D] and dvn [N - n_slab,
+// D] in row_dtype; the table [V, 2D].
+int w2b_group_rmw_parts(void* table, const void* du, const void* dvc,
+                        const void* dvn, const int* sids, const int* order,
+                        float* part, int* count, int N, int n_slab, int W,
+                        int V, int D, int table_dtype, int row_dtype,
+                        void* stream) {
+  return w2b::tile_scatter_parts<GrmwCfg>(table, du, dvc, dvn, sids, order,
+                                          part, count, N, n_slab, W, V, D,
+                                          table_dtype, row_dtype, stream);
 }
 
 // Kernel 7's tile constants (L, THREADS, SUB, IB, GROUP) and workspace.

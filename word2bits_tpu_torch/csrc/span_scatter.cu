@@ -24,7 +24,12 @@
 // (78.6 MB at B = 4096, K = 24, D = 200) is never written or read; the
 // kernel reads g and cavg instead (0.4 + 3.3 MB, cavg rows from L2).  Both
 // entry points sum in the same order, so on the same rows they are
-// bit-equal.
+// bit-equal.  w2b_span_scatter_parts is the same kernel again with the fused
+// CBOW step's rows read from the three buffers its phases wrote
+// (csrc/w2b_rows.cuh SlabParts): the [N, 2D] float32 rows are never
+// assembled (two zero fills, a copy and three concatenations, about 116 MB
+// of traffic a step at the shipped shape: B = 8192, D = 200, 6,144
+// negatives), and the halves that are zero are not read.
 //
 // The plan (sorted ids and their source rows; kernels/span_scatter.py
 // sort_plan) is built by plain PyTorch, hoisted per chunk.  The Zipf head
@@ -123,6 +128,20 @@ int w2b_span_scatter_rank1(void* table, const void* dense, const float* g,
     return launch_rank1<float, float>(table, dense, g, cavg, sids, order,
                                       part, count, N, nd, per_src, V, C, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The same scatter of the fused CBOW step's rows read from their three parts
+// (w2b::SlabParts), never assembled: the plan is of the N ids [slab ids;
+// negative ids]; du [n_slab, D], dvc [n_slab - 2W, D] and dvn [N - n_slab,
+// D] in row_dtype; the table [V, 2D].
+int w2b_span_scatter_parts(void* table, const void* du, const void* dvc,
+                           const void* dvn, const int* sids, const int* order,
+                           float* part, int* count, int N, int n_slab, int W,
+                           int V, int D, int table_dtype, int row_dtype,
+                           void* stream) {
+  return w2b::tile_scatter_parts<Cfg>(table, du, dvc, dvn, sids, order, part,
+                                      count, N, n_slab, W, V, D, table_dtype,
+                                      row_dtype, stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,8 @@
 // csrc/group_rmw.cu): VEC adjacent columns per thread, loaded and stored
 // in one 16-byte float32 / 8-byte bfloat16 access when VEC == 4 (the
 // caller checks alignment), always widened to float32 in registers; and
-// the span scatter's two row sources (materialized rows, rank-1 rows).
+// the sorted scatters' three row sources (materialized rows, rank-1 rows,
+// the fused CBOW step's rows from their parts).
 #pragma once
 
 #include <stdint.h>
@@ -125,6 +126,40 @@ struct Rank1Rows {
       for (int i = 0; i < VEC; ++i)
         x[i] = to_f32(from_f32<TableT>(__fmul_rn(gj, x[i])));
     }
+  }
+};
+
+// SlabParts: the fused CBOW step's update rows [n_slab + n_neg, 2D]
+// (models/cbow_fused.py) read from the three buffers its phases wrote, so
+// that the rows are never assembled: slab row o < n_slab is [du[o],
+// dvc[o - W]], its v half zero outside the B = n_slab - 2W centers W ..
+// W + B - 1; negative row n_slab + j is [0, dvn[j]].  A zero half is 0.0f
+// with no load, the value a materialized zero takes after its rounding, so
+// the sums are DenseRows' on the assembled rows, bit for bit.  With VEC ==
+// 4 the caller checks D % 4 == 0, so that no vector straddles column D.
+template <typename TableT, typename RowT, int VEC>
+struct SlabParts {
+  const RowT* du;    // [n_slab, D]
+  const RowT* dvc;   // [n_slab - 2W, D]
+  const RowT* dvn;   // [N - n_slab, D]
+  int n_slab, W, D;
+  __device__ __forceinline__ void fetch(int o, int c, float (&x)[VEC]) const {
+    const RowT* p = nullptr;
+    if (c < D) {
+      if (o < n_slab) p = du + (size_t)o * D + c;
+    } else if (o >= n_slab) {
+      p = dvn + (size_t)(o - n_slab) * D + (c - D);
+    } else if (o >= W && o < n_slab - W) {
+      p = dvc + (size_t)(o - W) * D + (c - D);
+    }
+    if (p == nullptr) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) x[i] = 0.0f;
+      return;
+    }
+    load_vec<VEC>(p, x);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) x[i] = to_f32(from_f32<TableT>(x[i]));
   }
 };
 

@@ -1,7 +1,9 @@
 // The tiled sorted scatter-add template, table[ids] += rows, of kernels 2
 // and 3 (csrc/span_scatter.cu), kernel 6 (csrc/hot_slice.cu) and kernels 7
 // and 8 (csrc/group_rmw.cu).  Each entry point instantiates it with its own
-// constants (TileCfg), chosen by timing at its own shapes, and one of three
+// constants (TileCfg), chosen by timing at its own shapes, a row source
+// (csrc/w2b_rows.cuh: kernels 2 and 7 read the fused CBOW step's rows either
+// materialized or from their three parts) and one of three
 // epilogues, which say what a run's one read-modify-write does with the
 // table row's values `cur` and the run's float32 sum:
 //   * AddSum (kernels 2, 3 and 7): cur += sum;
@@ -602,6 +604,53 @@ int tile_scatter_dense(void* table, const void* rows, const int* sids,
   if (table_dtype == 0 && row_dtype == 0)
     return tile_launch_dense<Cfg, float, float>(table, rows, sids, order,
                                                 part, count, N, V, C, s, epi);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class Cfg, typename TableT, typename RowT>
+int tile_launch_parts(void* table, const void* du, const void* dvc,
+                      const void* dvn, const int* sids, const int* order,
+                      float* part, int* count, int N, int n_slab, int W,
+                      int V, int D, cudaStream_t stream) {
+  const RowT* u = static_cast<const RowT*>(du);
+  const RowT* c = static_cast<const RowT*>(dvc);
+  const RowT* n = static_cast<const RowT*>(dvn);
+  const size_t rb = 4 * sizeof(RowT);
+  // 4 columns per thread when no vector straddles column D and every row
+  // start of every part is aligned for one access
+  if (D % 4 == 0 && aligned(table, 4 * sizeof(TableT)) && aligned(du, rb) &&
+      aligned(dvc, rb) && aligned(dvn, rb) && aligned(part, 16))
+    return tile_launch<Cfg, TableT, 4>(
+        table, SlabParts<TableT, RowT, 4>{u, c, n, n_slab, W, D}, sids, order,
+        part, count, N, V, 2 * D, stream);
+  return tile_launch<Cfg, TableT, 1>(
+      table, SlabParts<TableT, RowT, 1>{u, c, n, n_slab, W, D}, sids, order,
+      part, count, N, V, 2 * D, stream);
+}
+
+// The fused CBOW step's scatter from its three parts (SlabParts), in the
+// dtype pairs of tile_scatter_dense: the plan is of the N = n_slab + n_neg
+// ids [slab ids; negative ids], du [n_slab, D], dvc [n_slab - 2W, D] and
+// dvn [n_neg, D] in row_dtype, the table [V, 2D].
+template <class Cfg>
+int tile_scatter_parts(void* table, const void* du, const void* dvc,
+                       const void* dvn, const int* sids, const int* order,
+                       float* part, int* count, int N, int n_slab, int W,
+                       int V, int D, int table_dtype, int row_dtype,
+                       void* stream) {
+  if (N < 0 || W < 0 || n_slab < 2 * W || n_slab > N || V < 0 || D < 1 ||
+      D > 6144)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (table_dtype == 1 && row_dtype == 0)
+    return tile_launch_parts<Cfg, __nv_bfloat16, float>(
+        table, du, dvc, dvn, sids, order, part, count, N, n_slab, W, V, D, s);
+  if (table_dtype == 1 && row_dtype == 1)
+    return tile_launch_parts<Cfg, __nv_bfloat16, __nv_bfloat16>(
+        table, du, dvc, dvn, sids, order, part, count, N, n_slab, W, V, D, s);
+  if (table_dtype == 0 && row_dtype == 0)
+    return tile_launch_parts<Cfg, float, float>(
+        table, du, dvc, dvn, sids, order, part, count, N, n_slab, W, V, D, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -33,6 +33,11 @@ Bound on the H100 (3.35 TB/s): bytes — the rows read once, each touched
 table row read and written once, and the plan (~70 us at the flagship's
 22,544 f32 rows x 1,600 columns); the kernel's time is in PERF.md.
 
+The fused CBOW step hands it its update rows as
+`span_scatter.RowParts`, the three buffers its phases wrote, which the
+kernel reads in place (`w2b_group_rmw_parts`, counted also in
+`span_scatter.launch_parts.launches`); the CPU materializes them.
+
 `scatter_add_grmw_planned` / `scatter_add_grmw` run the plain version for
 CPU tensors (an f32 `index_add_` into a temporary holding the touched rows,
 then one cast-add) and launch the kernel for CUDA tensors, raising on what
@@ -52,8 +57,8 @@ import torch
 
 from word2bits_tpu_torch.kernels._build import check_launch, load_library
 from word2bits_tpu_torch.kernels.span_scatter import (
-    SortPlan, check_sorted, scatter_add_span_plain, sort_plan,
-    tile_constants, workspace)
+    PARTS_ARGTYPES, RowParts, SortPlan, check_sorted, launch_parts,
+    scatter_add_span_plain, sort_plan, tile_constants, workspace)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -82,6 +87,8 @@ def _library() -> ctypes.CDLL:
             size.argtypes = [ctypes.c_int, ctypes.c_int]
             size.restype = ctypes.c_longlong
         getattr(lib, f"w2b_{k}_config").argtypes = [ctypes.c_void_p]
+    lib.w2b_group_rmw_parts.argtypes = PARTS_ARGTYPES
+    lib.w2b_group_rmw_parts.restype = ctypes.c_int
     return lib
 
 
@@ -108,12 +115,17 @@ def _check(fn: str, table, plan: SortPlan, rows) -> None:
 
 
 def _launch(table, plan: SortPlan, rows) -> None:
-    """Kernel 7 on one step's plan: the sorted ids, their source rows and
-    the device's workspace."""
+    """Kernel 7 on one step's plan: the sorted ids, their source rows (dense
+    or RowParts) and the device's workspace."""
+    lib = _library()
+    if isinstance(rows, RowParts):
+        launch_parts("scatter_add_grmw", lib.w2b_group_rmw_parts,
+                     lib.w2b_group_rmw_partials, lib.w2b_group_rmw_counters,
+                     table, plan, rows)
+        return
     _check("scatter_add_grmw", table, plan, rows)
     V, C = table.shape
     N = plan.sids.shape[-1]
-    lib = _library()
     part, count = workspace(table.device, lib.w2b_group_rmw_partials(N, C),
                             lib.w2b_group_rmw_counters(N, C))
     stream = torch.cuda.current_stream(table.device).cuda_stream
@@ -125,12 +137,15 @@ def _launch(table, plan: SortPlan, rows) -> None:
 
 
 def scatter_add_grmw_planned(table: torch.Tensor, plan: SortPlan,
-                             rows: torch.Tensor, chunk: int = 128,
+                             rows: torch.Tensor | RowParts, chunk: int = 128,
                              slots: int = 16) -> torch.Tensor:
     """Apply one step's sort_plan: table[ids] += rows, in place.
-    rows [N, C] in float32 or the table dtype, in the ids' original order."""
+    rows [N, C] in float32 or the table dtype, in the ids' original order,
+    or the fused step's RowParts (materialized on the CPU)."""
     _check_slots(chunk, slots)
     if table.device.type == "cpu":
+        if isinstance(rows, RowParts):
+            rows = rows.materialize()
         return scatter_add_grmw_plain(table, plan.sids,
                                       rows[plan.order.long()])
     if table.device.type != "cuda":

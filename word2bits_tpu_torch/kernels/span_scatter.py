@@ -41,6 +41,12 @@ plain scatter-add of the training path on the card (the `add` routes, the
 cold rows of the hot/cold split, the block dedup, the hot head's float32
 sum, the mesh's deltas), so the same seed gives the same tables.
 
+The fused CBOW step hands kernel 2 (and kernel 7, kernels/group_rmw.py)
+its update rows as `RowParts`, the three buffers its phases wrote, which
+the kernel reads in place (`w2b_span_scatter_parts`): the [N, 2D] rows
+are never assembled, and their zero halves are not read.  The CPU
+materializes them (`RowParts.materialize`) for the plain version.
+
 `scatter_add_span_planned` / `scatter_add_span` / `scatter_add_span_rank1`
 run the plain version for CPU tensors (an f32 `index_add_` into a
 temporary holding the touched rows, then one cast-add) and launch the
@@ -49,7 +55,9 @@ shared with kernels 7 and 8); there is no fallback.  Every launch on a
 device uses the same workspace (`workspace`, shared with kernels 6, 7 and
 8), so two calls must not run at once on different streams; no path of
 the port does that.  `scatter_add_span_planned.launches` (kernel 2) and
-`scatter_add_span_rank1.launches` count kernel launches.
+`scatter_add_span_rank1.launches` count kernel launches;
+`launch_parts.launches` counts those of kernels 2 and 7 that read
+RowParts.
 """
 
 from __future__ import annotations
@@ -78,6 +86,29 @@ class SortPlan(NamedTuple):
         return SortPlan(*(a[s] for a in self))
 
 
+class RowParts(NamedTuple):
+    """The fused CBOW step's update rows [n_slab + n_neg, 2D]
+    (models/cbow_fused.py) as the three buffers its phases wrote: slab row
+    o is [du_slab[o], dv_center[o - window]], its v half zero outside the
+    centers window .. n_slab - window - 1, and negative row j is [0,
+    dv_neg[j]].  Kernels 2 and 7 read them so (csrc/w2b_rows.cuh
+    SlabParts); `materialize` assembles them."""
+
+    du_slab: torch.Tensor     # [n_slab, D] u rows of the slab positions
+    dv_center: torch.Tensor   # [n_slab - 2 * window, D] v rows of the centers
+    dv_neg: torch.Tensor      # [n_neg, D] v rows of the negatives
+    window: int
+
+    def materialize(self) -> torch.Tensor:
+        """The rows [n_slab + n_neg, 2D], in du_slab's dtype."""
+        W, n_slab = self.window, self.du_slab.shape[0]
+        dv_slab = torch.zeros_like(self.du_slab)
+        dv_slab[W:n_slab - W] = self.dv_center
+        fused_rows = torch.cat([self.du_slab, dv_slab], dim=1)
+        return torch.cat([fused_rows, torch.cat(
+            [torch.zeros_like(self.dv_neg), self.dv_neg], dim=1)])
+
+
 def sort_plan(ids: torch.Tensor) -> SortPlan:
     """One stable sort of `ids` ([..., N]) along its last dimension.  Ids
     outside [0, V) stay in it: the kernels and their plain versions drop
@@ -100,6 +131,11 @@ def scatter_add_span_plain(table: torch.Tensor, ids: torch.Tensor,
     return table
 
 
+# the C signature of w2b_span_scatter_parts and w2b_group_rmw_parts
+PARTS_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                  + [ctypes.c_void_p])
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """csrc/span_scatter.cu, built on first use, with its C signatures."""
@@ -112,6 +148,8 @@ def _library() -> ctypes.CDLL:
                                            + [ctypes.c_int] * 7
                                            + [ctypes.c_void_p])
     lib.w2b_span_scatter_rank1.restype = ctypes.c_int
+    lib.w2b_span_scatter_parts.argtypes = PARTS_ARGTYPES
+    lib.w2b_span_scatter_parts.restype = ctypes.c_int
     lib.w2b_span_tile.restype = ctypes.c_int
     for fn in (lib.w2b_span_partials, lib.w2b_span_counters):
         fn.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -153,39 +191,96 @@ def tile_constants(config_fn) -> dict:
     return dict(zip(("L", "THREADS", "SUB", "IB", "GROUP"), out))
 
 
+def _check_table_plan(fn: str, table, plan: SortPlan, named) -> None:
+    """The table's dtype, one step's int32 plan, and every tensor of
+    `named` ((name, tensor) pairs) contiguous on the table's device."""
+    dev = table.device
+    if table.dtype not in _DTYPES:
+        raise ValueError(f"{fn}: table dtype {table.dtype} is not float32 "
+                         "or bfloat16")
+    if plan.sids.dim() != 1:
+        raise ValueError(f"{fn}: pass one step's plan (SortPlan.step)")
+    if plan.order.shape != plan.sids.shape:
+        raise ValueError(f"{fn}: plan.order {tuple(plan.order.shape)} vs "
+                         f"plan.sids {tuple(plan.sids.shape)}")
+    named = (("table", table), ("plan.order", plan.order),
+             ("plan.sids", plan.sids), *named)
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{fn}: {name} is on {t.device}, table on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    for name, t in zip(SortPlan._fields, plan):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{fn}: plan.{name} must be int32")
+
+
 def check_sorted(fn: str, table, plan: SortPlan, rows, *others) -> None:
     """Raise on anything a tiled scatter kernel (2, 3, 7 or 8) does not
     take: `plan` one step's SortPlan, `rows` the materialized (or dense)
     row block, `others` (name, tensor) pairs of further float32 inputs;
     `fn` names the caller in errors.  The caller checks the row count."""
-    dev, C = table.device, table.shape[1]
-    if table.dtype not in _DTYPES:
-        raise ValueError(f"{fn}: table dtype {table.dtype} is not float32 "
-                         "or bfloat16")
+    C = table.shape[1]
     if rows.dtype not in (torch.float32, table.dtype):
         raise ValueError(f"{fn}: rows must be float32 or {table.dtype}, got "
                          f"{rows.dtype}")
     if rows.dim() != 2 or rows.shape[1] != C:
         raise ValueError(f"{fn}: rows {tuple(rows.shape)} do not have the "
                          f"table's width {C}")
-    if plan.sids.dim() != 1:
-        raise ValueError(f"{fn}: pass one step's plan (SortPlan.step)")
-    if plan.order.shape != plan.sids.shape:
-        raise ValueError(f"{fn}: plan.order {tuple(plan.order.shape)} vs "
-                         f"plan.sids {tuple(plan.sids.shape)}")
-    named = (("table", table), ("rows", rows), ("plan.order", plan.order),
-             ("plan.sids", plan.sids), *others)
-    for name, t in named:
-        if t.device != dev:
-            raise ValueError(f"{fn}: {name} is on {t.device}, table on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
+    _check_table_plan(fn, table, plan, (("rows", rows), *others))
     for name, t in others:
         if t.dtype != torch.float32:
             raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
-    for name, t in zip(SortPlan._fields, plan):
-        if t.dtype != torch.int32:
-            raise ValueError(f"{fn}: plan.{name} must be int32")
+
+
+def check_parts(fn: str, table, plan: SortPlan, parts: RowParts) -> None:
+    """Raise on anything kernels 2 and 7 do not take from the fused step's
+    RowParts: its three parts D = C / 2 wide, in one dtype (float32 or the
+    table's), du_slab [n_slab, D], dv_center [n_slab - 2W, D] and dv_neg
+    [N - n_slab, D] for a plan of N ids; `fn` names the caller in errors."""
+    C, N = table.shape[1], plan.sids.shape[-1]
+    named = tuple(zip(RowParts._fields, parts[:3]))
+    du, dvc, dvn = parts[:3]
+    if du.dtype not in (torch.float32, table.dtype):
+        raise ValueError(f"{fn}: rows must be float32 or {table.dtype}, got "
+                         f"{du.dtype}")
+    for name, t in named:
+        if t.dtype != du.dtype:
+            raise ValueError(f"{fn}: {name} is {t.dtype}, du_slab "
+                             f"{du.dtype}")
+        if C % 2 or t.dim() != 2 or 2 * t.shape[1] != C:
+            raise ValueError(f"{fn}: {name} {tuple(t.shape)} is not half "
+                             f"the table's width {C}")
+    n_slab, W = du.shape[0], parts.window
+    if W < 0 or dvc.shape[0] != n_slab - 2 * W or n_slab + dvn.shape[0] != N:
+        raise ValueError(f"{fn}: {n_slab} slab rows (window {W}), "
+                         f"{dvc.shape[0]} center rows and {dvn.shape[0]} "
+                         f"negative rows vs a plan of {N} ids")
+    _check_table_plan(fn, table, plan, named)
+
+
+def launch_parts(fn: str, kernel, partials, counters, table,
+                 plan: SortPlan, parts: RowParts) -> None:
+    """Launch `kernel` (w2b_span_scatter_parts, kernel 2, or
+    w2b_group_rmw_parts, kernel 7; `partials` and `counters` size its
+    workspace) on one step's plan and the fused step's RowParts, checked
+    (check_parts) in `fn`'s name.  `launch_parts.launches` counts the
+    launches of either kernel that read the three parts."""
+    check_parts(fn, table, plan, parts)
+    V, C = table.shape
+    N = plan.sids.shape[-1]
+    part, count = workspace(table.device, partials(N, C), counters(N, C))
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = kernel(table.data_ptr(), *(t.data_ptr() for t in parts[:3]),
+                 plan.sids.data_ptr(), plan.order.data_ptr(),
+                 part.data_ptr(), count.data_ptr(), N,
+                 parts.du_slab.shape[0], parts.window, V, C // 2,
+                 _DTYPES[table.dtype], _DTYPES[parts.du_slab.dtype], stream)
+    check_launch(kernel.__name__, err)
+    launch_parts.launches += 1
+
+
+launch_parts.launches = 0
 
 
 def _plan_ptrs(plan: SortPlan, C: int):
@@ -198,7 +293,14 @@ def _plan_ptrs(plan: SortPlan, C: int):
 
 
 def _launch(table, plan: SortPlan, rows):
-    """Kernel 2 on one step's plan."""
+    """Kernel 2 on one step's plan, its rows dense or RowParts."""
+    lib = _library()
+    if isinstance(rows, RowParts):
+        launch_parts("scatter_add_span", lib.w2b_span_scatter_parts,
+                     lib.w2b_span_partials, lib.w2b_span_counters, table,
+                     plan, rows)
+        scatter_add_span_planned.launches += 1
+        return table
     V, C = table.shape
     N = plan.sids.shape[-1]
     check_sorted("scatter_add_span", table, plan, rows)
@@ -206,7 +308,7 @@ def _launch(table, plan: SortPlan, rows):
         raise ValueError(f"scatter_add_span: {rows.shape[0]} rows vs "
                          f"{N} sorted ids")
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = _library().w2b_span_scatter(
+    err = lib.w2b_span_scatter(
         table.data_ptr(), rows.data_ptr(), *_plan_ptrs(plan, C), N, V, C,
         _DTYPES[table.dtype], _DTYPES[rows.dtype], stream)
     check_launch("w2b_span_scatter", err)
@@ -215,10 +317,13 @@ def _launch(table, plan: SortPlan, rows):
 
 
 def scatter_add_span_planned(table: torch.Tensor, plan: SortPlan,
-                             rows: torch.Tensor) -> torch.Tensor:
+                             rows: torch.Tensor | RowParts) -> torch.Tensor:
     """Apply one step's sort_plan: table[ids] += rows, in place.
-    rows [N, C] in float32 or the table dtype, in the ids' original order."""
+    rows [N, C] in float32 or the table dtype, in the ids' original order,
+    or the fused step's RowParts (materialized on the CPU)."""
     if table.device.type == "cpu":
+        if isinstance(rows, RowParts):
+            rows = rows.materialize()
         return scatter_add_span_plain(table, plan.sids,
                                       rows[plan.order.long()])
     if table.device.type != "cuda":

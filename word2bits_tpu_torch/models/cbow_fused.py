@@ -50,7 +50,7 @@ from word2bits_tpu_torch.kernels.hot_pallas import (HotPlan, hot_plan,
                                                     hot_slice_add_pallas)
 from word2bits_tpu_torch.kernels.scatter_pallas import scatter_add_rmw
 from word2bits_tpu_torch.kernels.span_scatter import (
-    SortPlan, scatter_add_span_planned, sort_plan)
+    RowParts, SortPlan, scatter_add_span_planned, sort_plan)
 from word2bits_tpu_torch.kernels.sweep_scatter import scatter_add_sweep
 from word2bits_tpu_torch.models.cbow import (
     CBOWHyper, ChunkScalars, chunk_slabs, step_alphas)
@@ -223,34 +223,36 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
             cavge = cavge + cavge_hot
     with span("step.rows"):
         du_slab = u_update_rows(pos, cavge, alpha, hyper, B)
-
-        # ONE fused row set for u-positions + center v-rows, then the
-        # negative rows (u-half zero)
-        dv_slab = torch.zeros((B + 2 * W, D), dtype=dt, device=dev)
-        dv_slab[W:W + B] = pos.dv_center
-        fused_rows = torch.cat([du_slab, dv_slab], dim=1)  # [B+2W, 2D]
+        # ONE fused row set [B+2W+T*P*Kl, 2D]: u-positions + center v-rows,
+        # then the negative rows (u-half zero), as its three parts
+        rows = RowParts(du_slab, pos.dv_center, dv_neg, W)
         neg_ids = negs.reshape(-1)
+        if scatter_impl == "add":
+            # the slab's rows alone, for the routes that scatter them apart
+            dv_slab = torch.zeros((B + 2 * W, D), dtype=dt, device=dev)
+            dv_slab[W:W + B] = pos.dv_center
+            fused_rows = torch.cat([du_slab, dv_slab], dim=1)  # [B+2W, 2D]
     with span("step.scatter"):
         if scatter_impl == "sweep":
             # one swept call for slab + negative rows, its plan built here
             # as the JAX step builds it; float32 rows round to the table
             # dtype inside the kernel
             scatter_add_sweep(table, torch.cat([slab_ids, neg_ids]),
-                              torch.cat([fused_rows, _v_rows(dv_neg)]))
+                              rows.materialize())
             return table, loss
         if scatter_impl in ("span", "grmw"):
             # one sorted call for slab + negative rows
-            # (kernels/span_scatter.py, kernels/group_rmw.py); float32 rows
-            # round to the table dtype inside the kernels
-            all_rows = torch.cat([fused_rows, _v_rows(dv_neg)])
+            # (kernels/span_scatter.py, kernels/group_rmw.py), which read
+            # the three parts in place on the card; float32 rows round to
+            # the table dtype inside the kernels
             plan = span_plan
             if plan is None:
                 plan = scatter_plan(scatter_impl,
                                     torch.cat([slab_ids, neg_ids]))
             if scatter_impl == "span":
-                scatter_add_span_planned(table, plan, all_rows)
+                scatter_add_span_planned(table, plan, rows)
             else:
-                scatter_add_grmw_planned(table, plan, all_rows,
+                scatter_add_grmw_planned(table, plan, rows,
                                          chunk=span_chunk)
             return table, loss
 

@@ -81,10 +81,11 @@ def eager_reason(scatter_impl: str, **options) -> Optional[str]:
 
 def _counted() -> Tuple[Callable, ...]:
     """The launch-counting wrappers (`.launches`) of the kernels that a
-    replayed route's step launches: kernel 1, kernel 2, kernel 7 and the
-    banded u-sum."""
+    replayed route's step launches: kernel 1, kernel 2, kernel 7 (and
+    `span_scatter.launch_parts`, which counts kernels 2 and 7 reading the
+    step's rows from their parts) and the banded u-sum."""
     return (fused_context_pallas, span_scatter.scatter_add_span_planned,
-            scatter_add_grmw_planned, band_usum)
+            scatter_add_grmw_planned, span_scatter.launch_parts, band_usum)
 
 
 @dataclass

@@ -75,6 +75,7 @@ from word2bits_tpu_torch.kernels.context_pallas import fused_context_pallas
 from word2bits_tpu_torch.kernels.group_rmw import scatter_add_grmw_planned
 from word2bits_tpu_torch.kernels.quantize_pallas import quantize_pallas
 from word2bits_tpu_torch.kernels.scatter_pallas import scatter_add_rmw
+from word2bits_tpu_torch.kernels.span_scatter import launch_parts
 from word2bits_tpu_torch.tools.flagship_transcript import (card_name,
                                                           write_transcript)
 
@@ -190,10 +191,13 @@ def flagship_fields(args) -> dict:
 
 
 def launch_counts() -> dict:
-    """The launch counters of the kernels this path can run."""
+    """The launch counters of the kernels this path can run (`row_parts`:
+    kernel 7's launches that read the step's rows from their three parts,
+    span_scatter.launch_parts)."""
     return {"fused_context_pallas": fused_context_pallas.launches,
             "band_usum": band_usum.launches,
             "scatter_add_grmw": scatter_add_grmw_planned.launches,
+            "row_parts": launch_parts.launches,
             "scatter_add_rmw": scatter_add_rmw.launches,
             "quantize_pallas": quantize_pallas.launches}
 
