@@ -49,15 +49,17 @@ def seed_lines(cell, seed: int, modes, device):
     """One seed's readings of `cell`: a dict per mode, as main prints it."""
     import torch
 
-    from benchmark import check
-    from benchmark.corpus import make_corpus, word_names
+    from benchmark import check, hooks
+    from benchmark.corpus import make_corpus
     from benchmark.tap import NotPlanted, Tap, faulted
     from word2bits_tpu_torch import train as train_mod
     from word2bits_tpu_torch.data.vocab import Vocab
 
     limits = cell.workload["limits"]
     corpus = make_corpus(cell.config["corpus"], seed, device)
-    vocab = Vocab(words=word_names(corpus.size), counts=corpus.counts)
+    words = hooks.of(cell.model, "vocab_words")(cell.config["corpus"],
+                                                corpus.size)
+    vocab = Vocab(words=words, counts=corpus.counts)
     cfg = dataclasses.replace(cell.cfg(seed), iter=1)
     B = cfg.batch_size
     tap = Tap(batch=B)
@@ -65,6 +67,8 @@ def seed_lines(cell, seed: int, modes, device):
         r = train_mod.train(cfg, vocab=vocab, encoded=corpus.encoded,
                             device=device)
     alias = tap.engine.alias
+    state = hooks.of(cell.model, "bind")(cfg, words, device)
+    probs = hooks.of(cell.model, "negative_probs")
     scalars = check.middle_scalars(tap.calls)
     window = {
         "finite_errors": check.finite_errors(r.tables, r.chunk_losses),
@@ -72,7 +76,8 @@ def seed_lines(cell, seed: int, modes, device):
                                            corpus),
         "schedule_errors": check.schedule_errors(
             cfg, tap.calls, corpus, int((tap.tokens >= 0).sum()), 1),
-        "sampler_tv": check.sampler_tv(alias, corpus.counts, seed),
+        "sampler_tv": check.sampler_tv(alias, corpus.counts, seed,
+                                       probs=probs),
     }
     head = {"workload": cell.name, "seed": seed}
     program = None
@@ -82,7 +87,8 @@ def seed_lines(cell, seed: int, modes, device):
         if mode == "control":
             got.update(check.step_readings(cell.model, cfg, tap.chunk_fn,
                                            alias, r.tables, corpus, seed,
-                                           scalars, mode="control"))
+                                           scalars, mode="control",
+                                           state=state))
         elif mode == "sampler":
             def uniform(gen, atab, shape, V):
                 return torch.randint(1, V, shape, generator=gen,
@@ -90,7 +96,8 @@ def seed_lines(cell, seed: int, modes, device):
             got.update({k: program[k] for k in STEP_KEYS}
                        if program else {})
             got["sampler_tv"] = check.sampler_tv(alias, corpus.counts,
-                                                 seed, draw=uniform)
+                                                 seed, draw=uniform,
+                                                 probs=probs)
         else:
             fn = (tap.chunk_fn if mode == "program"
                   else faulted(tap.chunk_fn, mode, B))
@@ -98,7 +105,7 @@ def seed_lines(cell, seed: int, modes, device):
             try:
                 got.update(check.step_readings(cell.model, cfg, fn, alias,
                                                tables, corpus, seed,
-                                               scalars))
+                                               scalars, state=state))
             except NotPlanted as e:
                 yield {**head, "mode": mode, "correct": "n/a",
                        "why": str(e), "seconds": time.perf_counter() - t1}

@@ -26,7 +26,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
 # what a model module provides (benchmark/README.md, "A configuration of
-# another model")
+# another model"); the pieces it may give besides, and their defaults, are
+# in hooks.py
 CONTRACT = ("MODELS", "hyper", "negative_shape", "step", "step_flops",
             "step_bytes")
 MODULE_PATH = re.compile(r"benchmark(/[A-Za-z_][A-Za-z0-9_]*)+\.py")

@@ -16,14 +16,16 @@ skips:
   the compared step runs through that step's slab offset, its share of
   the chunk's hoisted scatter plan and its decayed rate.  Shrinks come
   from the check's generator and negatives from the reference's own
-  draws (plain.draw_negatives), in the shape the cell's model module
-  gives (`negative_shape`).  That module's plain step (`step`; CBOW's
-  is reference.py) takes each compared step from the same rows.  Read,
+  draws (plain.draw_negatives) from the model's draw distribution, in
+  the shape the cell's model module gives (`negative_shape`).  That
+  module's plain step (`step`; CBOW's is reference.py) takes each
+  compared step from the same rows: those it names (`touched`) of each
+  of its leaves (`leaves`; hooks.py has both and their defaults).  Read,
   worst over the compared steps: the step's loss (`loss_gap`), the
-  touched rows element by element (`rows_gap`) and the change of the
-  whole table, per leaf (`delta_gap`, the gap of the change norms);
-- `sampler_tv`: the window's alias table against the reference's
-  unigram^0.75 draw distribution, over equal-mass bins of words;
+  touched rows element by element, per leaf (`rows_gap`) and the change
+  of each whole leaf (`delta_gap`, the gap of the change norms);
+- `sampler_tv`: the window's alias table against the model's draw
+  distribution (unigram^0.75 by default), over equal-mass bins of words;
 - `epoch_errors`: the window's last epoch arrays against the corpus
   (layout, sentence ids, per-word kept counts, the order of the words that
   are never subsampled, the number kept);
@@ -41,17 +43,11 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark import plain
+from benchmark import hooks, plain
 
 BLOCK_ROWS = 1 << 16
 TV_BINS = 256
 TV_DRAWS = 1 << 24
-
-
-def _halves(tables, D: int):
-    if len(tables) == 1:
-        return tables[0][:, :D], tables[0][:, D:]
-    return tables[0], tables[1]
 
 
 def _delta_norms(now, start) -> List[float]:
@@ -67,8 +63,9 @@ def _delta_norms(now, start) -> List[float]:
 
 
 def _row_norms(now: plain.Rows, start: plain.Rows) -> List[float]:
-    return [float((now.u.float() - start.u.float()).norm()),
-            float((now.v.float() - start.v.float()).norm())]
+    """Per leaf, the norm of the rows' change."""
+    return [float((a.float() - b.float()).norm())
+            for a, b in zip(now.leaves, start.leaves)]
 
 
 LOWER = {torch.float32: torch.bfloat16,
@@ -93,22 +90,29 @@ def middle_scalars(calls) -> tuple:
 
 
 def step_readings(model, cfg, chunk_fn, alias, tables, corpus, seed: int,
-                  scalars: tuple, mode: str = "program") -> Dict[str, object]:
+                  scalars: tuple, mode: str = "program",
+                  state=None) -> Dict[str, object]:
     """Compare the program (`mode` "program") or, in its place, the
     reference one precision lower ("control") with the reference, the step
     of the cell's model module `model`, over the steps `compared_steps`
     picks (see the module's doc), each a chunk call of its own from the
     program's state; `scalars` are a chunk call's (base0, alpha0,
-    wca_start, wca_per_step, denom).  Returns the worst gaps (`loss_gap`,
-    `rows_gap`, `delta_gap`) and, for the record, each step's.  The
-    program's tables are changed in place."""
+    wca_start, wca_per_step, denom).  `state` is the module's `bind` of
+    the run's words (hooks.py); None binds it on the default words
+    (hooks.bound).  Leaves, touched rows and the draw distribution are the
+    module's (hooks.py).  Returns the worst gaps (`loss_gap`, `rows_gap`,
+    `delta_gap`) and, for the record, each step's.  The program's tables
+    are changed in place."""
     from word2bits_tpu_torch.models.cbow import ChunkScalars
 
-    B, W, D = cfg.batch_size, cfg.window, cfg.size
+    B, W = cfg.batch_size, cfg.window
     S = cfg.steps_per_chunk
     dev = tables[0].device
     storage = getattr(torch, cfg.dtype)
-    hp = model.hyper(cfg)
+    hp = (hooks.bound(model, cfg, dev, corpus.size) if state is None
+          else state)
+    leaves = hooks.of(model, "leaves")
+    touched = hooks.of(model, "touched")
     base0, alpha0, wca0, wps, denom = scalars
     at = compared_steps(S)
     gen = torch.Generator(device=dev).manual_seed(check_seed(seed))
@@ -119,13 +123,21 @@ def step_readings(model, cfg, chunk_fn, alias, tables, corpus, seed: int,
     uni = torch.rand(enc.shape, generator=gen, device=dev)
     words, wsents = plain.slab_arrays(enc, keep, uni, W, len(at) * B)
     del uni
-    cdf = plain.negative_cdf(corpus.counts, dev)
+    cdf = plain.negative_cdf(corpus.counts, dev,
+                             hooks.of(model, "negative_probs"))
     n = base0 + S * B + W
     full0 = None
     if mode == "program":
-        full0 = [t.clone() for t in _halves(tables, D)]
+        full0 = [t.clone() for t in leaves(tables, cfg)]
     elif mode != "control":
         raise ValueError(f"unknown mode {mode!r}")
+
+    def rows_at(ids, tabs, dtype):
+        leaf = leaves(tabs, cfg)
+        if len(ids) != len(leaf):
+            raise ValueError(f"touched gives {len(ids)} id sets for "
+                             f"{len(leaf)} leaves")
+        return plain.Rows.of([(i, x[i]) for i, x in zip(ids, leaf)], dtype)
 
     gaps, raw, rows_gaps, delta_gaps, norms = [], [], [], [], []
     for k, s in enumerate(at):
@@ -140,11 +152,9 @@ def step_readings(model, cfg, chunk_fn, alias, tables, corpus, seed: int,
         negs = plain.draw_negatives(gen, cdf, model.negative_shape(cfg, S))
         t_slab = tokens[lo - W:lo + B + W].long()
         s_slab = sents[lo - W:lo + B + W].long()
-        ids = torch.unique(torch.cat([t_slab.clamp_min(0),
-                                      negs[s].reshape(-1)]))
-        u0, v0 = _halves(tables, D)
-        start = plain.Rows(ids, u0[ids], v0[ids], storage)
-        rows = plain.Rows(ids, u0[ids], v0[ids], storage)
+        ids = touched(hp, t_slab, negs[s])
+        start = rows_at(ids, tables, storage)
+        rows = rows_at(ids, tables, storage)
         alpha = plain.step_alpha(alpha0, wca0 + s * wps, denom)
         ref_loss = float(model.step(rows, t_slab, s_slab, shrinks[s],
                                     negs[s], alpha, hp))
@@ -155,15 +165,14 @@ def step_readings(model, cfg, chunk_fn, alias, tables, corpus, seed: int,
             *tables, loss = chunk_fn(*tables, tokens, sents, alias, sc, None,
                                      n_steps=S, shrinks=shrinks, negs=negs)
             loss = float(loss)
-            u1, v1 = _halves(tables, D)
-            got = plain.Rows(ids, u1[ids], v1[ids], storage)
-            prog_norms = _delta_norms(_halves(tables, D), full0)
-            for a, b in zip(full0, _halves(tables, D)):
+            got = rows_at(ids, tables, storage)
+            prog_norms = _delta_norms(leaves(tables, cfg), full0)
+            for a, b in zip(full0, leaves(tables, cfg)):
                 a.copy_(b)
         else:
             low = LOWER[storage]
-            got = plain.Rows(ids, u0[ids], v0[ids], low)
-            cstart = plain.Rows(ids, u0[ids], v0[ids], low)
+            got = rows_at(ids, tables, low)
+            cstart = rows_at(ids, tables, low)
             loss = float(model.step(got, t_slab, s_slab, shrinks[s],
                                     negs[s], alpha, hp,
                                     compute=torch.bfloat16))
@@ -186,17 +195,19 @@ def step_readings(model, cfg, chunk_fn, alias, tables, corpus, seed: int,
             "leaf_norms": norms}
 
 
-def sampler_tv(alias, counts: np.ndarray, seed: int, draw=None) -> float:
+def sampler_tv(alias, counts: np.ndarray, seed: int, draw=None,
+               probs=plain.negative_probs) -> float:
     """Total variation, over TV_BINS bins of words of equal reference
     mass, between TV_DRAWS negatives drawn through the program's sampler
     (`draw`, default word2bits_tpu_torch.sampling.unigram.draw_negatives)
-    from the window's alias table and the reference's distribution."""
+    from the window's alias table and the reference's distribution
+    `probs(counts)` (the model module's `negative_probs`, hooks.py)."""
     if draw is None:
         from word2bits_tpu_torch.sampling.unigram import draw_negatives
         draw = draw_negatives
     dev = alias.prob.device
     V = len(counts)
-    p = plain.negative_probs(counts)
+    p = probs(counts)
     order = np.argsort(-p, kind="stable")
     cum = np.concatenate([[0.0], np.cumsum(p[order])[:-1]])
     bins = np.empty(V, np.int64)

@@ -15,10 +15,11 @@ headed by its source (commit 26809b4dee3683ec1871bc5d1e1a6fa56c4992c9):
 - `keep_probs`: word2bits_tpu_torch/data/pipeline.py
   `subsample_keep_probs` (reference :394-407).
 
-`Rows` holds the rows of (u, v) that a few steps touch, in the
-configuration's storage dtype; a model's step updates them in place.  The
-check's negatives are the reference's own draws (`draw_negatives`, by
-inverting the cumulative `negative_probs`), not the program's sampler.
+`Rows` holds the rows that a few steps touch, per leaf ((u, v) for CBOW
+and skip-gram), in the configuration's storage dtype; a model's step
+updates them in place.  The check's negatives are the reference's own
+draws (`draw_negatives`, by inverting the cumulative draw distribution:
+`negative_probs`, or the model module's own), not the program's sampler.
 """
 
 from __future__ import annotations
@@ -111,9 +112,11 @@ def negative_probs(counts: np.ndarray) -> np.ndarray:
     return p
 
 
-def negative_cdf(counts: np.ndarray, device) -> torch.Tensor:
-    """float64 [V] cumulative `negative_probs`, for `draw_negatives`."""
-    return torch.from_numpy(np.cumsum(negative_probs(counts))).to(device)
+def negative_cdf(counts: np.ndarray, device,
+                 probs=negative_probs) -> torch.Tensor:
+    """float64 [V] cumulative `probs(counts)` (a model's draw
+    distribution, `negative_probs` by default), for `draw_negatives`."""
+    return torch.from_numpy(np.cumsum(probs(counts))).to(device)
 
 
 def draw_negatives(gen: torch.Generator, cdf: torch.Tensor,
@@ -174,30 +177,68 @@ def store(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class Rows:
-    """The rows of (u, v) that a few steps touch, in `storage` dtype:
-    ids [R] sorted, u and v [R, D]; `index` maps global ids to rows."""
+    """The rows that a few steps touch, per leaf, in `storage` dtype:
+    `leaf_ids[i]` [R_i] sorted and `leaves[i]` [R_i, D_i], the rows of
+    leaf i at those ids.  `Rows(ids, u, v, storage)` is the two-leaf form
+    of CBOW and skip-gram, u and v over one id set, which `.ids`, `.u`,
+    `.v` and `.index` read; `Rows.of` takes any number of leaves, each
+    over its own ids (`find`)."""
 
     def __init__(self, ids: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                  storage: torch.dtype):
-        self.ids = ids
-        self.u = store(u, storage)
-        self.v = store(v, storage)
+        self._set([(ids, u), (ids, v)], storage)
+
+    @classmethod
+    def of(cls, pairs, storage: torch.dtype) -> "Rows":
+        """Rows of the (ids, rows) pairs, one a leaf."""
+        rows = cls.__new__(cls)
+        rows._set(pairs, storage)
+        return rows
+
+    def _set(self, pairs, storage: torch.dtype) -> None:
+        self.leaf_ids = [ids for ids, _ in pairs]
+        self.leaves = [store(x, storage) for _, x in pairs]
         self.storage = storage
         self.loss_bounds = (0.0, 0.0)   # the last step's loss, either side
 
+    def find(self, leaf: int, ids: torch.Tensor) -> torch.Tensor:
+        """The rows of leaf `leaf` that hold global ids `ids`."""
+        return torch.searchsorted(self.leaf_ids[leaf], ids)
+
+    @property
+    def ids(self) -> torch.Tensor:
+        return self.leaf_ids[0]
+
     def index(self, ids: torch.Tensor) -> torch.Tensor:
-        return torch.searchsorted(self.ids, ids)
+        return self.find(0, ids)
+
+    @property
+    def u(self) -> torch.Tensor:
+        return self.leaves[0]
+
+    @u.setter
+    def u(self, x: torch.Tensor) -> None:
+        self.leaves[0] = x
+
+    @property
+    def v(self) -> torch.Tensor:
+        return self.leaves[1]
+
+    @v.setter
+    def v(self, x: torch.Tensor) -> None:
+        self.leaves[1] = x
 
 
 def rows_gap(prog: "Rows", ref: "Rows", start: "Rows") -> float:
-    """Element by element: per leaf (u, v), the norm of the program's rows
-    less the reference's after a step, over the larger of the reference's
-    change of that leaf and the mean of the two leaves' changes; the worst
-    leaf."""
-    diff = [float((prog.u.float() - ref.u.float()).norm()),
-            float((prog.v.float() - ref.v.float()).norm())]
-    moved = [float((ref.u.float() - start.u.float()).norm()),
-             float((ref.v.float() - start.v.float()).norm())]
+    """Element by element: per leaf, the norm of the program's rows less
+    the reference's after a step, over the larger of the reference's
+    change of that leaf and the median of the leaves' changes; the worst
+    leaf.  With two leaves (u, v) the median is the mean of the two, as
+    the gap read before leaves were counted."""
+    diff = [float((p.float() - r.float()).norm())
+            for p, r in zip(prog.leaves, ref.leaves)]
+    moved = [float((r.float() - s.float()).norm())
+             for r, s in zip(ref.leaves, start.leaves)]
     mid = float(np.median(moved))
     return max(d / max(m, mid, 1e-30) for d, m in zip(diff, moved))
 

@@ -3,10 +3,11 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1>
 
-Set-up makes the cell's corpus and vocabulary from the seed, builds or
-loads the program's kernels and warms up the cell's shapes with a
-`train.train` call like the window's.  The window is then one call of
-`word2bits_tpu_torch.train.train(cfg, vocab=..., encoded=...,
+Set-up makes the cell's corpus from the seed and its vocabulary from the
+configuration (its model module's `vocab_words`, benchmark/hooks.py),
+builds or loads the program's kernels and warms up the cell's shapes
+with a `train.train` call like the window's.  The window is then one
+call of `word2bits_tpu_torch.train.train(cfg, vocab=..., encoded=...,
 device="cuda")` of round(seconds / epoch_s) whole epochs, with the
 cell's nominal epoch time from its file.  The work is counted by the
 benchmark from its own inputs.  With `--trace 1` the same untraced window
@@ -78,9 +79,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     """One run of `cell`; the result's dict (see the module's doc)."""
     import torch
 
-    from benchmark import accounting, check, work
+    from benchmark import accounting, check, hooks, work
     from benchmark.cells import reader
-    from benchmark.corpus import make_corpus, word_names
+    from benchmark.corpus import make_corpus
     from benchmark.tap import Tap
     from word2bits_tpu_torch import train as train_mod
     from word2bits_tpu_torch.data.vocab import Vocab
@@ -88,7 +89,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     wl = cell.workload
     cuda = torch.device(device).type == "cuda"
     corpus = make_corpus(cell.config["corpus"], seed, device)
-    vocab = Vocab(words=word_names(corpus.size), counts=corpus.counts)
+    words = hooks.of(cell.model, "vocab_words")(cell.config["corpus"],
+                                                corpus.size)
+    vocab = Vocab(words=words, counts=corpus.counts)
     base = cell.cfg(seed)
 
     def call(cfg, tap=None):
@@ -127,9 +130,12 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         r, tr = traced(lambda: call(cfg, tap), device)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     steps = sum(c.n_steps for c in tap.calls)
+    # what the model module derives from the words, once a run, after the
+    # window: the work counts and the check read it
+    state = hooks.of(cell.model, "bind")(cfg, words, device)
     ctx = Ctx(setup_s=setup_s, window_s=window_s, peak_bytes=peak,
               trace=tr, steps=steps,
-              shape=work.StepShape.of(cfg, corpus.counts, cell.model),
+              shape=work.StepShape.of(cfg, corpus.counts, cell.model, state),
               words=accounting.words_consumed(corpus.counts, epochs))
 
     # the check
@@ -141,12 +147,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
                                            corpus),
         "schedule_errors": check.schedule_errors(cfg, tap.calls, corpus,
                                                  n_last, cfg.iter),
-        "sampler_tv": check.sampler_tv(tap.engine.alias, corpus.counts,
-                                       seed),
+        "sampler_tv": check.sampler_tv(
+            tap.engine.alias, corpus.counts, seed,
+            probs=hooks.of(cell.model, "negative_probs")),
     }
     steps_read = check.step_readings(cell.model, cfg, tap.chunk_fn,
                                      tap.engine.alias, r.tables, corpus,
-                                     seed, check.middle_scalars(tap.calls))
+                                     seed, check.middle_scalars(tap.calls),
+                                     state=state)
     for k in ("loss_gap", "rows_gap", "delta_gap"):
         got[k] = steps_read[k]
     # a cell compares the numbers its limits name (PERF.md says why each)

@@ -1,12 +1,14 @@
-"""The work a training step needs, from the cell's shapes and its own
-unigram counts, never from the program's arguments: the rows a step
-touches, its operations and its bytes.  The negatives a step draws (one
-step of the model's `negative_shape`), its operations and its bytes are
-the model's (the cell's model module: `negative_shape`, `step_flops`,
-`step_bytes`); the rows expected from them and the kernels' byte counts
-are here.  Each input byte counts as read once and each output byte as
-written once (chip_smoke.py's rule, commit
-26809b4dee3683ec1871bc5d1e1a6fa56c4992c9)."""
+"""The work a training step needs, from the cell's shapes, its own
+unigram counts and its model module's bound state, never from the
+program's arguments: the rows a step touches, its operations and its
+bytes.  The negatives a step draws (one step of the model's
+`negative_shape`) and their distribution (`negative_probs`, hooks.py),
+its operations and its bytes are the model's (the cell's model module:
+`negative_shape`, `step_flops`, `step_bytes`, which may read per-word
+quantities from `state`, the module's `bind` of the run's words); the
+rows expected from them and the kernels' byte counts are here.  Each
+input byte counts as read once and each output byte as written once
+(chip_smoke.py's rule, commit 26809b4dee3683ec1871bc5d1e1a6fa56c4992c9)."""
 
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from types import ModuleType
 
 import numpy as np
 
-from benchmark import plain
+from benchmark import hooks, plain
 
 
 def expected_distinct(*draws) -> float:
@@ -31,7 +33,9 @@ def expected_distinct(*draws) -> float:
 @dataclass
 class StepShape:
     """A step of a cell: its flags, its corpus's counts and its model
-    module, which counts the step's negatives, operations and bytes."""
+    module, which counts the step's negatives, operations and bytes from
+    them and from `state`, the module's `bind` of the run's words
+    (hooks.py)."""
 
     B: int
     W: int
@@ -44,9 +48,15 @@ class StepShape:
     sample: float
     model: ModuleType
     tile: int = 0   # banded tile (kernel 1)
+    state: object = None
 
     @classmethod
-    def of(cls, cfg, counts, model: ModuleType) -> "StepShape":
+    def of(cls, cfg, counts, model: ModuleType,
+           state=None) -> "StepShape":
+        """The step of `cfg`; `state` None binds the module on the
+        default words (hooks.bound)."""
+        if state is None:
+            state = hooks.bound(model, cfg, "cpu", len(counts))
         tile = 0
         if cfg.banded_tile:
             t = min(cfg.banded_tile, cfg.batch_size)
@@ -59,7 +69,7 @@ class StepShape:
                    fused=bool(cfg.fused_on),
                    elt=2 if cfg.dtype == "bfloat16" else 4,
                    counts=np.asarray(counts), sample=cfg.sample,
-                   model=model, tile=tile)
+                   model=model, tile=tile, state=state)
 
     @property
     def n_slab(self) -> int:
@@ -77,7 +87,8 @@ class StepShape:
 
     @cached_property
     def p_neg(self) -> np.ndarray:
-        return plain.negative_probs(self.counts)
+        """Distribution of a negative: the model's `negative_probs`."""
+        return hooks.of(self.model, "negative_probs")(self.counts)
 
     @cached_property
     def rows_slab(self) -> float:
