@@ -5,9 +5,11 @@
 from the root of a checkout.  It builds the port's CUDA kernels from
 word2bits_tpu_torch/csrc/ (one nvcc per source, all at once; [ptxas]
 prints each kernel's registers, shared memory and spills, and kernels 1,
-2, 3, 5, 6, 7, 8 and 9 and the banded u-sum must not spill), holds each
-against its plain PyTorch version at the shapes of the paths that run it
-([band usum@800] and [band usum@200] at the CBOW cells', [context], [span]
+2, 3, 5, 6, 7, 8 and 9, the banded u-sum and the subword gather-mean must
+not spill), holds each against its plain PyTorch version at the shapes of
+the paths that run it ([band usum@800] and [band usum@200] at the CBOW
+cells', [subword] kernel 11 at the fasttext cell's (its 2,519,371 spelled
+words' subword rows built on the card, 8,192 centers), [context], [span]
 and [grmw] each printing a digest of the table it wrote, to hold kernels 2
 and 7 bit-equal across commits, and each the same kernel on the fused
 step's rows read from their three parts, bit-equal to it on them
@@ -134,7 +136,13 @@ kernels' launch counts set to 0 just before and read just after:
   [convert]     `cli convert` of a seeded 70,000 x 200 float32 file at
                 three flag sets, card against W2B_FORCE_CPU=1, the files
                 byte-identical; [nearest] `cli nearest` of 20 words at
-                bitlevels 1 and 0, the transcripts equal apart from ties.
+                bitlevels 1 and 0, the transcripts equal apart from ties;
+  [fasttext]    fastText's subword skip-gram at the fasttext cell's flags
+                (2M buckets x 300, n-grams 3-6, NEG-5 a pair) through the
+                CLI's parser and train.train, one epoch of a 4M-token
+                corpus over 400,000 spelled words: kernel 11 once a step
+                and once an export block, the vectors the mean of each
+                word's quantized rows.
 
 Peak disk is about 24 GB, in [flagship] and again in [flagship run]: the
 11.84 GB checkpoint, the 11.9 GB vector file and the 0.4 GB `.pack` (all
@@ -671,6 +679,164 @@ def check_band_usum(dev) -> dict:
                          "ops/windowed.banded_usum (left to XLA by the JAX "
                          "package)",
                 bound_by="bytes", at_d200=out[D], **out[FLAG_D])
+
+
+# ------------------------------------- the subword gather-mean (row 11)
+# the fasttext cell: 2,519,371 words + 2,000,000 buckets x 300, n-grams of
+# 3-6 bytes, B 8192 centers drawn as a subsampled (1e-4) stream draws them
+FT_V, FT_BUCKETS, FT_D, FT_B = 2_519_371, 2_000_000, 300, 8192
+FT_FLAGS = ["-model", "fasttext", "-minn", "3", "-maxn", "6", "-bucket",
+            str(FT_BUCKETS), "-size", str(FT_D), "-window", "5",
+            "-negative", "5", "-sample", "1e-4", "-min-count", "5",
+            "-alpha", "0.05", "-bitlevel", "1", "-batch-size", str(FT_B),
+            "-steps-per-chunk", "32", "-iter", "1", "-binary", "1"]
+FT_TOKENS, FT_TYPES = 4_000_000, 400_000      # [fasttext]'s reduced corpus
+
+
+def _ft_words(n: int):
+    """The fasttext cell's spelled words (benchmark/fasttext.py)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from benchmark.fasttext import vocab_words
+    return vocab_words(None, n)
+
+
+def check_subword_mean(dev) -> dict:
+    """The subword gather-mean (kernels/subword_mean.py) at the fasttext
+    cell's shapes: the cell's 2,519,371 spelled words' subword rows
+    (data/vocab.subword_rows on the card, timed), a [V + 2M, 300] float32
+    table, 8,192 centers drawn from the cell's subsampled counts; bit-equal
+    to its plain version at bitlevels 1 and 0, two launches bit-equal,
+    within 1e-6 of the float64 mean; also on a bf16 table and at width 37
+    (its scalar path); then timed beside its bound and its plain version."""
+    from word2bits_tpu_torch.data.vocab import subword_rows
+    from word2bits_tpu_torch.kernels.subword_mean import (subword_mean,
+                                                          subword_mean_plain)
+    from word2bits_tpu_torch.ops.quantize import quantize
+    words = _ft_words(FT_V)
+    t0 = time.perf_counter()
+    sub = subword_rows(words, 3, 6, FT_BUCKETS, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lens = sub.offsets[1:] - sub.offsets[:-1]
+    r = np.arange(1, FT_V, dtype=np.float64)
+    c = np.maximum(5, np.floor(2_500_000 / r))
+    st = 1e-4 * (c.sum() * 21 // 20)
+    p = c * np.minimum((np.sqrt(c / st) + 1) * st / c, 1.0)
+    p = np.concatenate([[0.0], p / p.sum()])
+    mean_g = float((p * lens.cpu().numpy()).sum())
+    print(f"[subword] {FT_V} words' subword rows built on the card in "
+          f"{build_s:.2f} s: {sub.ids.numel()} rows, largest |G| "
+          f"{sub.max_len}, mean |G| of a kept word {mean_g:.3f}")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.rand((sub.rows, FT_D), generator=g, device=dev) - 0.5
+    centers = torch.multinomial(torch.from_numpy(p).to(dev), FT_B, True,
+                                generator=g)
+    for bl in (1, 0):
+        h = subword_mean(table, centers, sub, bl)
+        h2 = subword_mean(table, centers, sub, bl)
+        plain = subword_mean_plain(table, centers, sub, bl)
+        torch.cuda.synchronize()
+        if not torch.equal(h, h2):
+            _fail(f"[subword] bitlevel {bl}: two launches differ")
+        if not torch.equal(h, plain):
+            _fail(f"[subword] bitlevel {bl}: differs from the plain version "
+                  f"by {_max_err(h, plain):.3g}")
+    start = sub.offsets[centers]
+    seg = torch.repeat_interleave(torch.arange(FT_B, device=dev),
+                                  lens[centers])
+    within = torch.arange(seg.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(lens[centers], 0) - lens[centers], lens[centers])
+    rows = sub.ids[start[seg] + within].long()
+    want = torch.zeros((FT_B, FT_D), dtype=torch.float64, device=dev)
+    want.index_add_(0, seg, quantize(table[rows], 1).double())
+    want /= lens[centers].double()[:, None]
+    h = subword_mean(table, centers, sub, 1)
+    err = _max_err(h, want)
+    if err > 1e-6:
+        _fail(f"[subword] {err:.3g} from the float64 mean")
+    hb = subword_mean(table.bfloat16(), centers, sub, 1)
+    if not torch.equal(hb, subword_mean_plain(table.bfloat16(), centers,
+                                              sub, 1)):
+        _fail("[subword] the bf16 table differs from the plain version")
+    narrow = table[:, :37].contiguous()
+    if not torch.equal(subword_mean(narrow, centers, sub, 2),
+                       subword_mean_plain(narrow, centers, sub, 2)):
+        _fail("[subword] width 37 differs from the plain version")
+    ms = _time_ms(lambda: subword_mean(table, centers, sub, 1))
+    plain_ms = _time_ms(lambda: subword_mean_plain(table, centers, sub, 1))
+    n_rows = int(lens[centers].sum())
+    nbytes = n_rows * (FT_D * 4 + 4) + FT_B * 3 * 8 + FT_B * FT_D * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[subword] B={FT_B}, D={FT_D}: {n_rows} rows gathered; max |err| "
+          f"{err:.3g} against the float64 mean; kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes)")
+    del table, narrow
+    torch.cuda.empty_cache()
+    return dict(name="subword_mean", route="cuda",
+                source="word2bits_tpu_torch/csrc/subword_mean.cu",
+                replaces="none: the subword model's gather-mean (the JAX "
+                         "package has no subword model)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None,
+                shapes=f"B={FT_B}, D={FT_D}, {n_rows} rows, V={FT_V} + "
+                       f"{FT_BUCKETS} buckets, CSR built in {build_s:.2f} s")
+
+
+def run_fasttext(work: str, dev) -> dict:
+    """[fasttext]: `cli train -model fasttext` at the cell's flags (2M
+    buckets x 300, n-grams 3-6, NEG-5 a pair) for one epoch of a reduced
+    corpus (4M tokens over 400,000 spelled words, Zipf), through the CLI's
+    config parser and train.train; the vector file read back and 2,000 of
+    its rows held to the plain mean of each word's quantized G_w rows;
+    kernel 11 once a step and once an export block."""
+    from word2bits_tpu_torch import train as train_mod
+    from word2bits_tpu_torch.config import config_from_argv
+    from word2bits_tpu_torch.data.vocab import subword_rows
+    from word2bits_tpu_torch.io.vectors import read_vectors
+    from word2bits_tpu_torch.kernels.subword_mean import subword_mean_plain
+    rng = np.random.default_rng(SEED)
+    words = np.array(_ft_words(FT_TYPES + 1)[1:])
+    p = 1.0 / np.arange(1, FT_TYPES + 1)
+    toks = words[rng.choice(FT_TYPES, FT_TOKENS, p=p / p.sum())]
+    corpus = os.path.join(work, "fasttext.txt")
+    out = os.path.join(work, "fasttext.bin")
+    with open(corpus, "w") as f:
+        for i in range(0, FT_TOKENS, 20):
+            f.write(" ".join(toks[i:i + 20]) + "\n")
+    cfg = config_from_argv(["-train", corpus, "-output", out, "-debug", "1"]
+                           + FT_FLAGS)
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = train_mod.train(cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    V = res.vocab.size
+    u, v = res.tables
+    if u.shape != (V + FT_BUCKETS, FT_D) or v.shape != (V, FT_D):
+        _fail(f"[fasttext] tables {tuple(u.shape)}, {tuple(v.shape)}")
+    if not all(math.isfinite(x) for x in res.epoch_losses):
+        _fail(f"[fasttext] epoch loss not finite: {res.epoch_losses}")
+    blocks = -(-V // ((1 << 24) // FT_D))
+    if launches["subword_mean"] != res.steps + blocks:
+        _fail(f"[fasttext] kernel 11 launched {launches['subword_mean']} "
+              f"times, {res.steps} steps + {blocks} export blocks expected")
+    names, vecs = read_vectors(out)
+    if names != res.vocab.words or vecs.shape != (V, FT_D):
+        _fail("[fasttext] the vector file's words or shape")
+    sub = subword_rows(res.vocab.words, 3, 6, FT_BUCKETS, dev)
+    pick = torch.from_numpy(rng.choice(V, 2000, replace=False)).to(dev)
+    want = subword_mean_plain(u, pick, sub, 1).cpu().numpy()
+    err = float(np.abs(vecs[pick.cpu().numpy()] - want).max())
+    if err > 0:
+        _fail(f"[fasttext] exported vectors {err:.3g} from the mean of "
+              "their quantized rows")
+    us, wps = _steady(res)
+    print(f"[fasttext] V={V} + {FT_BUCKETS} buckets x {FT_D}: {res.steps} "
+          f"steps in {wall:.1f} s (the call), {us:.1f} us/step, "
+          f"{wps:.0f} words/s on the card's clock; epoch loss "
+          f"{res.epoch_losses[-1]:.2f}; vectors the mean of their rows; "
+          f"launches {launches}")
+    return launches
 
 
 # ------------------------------------------------------- kernels 2 and 7
@@ -2754,6 +2920,7 @@ def _launch_counters():
         quantized_scores_pallas
     from word2bits_tpu_torch.kernels.span_scatter import (
         launch_parts, scatter_add_span_planned, scatter_add_span_rank1)
+    from word2bits_tpu_torch.kernels.subword_mean import subword_mean
     from word2bits_tpu_torch.kernels.sweep_scatter import \
         scatter_add_sweep_planned
     # row_parts: the launches of kernels 2 and 7 that read the fused step's
@@ -2768,7 +2935,8 @@ def _launch_counters():
             "scatter_add_rmw": scatter_add_rmw,
             "quantize_pallas": quantize_pallas,
             "scatter_add_sweep": scatter_add_sweep_planned,
-            "band_usum": band_usum}
+            "band_usum": band_usum,
+            "subword_mean": subword_mean}
 
 
 def _zero_launches() -> None:
@@ -4421,13 +4589,13 @@ def report_ptxas() -> None:
                   f"spill stores {u['spill_stores']} B, spill loads "
                   f"{u['spill_loads']} B")
             held = (name in ("context", "span_scatter", "sweep_scatter",
-                             "score", "band_usum")
+                             "score", "band_usum", "subword_mean")
                     or "tile_scatter_kernel" in u["function"])
             if held and (u["spill_stores"] or u["spill_loads"]):
                 spills.append(u["function"])
     if spills:
-        _fail(f"kernels 1, 2, 3, 5, 6, 7, 8, 9 and the banded u-sum must "
-              f"not spill: {spills}")
+        _fail(f"kernels 1, 2, 3, 5, 6, 7, 8, 9, the banded u-sum and the "
+              f"subword gather-mean must not spill: {spills}")
 
 
 def main() -> int:
@@ -4458,6 +4626,7 @@ def main() -> int:
 
     ctx200 = check_context(dev, B, D, "context")
     band = check_band_usum(dev)
+    sub = check_subword_mean(dev)
     span = check_span(dev)
     span["paths"] = check_span_paths(dev)
     score = check_score(dev)
@@ -4558,6 +4727,7 @@ def main() -> int:
         by_path["profile"] = run_profile(work, dev, *prepared)
         by_path.update(run_parity(dev))
         by_path.update(run_convert_nearest(work))
+        by_path["fasttext"] = run_fasttext(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     at = ("max_abs_err", "ms", "plain_ms", "bound_ms", "shapes")
@@ -4569,7 +4739,8 @@ def main() -> int:
     span["mesh"] = {t: m["kernel2"] for t, m in mesh["local"].items()
                     if "kernel2" in m}
     rmw["mesh"] = {f"vocab={MESH_CAP_NV}": mesh["capacity"]["kernel8"]}
-    kernels = [ctx, span, rank1, score, hot, grmw, rmw, quant, sweep, band]
+    kernels = [ctx, span, rank1, score, hot, grmw, rmw, quant, sweep, band,
+               sub]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -67,11 +67,15 @@ QUICKSTART = ["-size", "200", "-window", "8", "-negative", "24", "-iter", "5",
 
 def _jax_fields(t) -> dict:
     """The port's config as the JAX package's fields, one for one: the
-    port's only extra field, `neg_per_pair` (-neg-per-pair 1), is off."""
+    port's extra fields, `neg_per_pair` (-neg-per-pair 1) and fastText's
+    `minn`, `maxn`, `bucket` (-model fasttext), are at their defaults."""
     fields = dataclasses.asdict(t)
     assert set(fields) - {f.name for f in dataclasses.fields(
-        jconfig.Word2BitsConfig)} == {"neg_per_pair"}
+        jconfig.Word2BitsConfig)} == {"neg_per_pair", "minn", "maxn",
+                                      "bucket"}
     assert fields.pop("neg_per_pair") == 0
+    assert (fields.pop("minn"), fields.pop("maxn"),
+            fields.pop("bucket")) == (3, 6, 2_000_000)
     return fields
 
 

@@ -5,10 +5,12 @@ flags and defaults (reference src/word2bits.cpp:48-59, flag names
 :596-611) plus the JAX package's extensions, with the same field names,
 defaults, validation, `auto_lr` and `config_from_argv`, so one argv
 resolves to equal fields in both packages.  What each extension does is
-documented there.  The port has one field more, `neg_per_pair`
+documented there.  The port has four fields more: `neg_per_pair`
 (`-neg-per-pair 1`, skip-gram's per-pair negatives as word2vec draws
-them, models/skipgram.py); at its default 0 every field equals the JAX
-package's.
+them, models/skipgram.py), and fastText's `minn`, `maxn` and `bucket`
+(`-minn`, `-maxn`, `-bucket`, the subword model `-model fasttext`,
+models/subword.py); with those at their defaults and another model, every
+field equals the JAX package's.
 
 The port implements everything the JAX package runs: the
 two CBOW engines, the split-table slab engine (the reference default:
@@ -20,8 +22,10 @@ dedup, and the hot/cold split (`-hot-rows`, `-hot-pallas`,
 `-neg-stratify`, `-neg-dense-hot`), either with shifted-sum or banded
 windowed sums, optionally the fused context kernel (`-context-pallas`) and
 the fused score kernel (`-use-pallas`); skip-gram (`-model skipgram`,
-`-cbow 0`, models/skipgram.py) on split tables; any `-loop-mode` (all
-three run the same in-place loop); the epoch built on the device
+`-cbow 0`, models/skipgram.py) on split tables; fastText's subword
+skip-gram (`-model fasttext`, models/subword.py) on split tables whose
+input table holds the n-gram buckets too; any `-loop-mode` (all three run
+the same in-place loop); the epoch built on the device
 (`-device-epoch`, resolved by `device_epoch_on` as in the JAX package) or
 on the host; the `-packed 1` export; checkpoint/resume (`-checkpoint-dir`,
 `-resume`, `-checkpoint-every-epoch`, train.save_checkpoint); a
@@ -77,6 +81,9 @@ class Word2BitsConfig:
     fused_tables: bool = False # interleaved (V, 2D) table
     model: str = "cbow"
     neg_per_pair: bool = False  # skip-gram: K draws per (center, context)
+    minn: int = 3              # fasttext: shortest n-gram, bytes of <word>
+    maxn: int = 6              # fasttext: longest n-gram (0: no n-grams)
+    bucket: int = 2_000_000    # fasttext: hash buckets of the n-grams
     use_pallas: bool = False
     dedup_block: int = 0
     hot_rows: int = 0
@@ -115,6 +122,8 @@ class Word2BitsConfig:
             object.__setattr__(self, "batch_size", 256)
         if self.neg_per_pair:
             self._validate_per_pair()
+        if self.model == "fasttext":
+            self._validate_fasttext()
         if self.bitlevel == 3:
             raise ValueError(
                 "bitlevel=3 is rejected: the reference quantizer maps every "
@@ -309,9 +318,9 @@ class Word2BitsConfig:
         if self.init not in ("reference", "uniform"):
             raise ValueError(
                 f"init must be 'reference' or 'uniform', got {self.init!r}")
-        if self.model not in ("cbow", "skipgram"):
-            raise ValueError(
-                f"model must be 'cbow' or 'skipgram', got {self.model!r}")
+        if self.model not in ("cbow", "skipgram", "fasttext"):
+            raise ValueError("model must be 'cbow', 'skipgram' or "
+                             f"'fasttext', got {self.model!r}")
 
     def _validate_per_pair(self):
         """-neg-per-pair 1 runs on the single-card skip-gram engine with
@@ -330,6 +339,39 @@ class Word2BitsConfig:
                 raise ValueError(f"-neg-per-pair 1 does not compose with "
                                  f"{flag}: each pair draws its own K "
                                  "negatives")
+
+    def _validate_fasttext(self):
+        """-model fasttext runs on the single-card subword engine: each
+        pair's own K draws, the plain sorted scatter, and an export of
+        word vectors that are means, so nothing that shares or replaces
+        the draws or the scatter, and no bit-packed file."""
+        if self.minn < 1 or self.maxn < 0 or (self.maxn
+                                               and self.maxn < self.minn):
+            raise ValueError(f"-minn {self.minn} -maxn {self.maxn}: need "
+                             "1 <= minn <= maxn, or maxn 0 (no n-grams)")
+        if self.maxn and self.bucket <= 0:
+            raise ValueError(f"-bucket must be positive with n-grams, got "
+                             f"{self.bucket}")
+        for flag, on in (("-neg-per-pair 1", self.neg_per_pair),
+                         ("-neg-sharing", self.neg_sharing),
+                         ("-neg-pool > 1", self.neg_pool > 1),
+                         ("-hot-rows", self.hot_rows),
+                         ("-neg-dense-hot", self.neg_dense_hot),
+                         ("-dedup-block", self.dedup_block),
+                         ("-fused-tables", self.fused_tables),
+                         ("-mesh-shape", self.mesh_shape),
+                         ("-packed 1", self.packed)):
+            if on:
+                raise ValueError(f"-model fasttext does not compose with "
+                                 f"{flag}: each pair draws its own K "
+                                 "negatives, the tables are split and a "
+                                 "word's vector is the mean of its rows")
+
+    @property
+    def subword_buckets(self) -> int:
+        """The bucket rows of the input table: -bucket with n-grams
+        (-model fasttext, -maxn > 0), else none."""
+        return self.bucket if self.model == "fasttext" and self.maxn else 0
 
     def _reject_unported(self):
         """Flags whose code the port does not have yet: rejected by name."""
@@ -418,6 +460,9 @@ REFERENCE_FLAGS = {
     "-fused-tables": ("fused_tables", lambda s: bool(int(s))),
     "-model": ("model", str),
     "-neg-per-pair": ("neg_per_pair", lambda s: bool(int(s))),
+    "-minn": ("minn", int),
+    "-maxn": ("maxn", int),
+    "-bucket": ("bucket", int),
     "-packed": ("packed", lambda s: bool(int(s))),
     "-checkpoint-dir": ("checkpoint_dir", str),
     "-checkpoint-every-epoch": ("checkpoint_every_epoch",

@@ -8,7 +8,11 @@ Format (reference src/word2bits.cpp:544-556,561-576):
 
 The written vector for word i is quantize(u[i] + v[i], bitlevel)
 (reference src/word2bits.cpp:548-552), built on the training device
-(train.write_output).  Byte-identical to the JAX package's writer, so files
+(train.write_output).  With `-model fasttext` it is instead the mean of
+the word's subword rows G_w (its own input row and its n-grams' bucket
+rows), each quantized as the model reads it, float32: the word's hidden
+vector h, as fastText's getWordVector computes it (at bitlevel 0 the
+same).  Byte-identical to the JAX package's writer, so files
 cross-read between the two packages and the reference `compute-accuracy`.
 """
 

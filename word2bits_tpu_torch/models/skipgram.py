@@ -155,8 +155,8 @@ def skipgram_slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs,
         q_vn = quantize(v_n, bl)
         if neg_per_pair:
             v_rows, din, nloss = _pair_negative_phase(
-                q_in, q_vn, v_n if reg else None, negs, centers, mf,
-                dv_center, din, alpha, reg)
+                q_in, q_vn, v_n if reg else None, negs,
+                centers[:, None, None], mf, dv_center, din, alpha, reg)
             loss = loss + nloss
         elif neg_sharing:
             G = neg_sharing
@@ -225,29 +225,36 @@ def skipgram_slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs,
     return u, v, loss
 
 
-def _pair_negative_phase(q_in, q_vn, v_n, negs, centers, mf, dv_center,
+def _pair_negative_phase(q_in, q_vn, v_n, negs, skip, mf, dv_first,
                          din, alpha, reg):
     """The per-pair negative phase: pair (b, oi) against its own K rows
     (lanes oi*K .. oi*K+K-1 of negs [B, 2W*K]; q_vn [B, 2W*K, D] their
-    quantized rows, v_n the rows themselves where reg is on).  Returns
-    (v_rows [B + B*2W*K, D]: dv_center then the negatives' v update,
-    din plus the negatives' input gradients, the negatives' loss)."""
-    B, W2, D = q_in.shape
+    quantized rows, v_n the rows themselves where reg is on), a draw equal
+    to `skip` (broadcast to [B, 2W, K]: the pair's positive target)
+    masked.  q_in is each pair's input row [B, 2W, D], or one input row a
+    center [B, 1, D] that its pairs share (the subword model's hidden
+    vector); din has q_in's shape.  Returns (v_rows [n0 + B*2W*K, D]:
+    dv_first [n0, D] then the negatives' v update, din plus the
+    negatives' input gradients, the negatives' loss)."""
+    B, W2 = mf.shape
+    D = q_in.shape[-1]
     K = negs.shape[1] // W2
-    P = B * W2
-    q_vn3 = q_vn.reshape(P, K, D)
-    f_neg = torch.bmm(q_vn3, q_in.reshape(P, D, 1)).reshape(B, W2, K)
-    m3 = mf[..., None] * (negs.reshape(B, W2, K)
-                          != centers[:, None, None]).to(mf.dtype)
-    vn_reg = (reg * (q_vn3 * q_vn3).sum(dim=-1).reshape(B, W2, K) if reg
+    n_in = q_in.shape[1]
+    L = W2 * K // n_in                    # the draws an input row scores
+    q_vnb = q_vn.reshape(B * n_in, L, D)
+    f_neg = torch.bmm(q_vnb, q_in.reshape(B * n_in, D, 1)).reshape(B, W2, K)
+    m3 = mf[..., None] * (negs.reshape(B, W2, K) != skip).to(mf.dtype)
+    vn_reg = (reg * (q_vn * q_vn).sum(dim=-1).reshape(B, W2, K) if reg
               else 0.0)
     g_neg, nloss = _neg_terms(f_neg, m3, alpha, vn_reg)
-    din = din + torch.bmm(g_neg.reshape(P, 1, K), q_vn3).reshape(B, W2, D)
+    din = din + torch.bmm(g_neg.reshape(B * n_in, 1, L),
+                          q_vnb).reshape(B, n_in, D)
     # the v rows of the one v scatter, the negatives' written in place
-    v_rows = torch.empty((B + P * K, D), dtype=q_in.dtype,
+    n0 = dv_first.shape[0]
+    v_rows = torch.empty((n0 + B * W2 * K, D), dtype=q_in.dtype,
                          device=q_in.device)
-    v_rows[:B] = dv_center
-    dv_neg = v_rows[B:].view(B, W2, K, D)
+    v_rows[:n0] = dv_first
+    dv_neg = v_rows[n0:].view(B, W2, K, D)
     torch.mul(g_neg[..., None], q_in[:, :, None, :], out=dv_neg)
     if reg:
         two_ar = 2.0 * alpha * reg

@@ -9,7 +9,11 @@ the JAX package's train.build_engine chooses them: the fused (V, 2D) table
 (`-fused-tables 1 -neg-sharing G` on CBOW, models/cbow_fused.py), skip-gram
 on split tables (`-model skipgram`, models/skipgram.py) and the split
 (u, v) slab engine (every other CBOW configuration, the reference default
-among them: per-center negatives, models/cbow_slab.py).
+among them: per-center negatives, models/cbow_slab.py); and the port's
+fourth, fastText's subword skip-gram (`-model fasttext`, models/
+subword.py) on split tables whose u has the n-gram buckets' rows after
+the words', each word's subword rows built once a call
+(data/vocab.subword_rows) and its negatives drawn from count^0.5.
 
 The epoch is built where the JAX package builds it (`device_epoch_on`):
 under the auto -device-epoch on the training device from the encoded
@@ -70,16 +74,18 @@ from word2bits_tpu_torch.data.device_pipeline import \
 from word2bits_tpu_torch.data.pipeline import (cold_positions,
                                                iter_epoch_segments,
                                                subsample_keep_probs)
-from word2bits_tpu_torch.data.vocab import Vocab
+from word2bits_tpu_torch.data.vocab import Subwords, Vocab, subword_rows
 from word2bits_tpu_torch.io.packed import PackedWriter, pack_codes
 from word2bits_tpu_torch.io.vectors import VectorWriter
 from word2bits_tpu_torch.kernels.quantize_pallas import quantize_pallas
+from word2bits_tpu_torch.kernels.subword_mean import subword_mean
 from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
 from word2bits_tpu_torch.models.cbow_fused import (deinterleave,
                                                    make_fused_train_chunk)
 from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
 from word2bits_tpu_torch.models.init import init_fused_table, init_params
 from word2bits_tpu_torch.models.skipgram import make_skipgram_train_chunk
+from word2bits_tpu_torch.models.subword import make_subword_train_chunk
 from word2bits_tpu_torch.models.step_graph import StepCounts
 from word2bits_tpu_torch.sampling.unigram import (AliasTable,
                                                   build_alias_table,
@@ -169,7 +175,8 @@ class Engine:
     (*tables, loss); `cold_split` says that it takes each segment's
     cold-position map (cold_map); `counts` are the fused chunk's step
     counts (models/step_graph.StepCounts), None for the other engines,
-    whose steps all run eagerly."""
+    whose steps all run eagerly; `subwords` the subword model's rows of
+    each word (data/vocab.Subwords), None for the other models."""
 
     chunk_fn: Callable
     tables: Tables
@@ -177,12 +184,14 @@ class Engine:
     cold_split: bool = False
     sharded: Optional[object] = None   # the mesh's ShardedTrainer
     counts: Optional[StepCounts] = None
+    subwords: Optional[Subwords] = None
 
 
 def init_tables(cfg: Word2BitsConfig, vocab_size: int, device,
                 comm=None) -> Tables:
     """The engine's tables, filled on `device`: (the fused (V, 2D) table,)
-    with -fused-tables 1 on CBOW, else (u, v); on a mesh (`comm`, a
+    with -fused-tables 1 on CBOW, else (u, v), u with the n-gram buckets'
+    rows after the words' with -model fasttext; on a mesh (`comm`, a
     parallel.mesh.Collectives) this shard's rows of (u, v)."""
     if comm is not None:
         from word2bits_tpu_torch.parallel.trainer import init_local_tables
@@ -191,7 +200,8 @@ def init_tables(cfg: Word2BitsConfig, vocab_size: int, device,
               device=device)
     if cfg.fused_on:
         return (init_fused_table(vocab_size, cfg.size, **kw),)
-    return init_params(vocab_size, cfg.size, **kw)
+    return init_params(vocab_size, cfg.size, buckets=cfg.subword_buckets,
+                       **kw)
 
 
 def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
@@ -203,13 +213,24 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
     RMW scatter, the block dedup, the hot/cold split; optional context and
     score kernels), skip-gram with -model skipgram (per-center, shared or,
     with -neg-per-pair 1, per-pair negatives, dense-hot, the block
-    dedup), else the split-table slab
+    dedup), the subword skip-gram with -model fasttext (per-pair
+    negatives from count^0.5, each word's subword rows built here), else
+    the split-table slab
     engine (per-center or shared negatives; the `add` or `span` scatter or
     the block dedup; optional context and score kernels)."""
     B, S, V = cfg.batch_size, cfg.steps_per_chunk, vocab.size
     dev = tables[0].device
-    strat_lanes = dense_hot = None
-    if cfg.neg_stratify:
+    strat_lanes = dense_hot = subwords = None
+    if cfg.model == "fasttext":
+        # fastText's negatives table: count^0.5 (Dictionary::getCounts)
+        alias = build_alias_table(vocab.unigram_weights(0.5)).to(dev)
+        subwords = subword_rows(vocab.words, cfg.minn, cfg.maxn, cfg.bucket,
+                                dev)
+        if subwords.rows != tables[0].shape[0]:
+            raise ValueError(f"the input table holds {tables[0].shape[0]} "
+                             f"rows, the vocabulary and buckets "
+                             f"{subwords.rows}")
+    elif cfg.neg_stratify:
         st = build_stratified_tables(vocab.unigram_weights(), cfg.hot_rows)
         strat_lanes = st.lane_split(cfg.negative)
         alias = (st.hot.to(dev), st.cold.to(dev))
@@ -246,6 +267,8 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
             hot_rows=cfg.hot_rows, strat_lanes=strat_lanes,
             dense_hot=dense_hot, hot_pallas=cfg.hot_pallas,
             rmw_scatter=cfg.rmw_scatter)
+    elif cfg.model == "fasttext":
+        chunk_fn = make_subword_train_chunk(hyper, V, B, S, subwords)
     elif cfg.model == "skipgram":
         chunk_fn = make_skipgram_train_chunk(
             hyper, V, B, S, neg_sharing=cfg.neg_sharing,
@@ -262,7 +285,8 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
     return Engine(chunk_fn=chunk_fn, tables=tuple(tables), alias=alias,
                   cold_split=bool(cfg.fused_on and cfg.hot_rows
                                   and not cfg.device_epoch_on),
-                  counts=getattr(chunk_fn, "counts", None))
+                  counts=getattr(chunk_fn, "counts", None),
+                  subwords=subwords)
 
 
 def cold_map(cfg: Word2BitsConfig, tokens: np.ndarray, capacity: int,
@@ -518,7 +542,8 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
         shape = " x ".join(str(n) for n in tables[0].shape)
         _log(cfg, f"Init: {shape} {cfg.dtype} "
                   f"{'table' if len(tables) == 1 else 'tables u, v'} "
-                  f"({2 * V * D} draws) in {seconds['init']:.2f} s")
+                  f"({sum(t.numel() for t in tables)} draws) in "
+                  f"{seconds['init']:.2f} s")
     with phase("alias", seconds):
         engine = build_engine(cfg, vocab, tables, hyper, comm)
     _log(cfg, f"Alias table: {seconds['alias']:.2f} s")
@@ -667,7 +692,7 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
         if save_epoch and root:
             with span("export"):
                 write_output(f"{cfg.output_file}_epoch{epoch}", vocab, full,
-                             cfg)
+                             cfg, engine.subwords)
         if want_ckpt and root:
             ck0 = seconds["checkpoint"]
             with phase("checkpoint", seconds):
@@ -712,7 +737,8 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
     if cfg.output_file and root:
         with phase("export", seconds):
             if cfg.classes == 0:
-                write_output(cfg.output_file, vocab, tables, cfg)
+                write_output(cfg.output_file, vocab, tables, cfg,
+                             engine.subwords)
             else:
                 # reference quirk: -classes != 0 creates an empty output file
                 _log(cfg, "WARNING: -classes is parsed but unimplemented in "
@@ -751,7 +777,8 @@ def table_halves(tables: Tables) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def write_output(path: str, vocab: Vocab, tables: Tables,
-                 cfg: Word2BitsConfig) -> None:
+                 cfg: Word2BitsConfig,
+                 subwords: Optional[Subwords] = None) -> None:
     """The vectors file quantize(u + v) (reference :548-552) and, with
     -packed 1 at bitlevel 1 or 2, `<path>.pack` (as the JAX package's
     train._write_output), built in row blocks on the tables' device: each
@@ -759,9 +786,23 @@ def write_output(path: str, vocab: Vocab, tables: Tables,
     (kernels/quantize_pallas.py) and packed, and only the block comes to
     the host.  `tables`: the fused (V, 2D) table or the
     engine's tables.  Byte-identical to the JAX package's
-    train._write_output (output_vectors + write_vectors + write_packed)."""
+    train._write_output (output_vectors + write_vectors + write_packed).
+    With -model fasttext (`subwords`, built here if not given) a word's
+    vector is instead the mean of its quantized subword rows (its hidden
+    vector h: the gather-mean kernel, kernels/subword_mean.py), float32."""
     u, v = table_halves(tables)
-    V, D = u.shape
+    V, D = v.shape
+    if cfg.model == "fasttext":
+        sub = subwords or subword_rows(vocab.words, cfg.minn, cfg.maxn,
+                                       cfg.bucket, u.device)
+        rows = max(1, _EXPORT_VALUES // max(D, 1))
+        with VectorWriter(path, V, D, binary=cfg.binary) as vw:
+            for r0 in range(0, V, rows):
+                r1 = min(V, r0 + rows)
+                words = torch.arange(r0, r1, device=u.device)
+                vw.write_rows(vocab.words[r0:r1], subword_mean(
+                    u, words, sub, cfg.bitlevel).cpu().numpy())
+        return
     bl = cfg.bitlevel
     packed = cfg.packed and bl in (1, 2)
     rows = max(1, _EXPORT_VALUES // max(D, 1))
@@ -830,17 +871,17 @@ def save_checkpoint(path: str, tables: Tables, epoch: int,
     temporary name and renamed, so an interrupted save leaves the last
     checkpoint whole."""
     u, v = table_halves(tables)
-    V, D = u.shape
-    rows = max(1, _EXPORT_VALUES // max(D, 1))
+    rows = max(1, _EXPORT_VALUES // max(u.shape[1], 1))
     tmp = path + ".tmp"
     with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for name, half in (("u", u), ("v", v)):
             dt, tag = _ckpt_dtype(half)
+            V = half.shape[0]     # u holds the subword model's buckets too
             with zf.open(name + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array_header_1_0(f, {
                     "descr": np.lib.format.dtype_to_descr(dt),
-                    "fortran_order": False, "shape": (V, D)})
+                    "fortran_order": False, "shape": tuple(half.shape)})
                 for r0 in range(0, V, rows):
                     f.write(_ckpt_block(half[r0:r0 + rows]).tobytes())
             _write_small(zf, name + "_dtype", tag)
@@ -924,6 +965,8 @@ def load_checkpoint(path: str, cfg: Word2BitsConfig, device,
     with zipfile.ZipFile(path) as zf:
         with zf.open("u.npy") as f:
             (V, D), _ = _read_member_header(f)
+        extra = cfg.subword_buckets      # u's bucket rows after the words
+        V -= extra
         if D != cfg.size:
             raise ValueError(f"{path} holds size {D}, the config {cfg.size}")
         if ranges is not None:
@@ -935,7 +978,8 @@ def load_checkpoint(path: str, cfg: Word2BitsConfig, device,
             table = torch.empty((V, 2 * D), dtype=dtype, device=device)
             tables = (table,)
         else:
-            tables = (torch.empty((V, D), dtype=dtype, device=device),
+            tables = (torch.empty((V + extra, D), dtype=dtype,
+                                  device=device),
                       torch.empty((V, D), dtype=dtype, device=device))
         u, v = table_halves(tables)
         _read_half(zf, "u", u, ranges)
