@@ -511,30 +511,70 @@ def _hold_context(args, b: int, tag: str, bitlevels=(0, 1, 2, 4, 8)) -> float:
 
 def _context_inputs(dev, b: int, d: int, dtype: torch.dtype, mask: str,
                     w: int = W):
-    """Kernel 1's inputs at B = b, D = d, window w, tile 256: a seeded slab,
-    sentences of ~20 tokens (a few padding positions at the end), and the
-    banded masks of random shrinks; or, with mask="random", a non-banded
-    0/1 mask with ~30% ones over all F = 256 + 2w columns and every 37th
-    row empty, whose span is wider than one staged piece."""
+    """Kernel 1's inputs at B = b, D = d, window w, tile 256, in both forms:
+    ((uwin3, vc, Mb, validf, alpha), (u_tab, v_tab, slab_ids)).  A seeded
+    table of 4 (b + 2w) rows (bf16: one fused [V, 2d] table, u and v its
+    halves; float32: split [V, d] tables), slab ids drawn from it with the
+    padding positions at id 0 (the step's clamp of -1), and the dense rows
+    gathered and copied from it as the fused step did; sentences of ~20
+    tokens (a few padding positions at the end), and the banded masks of
+    random shrinks; or, with mask="random", a non-banded 0/1 mask with
+    ~30% ones over all F = 256 + 2w columns and every 37th row empty, whose
+    span is wider than one staged piece."""
     from word2bits_tpu_torch.ops.windowed import (_tile_windows,
                                                   build_banded_masks)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    Nt = b // TILE
-    slab = (torch.randn((b + 2 * w, 2 * d), generator=gen, device=dev)
-            * 0.3).to(dtype)
-    sents = torch.arange(b + 2 * w, device=dev) // 20
+    Nt, n = b // TILE, b + 2 * w
+    table = (torch.randn((4 * n, 2 * d), generator=gen, device=dev)
+             * 0.3).to(dtype)
+    ids = torch.randint(0, 4 * n, (n,), generator=gen, device=dev)
+    sents = torch.arange(n, device=dev) // 20
     sents[-5:] = -1
+    ids[-5:] = 0
     shrink = torch.randint(0, w, (b,), generator=gen, device=dev)
     Mb, _, valid = build_banded_masks(sents, shrink, b, w, TILE)
     if mask == "random":
         Mb = (torch.rand(Mb.shape, generator=gen, device=dev) < 0.3).to(
             torch.float32)
         Mb.view(b, -1)[::37] = 0.0
+    slab = table[ids]
     uwin3 = _tile_windows(slab[:, :d], Nt, TILE, w).contiguous()
     vc = slab[w:w + b, d:].contiguous()
     validf = valid.to(torch.float32)[:, None].contiguous()
     alpha = torch.full((1, 1), 0.1, device=dev)
-    return uwin3, vc, Mb, validf, alpha
+    if dtype == torch.bfloat16:
+        tabs = (table[:, :d], table[:, d:])
+    else:
+        tabs = (table[:, :d].contiguous(), table[:, d:].contiguous())
+    return (uwin3, vc, Mb, validf, alpha), (*tabs, ids)
+
+
+def _hold_rows(args, rows, tag: str, bitlevels=(0, 1, 2, 4, 8)) -> None:
+    """fused_context_rows (the rows read from their tables by id) against
+    fused_context_pallas on the same rows materialized: every output bit
+    for bit, each call counted by both wrappers."""
+    from word2bits_tpu_torch.kernels.context_pallas import (
+        fused_context_pallas, fused_context_rows)
+    uwin3, vc, Mb, validf, alpha = args
+    for bl in bitlevels:
+        before = (fused_context_pallas.launches, fused_context_rows.launches)
+        got = fused_context_rows(*rows, Mb, validf, alpha, bl)
+        want = fused_context_pallas(uwin3, vc, Mb, validf, alpha, bl)
+        torch.cuda.synchronize()
+        for name, g, x in zip(("cavg", "cavge", "dv_center", "af", "loss"),
+                              got, want):
+            if not torch.equal(g.view(torch.int32), x.view(torch.int32)):
+                _fail(f"[{tag}] kernel 1 by id: {name} at bitlevel {bl} "
+                      "differs from the dense call's (max abs err "
+                      f"{_max_err(g, x):.3e})")
+        if (fused_context_pallas.launches - before[0],
+                fused_context_rows.launches - before[1]) != (2, 1):
+            _fail(f"[{tag}] kernel 1 by id: launches counted "
+                  f"{fused_context_pallas.launches - before[0]} and "
+                  f"{fused_context_rows.launches - before[1]} (2 and 1 "
+                  "expected)")
+    print(f"[{tag}] by id: every output bit-equal to the dense call at "
+          f"bitlevels {'/'.join(map(str, bitlevels))}")
 
 
 def context_launch_shape(b: int, d: int, dtype: torch.dtype,
@@ -561,27 +601,45 @@ def check_context(dev, b: int, d: int, tag: str,
     """fused_context_pallas against fused_context_plain on the card at
     B = b, D = d, window w, tile 256, bitlevels 0/1/2/4/8, table rows of
     `dtype` (bf16 on the fused engines, float32 on the split tables), with
-    the edge rule of _hold_context; then both timed at bitlevel 1."""
+    the edge rule of _hold_context; fused_context_rows bit-equal to it
+    (_hold_rows); then, at bitlevel 1, both timed beside the plain version
+    and the dense call with the gather and copies that fed it (`gather_ms`:
+    the rows gathered from the table, the tile windows and center rows
+    copied, the kernel)."""
     from word2bits_tpu_torch.kernels.context_pallas import (
-        fused_context_pallas, fused_context_plain)
-    args = _context_inputs(dev, b, d, dtype, "banded", w)
+        fused_context_pallas, fused_context_plain, fused_context_rows)
+    from word2bits_tpu_torch.ops.windowed import _tile_windows
+    args, rows = _context_inputs(dev, b, d, dtype, "banded", w)
     print(f"[{tag}] launch: {context_launch_shape(b, d, dtype, w)}")
     worst = _hold_context(args, b, tag)
+    _hold_rows(args, rows, tag)
     uwin3, vc, Mb, validf, alpha = args
+    u_tab, v_tab, ids = rows
     args = (uwin3, vc, Mb, validf, alpha, 1)
     ms = _time_ms(lambda: fused_context_pallas(*args))
+    rows_ms = _time_ms(lambda: fused_context_rows(*rows, *args[2:]))
+
+    def gathered():
+        u_rows, v_rows = u_tab[ids], v_tab[ids[w:w + b]]
+        fused_context_pallas(
+            _tile_windows(u_rows, b // TILE, TILE, w).contiguous(),
+            v_rows.contiguous(), *args[2:])
+
+    gather_ms = _time_ms(gathered)
     plain_ms = _time_ms(lambda: fused_context_plain(*args))
     # bytes: each input read once, each output written once
     nbytes = sum(t.numel() * t.element_size()
                  for t in (uwin3, vc, Mb, validf, alpha))
     nbytes += 3 * b * d * 4 + b * 4 + 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[{tag}] bitlevel 1 kernel {ms:.5f} ms, plain {plain_ms:.5f} "
-          f"ms, bound {bound_ms:.5f} ms ({nbytes} bytes)")
+    print(f"[{tag}] bitlevel 1 kernel {ms:.5f} ms, by id {rows_ms:.5f} ms, "
+          f"gather + copies + kernel {gather_ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} bytes)")
     return dict(name="fused_context_pallas", route="cuda",
                 source="word2bits_tpu_torch/csrc/context.cu",
                 replaces="word2bits_tpu/kernels/context_pallas.py:82",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                max_abs_err=worst, ms=ms, rows_ms=rows_ms,
+                gather_ms=gather_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=None,
                 shapes=f"B={b}, D={d}, W={w}, tile {TILE}, "
                        f"{str(dtype).removeprefix('torch.')} rows")
@@ -592,14 +650,16 @@ def check_context_masks(dev) -> float:
     empty, a span of F = 272 rows against one piece of 32): B = 4096,
     D = 200 in bf16 and float32 rows, and D = 37 in float32 (the scalar
     path: no 16-byte access fits that width); same edge rule and
-    tolerances as the banded checks."""
+    tolerances as the banded checks, and the by-id call bit-equal to the
+    dense one (its pieces fetch their own row pointers)."""
     worst = 0.0
     for b, d, dtype in ((4096, D, torch.bfloat16), (4096, D, torch.float32),
                         (1024, 37, torch.float32)):
         tag = f"context@mask D={d} {str(dtype).removeprefix('torch.')}"
-        args = _context_inputs(dev, b, d, dtype, "random")
+        args, rows = _context_inputs(dev, b, d, dtype, "random")
         print(f"[{tag}] {int(args[2].sum())} ones of {args[2].numel()}")
         worst = max(worst, _hold_context(args, b, tag))
+        _hold_rows(args, rows, tag)
     return worst
 
 
@@ -2527,6 +2587,11 @@ def train_main_path(work: str):
         _fail(f"kernel 2 read the rows from their parts in "
               f"{launches['row_parts']} of its {launches['scatter_add_span']} "
               "launches on the main path (all expected)")
+    if launches["context_rows"] != launches["fused_context_pallas"]:
+        _fail(f"kernel 1 read the rows from the table by id in "
+              f"{launches['context_rows']} of its "
+              f"{launches['fused_context_pallas']} launches on the main path "
+              "(all expected)")
     if not all(math.isfinite(x) for x in losses):
         _fail(f"epoch loss not finite: {losses}")
     words, vecs = read_vectors(out)
@@ -2615,8 +2680,8 @@ def train_flagship(work: str, dev) -> tuple:
     rss_life = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     if res.steps != FLAG_STEPS:
         _fail(f"flagship trained {res.steps} steps, not {FLAG_STEPS}")
-    for name in ("fused_context_pallas", "scatter_add_grmw", "row_parts",
-                 "band_usum"):
+    for name in ("fused_context_pallas", "context_rows", "scatter_add_grmw",
+                 "row_parts", "band_usum"):
         if launches[name] != res.steps:
             _fail(f"flagship: {name} launched {launches[name]} times in "
                   f"{res.steps} steps (once per step expected)")
@@ -2734,8 +2799,8 @@ def run_flagship_tool(work: str) -> dict:
     launches = _read_launches()
     tr, rs, ev = t["train"], t["resume"], t["eval"]
     for leg, rec in (("leg 1", tr), ("leg 2", rs)):
-        for name in ("fused_context_pallas", "scatter_add_grmw",
-                     "row_parts", "band_usum"):
+        for name in ("fused_context_pallas", "context_rows",
+                     "scatter_add_grmw", "row_parts", "band_usum"):
             if rec["launches"][name] != rec["steps"]:
                 _fail(f"flagship run {leg}: {name} launched "
                       f"{rec['launches'][name]} times in {rec['steps']} "
@@ -2841,8 +2906,8 @@ def run_resume(dev, vocab, encoded, ckdir: str) -> dict:
               f"checkpoint's {saved_words}")
     if not all(math.isfinite(x) for x in res.epoch_losses):
         _fail(f"resume epoch loss not finite: {res.epoch_losses}")
-    for name in ("fused_context_pallas", "scatter_add_grmw", "row_parts",
-                 "band_usum"):
+    for name in ("fused_context_pallas", "context_rows", "scatter_add_grmw",
+                 "row_parts", "band_usum"):
         if launches[name] != res.steps:
             _fail(f"resume: {name} launched {launches[name]} times in "
                   f"{res.steps} steps")
@@ -2909,8 +2974,8 @@ def run_rmw(dev, vocab, encoded) -> dict:
 def _launch_counters():
     """Every ported kernel's wrapper, by the name in the kernels line."""
     from word2bits_tpu_torch.kernels.band_usum import band_usum
-    from word2bits_tpu_torch.kernels.context_pallas import \
-        fused_context_pallas
+    from word2bits_tpu_torch.kernels.context_pallas import (
+        fused_context_pallas, fused_context_rows)
     from word2bits_tpu_torch.kernels.group_rmw import \
         scatter_add_grmw_planned
     from word2bits_tpu_torch.kernels.hot_pallas import hot_slice_add_pallas
@@ -2924,8 +2989,10 @@ def _launch_counters():
     from word2bits_tpu_torch.kernels.sweep_scatter import \
         scatter_add_sweep_planned
     # row_parts: the launches of kernels 2 and 7 that read the fused step's
-    # rows from their three parts (counted in their own entries too)
+    # rows from their three parts; context_rows: kernel 1's that read the
+    # rows from the table by id (both counted in their own entries too)
     return {"fused_context_pallas": fused_context_pallas,
+            "context_rows": fused_context_rows,
             "scatter_add_span": scatter_add_span_planned,
             "scatter_add_span_rank1": scatter_add_span_rank1,
             "row_parts": launch_parts,
@@ -4731,9 +4798,10 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     at = ("max_abs_err", "ms", "plain_ms", "bound_ms", "shapes")
-    ctx["at_d200"] = {k: ctx200[k] for k in at}
-    ctx["at_exact"] = {k: ctx_exact[k] for k in at}
-    ctx["at_flagship_run"] = {k: ctx_fr[k] for k in at}
+    by_id = ("rows_ms", "gather_ms")
+    ctx["at_d200"] = {k: ctx200[k] for k in at + by_id}
+    ctx["at_exact"] = {k: ctx_exact[k] for k in at + by_id}
+    ctx["at_flagship_run"] = {k: ctx_fr[k] for k in at + by_id}
     grmw["at_flagship_run"] = {k: grmw_fr[k] for k in at + ("library_ms",)}
     span["at_exact"] = rank1.pop("span_at_exact")
     span["mesh"] = {t: m["kernel2"] for t, m in mesh["local"].items()

@@ -59,6 +59,20 @@
 // section 6).  What is left is latency, not bytes: each CTA's phases (mask
 // words, staging, 16 centers one after another, the re-reads of step 5)
 // wait on memory in turn, with 14 warps an SM at D = 800.
+//
+// Row sources.  The kernel reads its rows through a source, a template
+// parameter: DenseRows takes the tile windows [Nt, F, D] and center rows
+// [B, D] materialized; TableRows reads the same rows from their tables by
+// the slab's ids [B + 2W] (window row p of tile t is u[ids[t * tile + p]],
+// center b's v row v[ids[W + b]]), so the fused step gathers and copies
+// nothing for the kernel: at D = 800, B = 16384 that is a [16,400, 1,600]
+// bf16 gather (105 MB of traffic), the tile windows (27.9 MB written) and
+// the center rows (26.2 MB written) that only this kernel read.  A CTA
+// turns its rows into pointers once, in shared memory: the ids of its
+// window rows [g0, g0 + R) and of its G centers are loaded while the mask
+// words are read, so staging and the center loads never wait on an id.
+// The values read, and so every output, are the dense source's bit for
+// bit.
 #include <stdint.h>
 
 #include "w2b_common.cuh"
@@ -135,25 +149,80 @@ __device__ __forceinline__ void store4(float* p, int c0, int D, bool vec,
   }
 }
 
-// Stage window rows [p0, p1) of uw, quantized, into qs ([p1 - p0][D] f32).
+// Row sources: u_key(t, p) and v_key(b) name window row p of tile t and
+// center b's v row (for TableRows an id, loaded here); u_at and v_at turn a
+// key into a pointer to the row's D values.
+//
+// DenseRows: the tile windows [Nt, F, D] and the center rows [B, D].
 template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ uw,
-                                           float* qs, int p0, int p1, int D,
-                                           bool vec, int bitlevel) {
-  const int n = (p1 - p0) * D;
-  const T* src = uw + (size_t)p0 * D;
+struct DenseRows {
+  const T* uwin;
+  const T* vc;
+  int F, D;
+  __device__ __forceinline__ long long u_key(int t, int p) const {
+    return (long long)t * F + p;
+  }
+  __device__ __forceinline__ long long v_key(size_t b) const {
+    return (long long)b;
+  }
+  __device__ __forceinline__ const T* u_at(long long k) const {
+    return uwin + k * D;
+  }
+  __device__ __forceinline__ const T* v_at(long long k) const {
+    return vc + k * D;
+  }
+};
+
+// TableRows: the rows in their tables u and v ([V, D] with row strides us
+// and vs: the halves of one fused table, v = u + D and both strides 2D, or
+// two tables), read by the slab's ids [B + 2W] (int32 or int64 I),
+// clamped into [0, V).
+template <typename T, typename I>
+struct TableRows {
+  const T* u;
+  const T* v;
+  const I* ids;
+  long long us, vs;
+  int tile, W, V;
+  __device__ __forceinline__ long long u_key(int t, int p) const {
+    return __ldg(ids + (size_t)t * tile + p);
+  }
+  __device__ __forceinline__ long long v_key(size_t b) const {
+    return __ldg(ids + W + b);
+  }
+  __device__ __forceinline__ long long clamp(long long k) const {
+    return k < 0 ? 0 : (k >= V ? V - 1 : k);
+  }
+  __device__ __forceinline__ const T* u_at(long long k) const {
+    return u + clamp(k) * us;
+  }
+  __device__ __forceinline__ const T* v_at(long long k) const {
+    return v + clamp(k) * vs;
+  }
+};
+
+// Stage n rows, rows[0 .. n), quantized, into qs ([n][D] f32).
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* const* rows, float* qs,
+                                           int n, int D, bool vec,
+                                           int bitlevel) {
   const int nt = blockDim.x;
-  if (vec) {  // D * sizeof(T) is a multiple of 16 and uw is 16-byte aligned
+  if (vec) {  // D * sizeof(T) % 16 == 0 and every row 16-byte aligned
     constexpr int E = 16 / sizeof(T);
     constexpr int U = 4;  // 16-byte loads in flight per thread
-    const int nv = n / E;
+    const int per = D / E;  // 16-byte vectors a row
+    const int nv = n * per;
     for (int v0 = threadIdx.x; v0 < nv; v0 += U * nt) {
       uint4 raw[U];
 #pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (v0 + u * nt < nv)
+      for (int u = 0; u < U; ++u) {
+        const int v = v0 + u * nt;
+        if (v < nv) {
+          const int r = v / per;
           raw[u] = __ldg(reinterpret_cast<const uint4*>(
-              src + (size_t)(v0 + u * nt) * E));
+              rows[r] + (size_t)(v - r * per) * E));
+        }
+      }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int v = v0 + u * nt;
@@ -171,8 +240,10 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ uw,
       }
     }
   } else {
-    for (int e = threadIdx.x; e < n; e += nt)
-      qs[e] = w2b::quantize(w2b::to_f32(src[e]), bitlevel);
+    for (int e = threadIdx.x; e < n * D; e += nt) {
+      const int r = e / D;
+      qs[e] = w2b::quantize(w2b::to_f32(rows[r][e - r * D]), bitlevel);
+    }
   }
 }
 
@@ -228,10 +299,10 @@ struct Shape {
   int stage_vec, col_vec;  // 16-byte staging loads; float4 columns
 };
 
-template <typename T>
+template <typename T, typename Src>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
-context_kernel(const T* __restrict__ uwin, const T* __restrict__ vc,
-               const float* __restrict__ M, const float* __restrict__ valid,
+context_kernel(const Src src, const float* __restrict__ M,
+               const float* __restrict__ valid,
                const float* __restrict__ alpha_p, float* __restrict__ cavg_o,
                float* __restrict__ cavge_o, float* __restrict__ dvc_o,
                float* __restrict__ af_o, float* __restrict__ loss_o,
@@ -239,6 +310,9 @@ context_kernel(const T* __restrict__ uwin, const T* __restrict__ vc,
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                                               // [R][D]
   unsigned* bits = reinterpret_cast<unsigned*>(smem + s.region);  // [G][NW]
+  // the rows of window positions [ubase, ubase + R) and of the G centers
+  const T** urow = reinterpret_cast<const T**>(bits + G * s.NW);  // [R]
+  const T** vrow = urow + s.R;                                    // [G]
   __shared__ int cw_s[G];
   __shared__ float red[G][MAX_THREADS / 32];  // per-warp partial scores
   __shared__ float f_s[G];
@@ -250,12 +324,20 @@ context_kernel(const T* __restrict__ uwin, const T* __restrict__ vc,
   const int ng = min(G, s.tile - g0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const T* uw = uwin + (size_t)t * F * D;
   const float* Mt = M + ((size_t)t * s.tile + g0) * F;
   const size_t b0 = (size_t)t * s.tile + g0;
 
-  // 1. mask bits: bits[i][k] bit l = (M[i, 32k + l] != 0), one warp ballot
-  // per word, eight words in flight per warp
+  // 1. the keys of window rows [g0, g0 + R) and of the centers, loaded
+  // here and made pointers after the mask words; mask bits: bits[i][k] bit
+  // l = (M[i, 32k + l] != 0), one warp ballot per word, eight words in
+  // flight per warp
+  const int nrows = s.R + G, nthreads = blockDim.x;
+  // k < R: window row g0 + k; else center k - R
+  auto key_of = [&](int k) -> long long {
+    if (k < s.R) return g0 + k < F ? src.u_key(t, g0 + k) : 0;
+    return k - s.R < ng ? src.v_key(b0 + (k - s.R)) : 0;
+  };
+  long long key = tid < nrows ? key_of(tid) : 0;
   constexpr int UM = 8;
   const int npairs = G * NW;
   for (int p0 = warp; p0 < npairs; p0 += UM * nwarps) {
@@ -273,6 +355,13 @@ context_kernel(const T* __restrict__ uwin, const T* __restrict__ vc,
       const unsigned b = __ballot_sync(0xffffffffu, m[u] != 0.0f);
       if (lane == 0 && p < npairs) bits[p] = b;
     }
+  }
+  for (int k = tid; k < nrows; k += nthreads) {
+    if (k != tid) key = key_of(k);  // more rows than threads
+    if (k < s.R)
+      urow[k] = g0 + k < F ? src.u_at(key) : nullptr;
+    else
+      vrow[k - s.R] = k - s.R < ng ? src.v_at(key) : nullptr;
   }
   __syncthreads();
 
@@ -313,21 +402,31 @@ context_kernel(const T* __restrict__ uwin, const T* __restrict__ vc,
   const int nmine = max(0, min(s.cpt, ng - i0));  // this group's centers
   const int lo = span_s[0], hi = span_s[1];
   const int npieces = hi > lo ? (hi - lo + s.R - 1) / s.R : 1;
+  int ubase = g0;  // urow holds window rows [ubase, ubase + R)
   for (int pc = 0; pc < npieces; ++pc) {
     const int p0 = lo + pc * s.R, p1 = min(hi, p0 + s.R);
     if (pc) __syncthreads();  // the previous piece is consumed
-    if (p1 > p0) stage_rows<T>(uw, qs, p0, p1, D, s.stage_vec, s.bitlevel);
+    if (p1 > p0 && (p0 < ubase || p1 > ubase + s.R)) {
+      // a span outside the banded rows: this piece's row pointers
+      ubase = p0;
+      for (int k = tid; k < p1 - p0; k += nthreads)
+        urow[k] = src.u_at(src.u_key(t, p0 + k));
+      __syncthreads();
+    }
+    if (p1 > p0)
+      stage_rows<T>(urow + (p0 - ubase), qs, p1 - p0, D, s.stage_vec,
+                    s.bitlevel);
     __syncthreads();
     const bool last = pc == npieces - 1;
     float qv[VEC] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (last && col && nmine > 0)
-      load_q4<T>(vc + (b0 + i0) * D, c0, D, vec, s.bitlevel, qv);
+      load_q4<T>(vrow[i0], c0, D, vec, s.bitlevel, qv);
 #pragma unroll 1
     for (int ii = 0; ii < nmine; ++ii) {
       const size_t b = b0 + i0 + ii;
       float qn[VEC] = {0.0f, 0.0f, 0.0f, 0.0f};  // the next center's q_vc
       if (last && col && ii + 1 < nmine)
-        load_q4<T>(vc + (b + 1) * D, c0, D, vec, s.bitlevel, qn);
+        load_q4<T>(vrow[i0 + ii + 1], c0, D, vec, s.bitlevel, qn);
       float acc[VEC] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (col) {
         if (pc > 0) load4(cavg_o + b * D, c0, D, vec, acc);
@@ -376,7 +475,7 @@ context_kernel(const T* __restrict__ uwin, const T* __restrict__ vc,
         if (ii0 + u >= nmine) continue;
         const size_t b = b0 + i0 + ii0 + u;
         load4(cavg_o + b * D, c0, D, vec, cav[u]);
-        load_q4<T>(vc + b * D, c0, D, vec, s.bitlevel, q4[u]);
+        load_q4<T>(vrow[i0 + ii0 + u], c0, D, vec, s.bitlevel, q4[u]);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -430,7 +529,9 @@ inline bool plan_launch(int F, int D, int tile, int bitlevel, int elem,
   s.region = (s.R * D + 3) / 4 * 4;
   s.stage_vec = (D * elem) % 16 == 0 && stage_aligned;
   s.col_vec = D % VEC == 0 && col_aligned;
-  smem = ((size_t)s.region + (size_t)G * s.NW) * sizeof(float);
+  // the staged rows, the mask words and R + G row pointers
+  smem = ((size_t)s.region + (size_t)G * s.NW) * sizeof(float) +
+         (size_t)(s.R + G) * sizeof(void*);
   // CG center groups of ncv_pad threads, at most MAX_THREADS: 224 threads
   // at D = 800 (CG = 1), 256 at D = 200 (CG = 4)
   int cg = G;
@@ -440,29 +541,73 @@ inline bool plan_launch(int F, int D, int tile, int bitlevel, int elem,
   return smem <= SMEM_LIMIT - 1024;
 }
 
-template <typename T>
-int launch(const void* uwin_v, const void* vc_v, const float* M,
-           const float* valid, const float* alpha, float* cavg, float* cavge,
-           float* dvc, float* af, float* loss, int Nt, int F, int D, int tile,
-           int bitlevel, cudaStream_t stream) {
-  const T* uwin = static_cast<const T*>(uwin_v);
-  const T* vc = static_cast<const T*>(vc_v);
+template <typename T, typename Src>
+int launch(const Src& src, bool stage_aligned, bool col_aligned,
+           const float* M, const float* valid, const float* alpha,
+           float* cavg, float* cavge, float* dvc, float* af, float* loss,
+           int Nt, int F, int D, int tile, int bitlevel, cudaStream_t stream) {
   Shape s;
   int threads;
   size_t smem;
-  if (!plan_launch(F, D, tile, bitlevel, sizeof(T), aligned(uwin, 16),
-                   aligned(vc, VEC * sizeof(T)) && aligned(cavg, 16) &&
-                       aligned(cavge, 16) && aligned(dvc, 16),
+  if (!plan_launch(F, D, tile, bitlevel, sizeof(T), stage_aligned,
+                   col_aligned && aligned(cavg, 16) && aligned(cavge, 16) &&
+                       aligned(dvc, 16),
                    s, threads, smem))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      context_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      context_kernel<T, Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((tile + G - 1) / G, Nt);
-  context_kernel<T><<<grid, threads, smem, stream>>>(
-      uwin, vc, M, valid, alpha, cavg, cavge, dvc, af, loss, s);
+  context_kernel<T, Src><<<grid, threads, smem, stream>>>(
+      src, M, valid, alpha, cavg, cavge, dvc, af, loss, s);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dense(const void* uwin_v, const void* vc_v, const float* M,
+                 const float* valid, const float* alpha, float* cavg,
+                 float* cavge, float* dvc, float* af, float* loss, int Nt,
+                 int F, int D, int tile, int bitlevel, cudaStream_t stream) {
+  const DenseRows<T> src{static_cast<const T*>(uwin_v),
+                         static_cast<const T*>(vc_v), F, D};
+  return launch<T>(src, aligned(src.uwin, 16),
+                   aligned(src.vc, VEC * sizeof(T)), M, valid, alpha, cavg,
+                   cavge, dvc, af, loss, Nt, F, D, tile, bitlevel, stream);
+}
+
+template <typename T, typename I>
+int launch_table(const void* u_v, const void* v_v, long long us,
+                 long long vs, const void* ids, int V, const float* M,
+                 const float* valid, const float* alpha, float* cavg,
+                 float* cavge, float* dvc, float* af, float* loss, int Nt,
+                 int F, int D, int tile, int bitlevel, cudaStream_t stream) {
+  const TableRows<T, I> src{static_cast<const T*>(u_v),
+                            static_cast<const T*>(v_v),
+                            static_cast<const I*>(ids), us, vs, tile,
+                            (F - tile) / 2, V};
+  return launch<T>(
+      src, aligned(src.u, 16) && (us * (long long)sizeof(T)) % 16 == 0,
+      aligned(src.v, VEC * sizeof(T)) && vs % VEC == 0, M, valid, alpha,
+      cavg, cavge, dvc, af, loss, Nt, F, D, tile, bitlevel, stream);
+}
+
+// launch_table with the id type that id_bytes names (4: int32, 8: int64)
+template <typename T>
+int launch_ids(int id_bytes, const void* u, const void* v, long long us,
+               long long vs, const void* ids, int V, const float* M,
+               const float* valid, const float* alpha, float* cavg,
+               float* cavge, float* dvc, float* af, float* loss, int Nt, int F,
+               int D, int tile, int bitlevel, cudaStream_t stream) {
+  if (id_bytes == 8)
+    return launch_table<T, long long>(u, v, us, vs, ids, V, M, valid, alpha,
+                                      cavg, cavge, dvc, af, loss, Nt, F, D,
+                                      tile, bitlevel, stream);
+  if (id_bytes == 4)
+    return launch_table<T, int>(u, v, us, vs, ids, V, M, valid, alpha, cavg,
+                                cavge, dvc, af, loss, Nt, F, D, tile,
+                                bitlevel, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -481,11 +626,38 @@ int w2b_context_forward(const void* uwin, const void* vc, const float* M,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(uwin, vc, M, valid, alpha, cavg, cavge, dvc,
-                                 af, loss, Nt, F, D, tile, bitlevel, s);
+    return launch_dense<__nv_bfloat16>(uwin, vc, M, valid, alpha, cavg,
+                                       cavge, dvc, af, loss, Nt, F, D, tile,
+                                       bitlevel, s);
   if (dtype == 0)
-    return launch<float>(uwin, vc, M, valid, alpha, cavg, cavge, dvc, af,
-                         loss, Nt, F, D, tile, bitlevel, s);
+    return launch_dense<float>(uwin, vc, M, valid, alpha, cavg, cavge, dvc,
+                               af, loss, Nt, F, D, tile, bitlevel, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same outputs from the rows in their tables: u and v [V, D] (dtype as
+// above) with row strides us and vs in elements, read by the slab's ids
+// [Nt * tile + F - tile] (id_bytes 4: int32, 8: int64; clamped into
+// [0, V)).
+int w2b_context_forward_rows(const void* u, const void* v, long long us,
+                             long long vs, const void* ids, int id_bytes,
+                             int V, const float* M, const float* valid,
+                             const float* alpha, float* cavg, float* cavge,
+                             float* dvc, float* af, float* loss, int Nt,
+                             int F, int D, int tile, int bitlevel, int dtype,
+                             void* stream) {
+  if (D < 1 || D > 1024 || tile < 1 || F < tile || (F - tile) % 2 ||
+      Nt < 1 || V < 1 || us < D || vs < D)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_ids<__nv_bfloat16>(id_bytes, u, v, us, vs, ids, V, M,
+                                     valid, alpha, cavg, cavge, dvc, af, loss,
+                                     Nt, F, D, tile, bitlevel, s);
+  if (dtype == 0)
+    return launch_ids<float>(id_bytes, u, v, us, vs, ids, V, M, valid,
+                             alpha, cavg, cavge, dvc, af, loss, Nt, F, D,
+                             tile, bitlevel, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,9 @@
 table[:, :D] = u and table[:, D:] = v, so the u rows updated by slab
 position and the v rows updated for the centers carry the same word ids and
 go out in ONE scatter of B+2W double-width rows; the center v rows ride the
-slab gather.  Semantics are those of the JAX package's
-models/cbow_fused.py: shared negatives (neg_sharing > 0) with pools,
+slab gather (with the fused context kernel there is none: it reads the
+rows from the table by the slab's ids).  Semantics are those of the JAX
+package's models/cbow_fused.py: shared negatives (neg_sharing > 0) with pools,
 through the fused score kernel (`use_pallas`) or its plain version; the
 banded or shifted-sum windowed sums, with or without the fused context
 kernel; and every parameter-update route of its step:
@@ -187,11 +188,16 @@ def fused_slab_step(table: torch.Tensor, inputs: SlabInputs, alpha,
     with span("step.gather"):
         slab_ids = inputs.slab_tokens.clamp_min(0)         # [B+2W]
         centers = slab_ids[W:W + B]
-        # ONE gather: u rows for all positions + v rows for the centers
-        slab_raw = table[slab_ids]                         # [B+2W, 2D]
+        if context_pallas:
+            # the kernel reads the rows from the table's halves by id
+            u_rows, vc_rows, ids = table[:, :D], table[:, D:], slab_ids
+        else:
+            # ONE gather: u rows for all positions + v rows for the centers
+            slab_raw = table[slab_ids]                     # [B+2W, 2D]
+            u_rows, vc_rows, ids = slab_raw[:, :D], slab_raw[W:W + B, D:], None
     with span("step.positive"):
-        pos = positive_phase(slab_raw[:, :D], slab_raw[W:W + B, D:], inputs,
-                             alpha, hyper, B, banded, context_pallas)
+        pos = positive_phase(u_rows, vc_rows, inputs, alpha, hyper, B,
+                             banded, context_pallas, slab_ids=ids)
     with span("step.negative"):
         # shared negatives (strided tiles); v-half gathered from the fused
         # table

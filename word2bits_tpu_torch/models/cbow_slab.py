@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from word2bits_tpu_torch.kernels.band_usum import band_usum
-from word2bits_tpu_torch.kernels.context_pallas import fused_context_pallas
+from word2bits_tpu_torch.kernels.context_pallas import fused_context_rows
 from word2bits_tpu_torch.kernels.score_pallas import (  # noqa: F401
     pool_mask, quantized_scores_pallas, quantized_scores_plain)
 from word2bits_tpu_torch.kernels.span_scatter import (
@@ -48,7 +48,7 @@ from word2bits_tpu_torch.ops.scatter import (add_rows_where, hot_slice_add,
                                              scatter_add, scatter_add_dedup)
 from word2bits_tpu_torch.ops.sigmoid import sigmoid_exact, sigmoid_lut
 from word2bits_tpu_torch.ops.windowed import (
-    _tile_windows, banded_context, build_banded_masks, pick_tile)
+    banded_context, build_banded_masks, pick_tile)
 from word2bits_tpu_torch.sampling.unigram import AliasTable, draw_negatives
 from word2bits_tpu_torch.utils.trace import span
 
@@ -104,11 +104,15 @@ class Positive(NamedTuple):
 
 def positive_phase(u_rows: torch.Tensor, vc_rows: torch.Tensor,
                    inputs: SlabInputs, alpha: torch.Tensor, hyper: CBOWHyper,
-                   B: int, banded: int, context_pallas: bool) -> Positive:
+                   B: int, banded: int, context_pallas: bool,
+                   slab_ids: Optional[torch.Tensor] = None) -> Positive:
     """Context averages and the center (positive) term from the slab's u
     rows [B+2W, D] and the centers' v rows [B, D], both in the table
-    dtype.  `context_pallas` runs the fused context kernel
-    (kernels/context_pallas.py; banded > 0, reg == 0)."""
+    dtype; or, given `slab_ids` [B+2W], from the tables u_rows and vc_rows
+    ([V, D] each) that hold them: slab row p is u_rows[slab_ids[p]], center
+    b's v row vc_rows[slab_ids[W + b]].  `context_pallas` runs the fused
+    context kernel (kernels/context_pallas.py; banded > 0, reg == 0), which
+    reads the rows from the tables by id and so needs `slab_ids`."""
     W, D = hyper.window, hyper.size
     bl, reg = hyper.bitlevel, hyper.reg
     dt = torch.float32
@@ -123,12 +127,15 @@ def positive_phase(u_rows: torch.Tensor, vc_rows: torch.Tensor,
     if context_pallas:
         if reg:
             raise ValueError("context_pallas supports reg == 0 only")
-        Nt = B // btile
-        uwin3 = _tile_windows(u_rows, Nt, btile, W).contiguous()
-        cavg, cavge, dv_center, af, loss = fused_context_pallas(
-            uwin3, vc_rows.contiguous(), Mb, valid.to(dt)[:, None],
+        if slab_ids is None:
+            raise ValueError("context_pallas reads the rows from their "
+                             "tables by id: pass slab_ids")
+        cavg, cavge, dv_center, af, loss = fused_context_rows(
+            u_rows, vc_rows, slab_ids, Mb, valid.to(dt)[:, None],
             alpha.reshape(1, 1), bl)
         return Positive(cavg, cavge, dv_center, af, loss, None, windows)
+    if slab_ids is not None:
+        u_rows, vc_rows = u_rows[slab_ids], vc_rows[slab_ids[W:W + B]]
     u_slab = u_rows.to(dt)
     q_slab = quantize(u_slab, bl)
     q_sq = (q_slab * q_slab).sum(dim=-1) if reg else None
@@ -289,8 +296,8 @@ def slab_step(u: torch.Tensor, v: torch.Tensor, inputs: SlabInputs, alpha,
 
     slab_ids = inputs.slab_tokens.clamp_min(0)                 # [B+2W]
     centers = slab_ids[W:W + B]
-    pos = positive_phase(u[slab_ids], v[centers], inputs, alpha, hyper, B,
-                         banded, context_pallas)
+    pos = positive_phase(u, v, inputs, alpha, hyper, B, banded,
+                         context_pallas, slab_ids=slab_ids)
     loss = pos.loss
     negs = inputs.neg_ids
     ids_v = torch.cat([centers, negs.reshape(-1)])

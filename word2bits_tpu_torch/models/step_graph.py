@@ -48,7 +48,8 @@ import torch
 
 from word2bits_tpu_torch.kernels import span_scatter
 from word2bits_tpu_torch.kernels.band_usum import band_usum
-from word2bits_tpu_torch.kernels.context_pallas import fused_context_pallas
+from word2bits_tpu_torch.kernels.context_pallas import (fused_context_pallas,
+                                                         fused_context_rows)
 from word2bits_tpu_torch.kernels.group_rmw import scatter_add_grmw_planned
 from word2bits_tpu_torch.utils.trace import phase, span
 
@@ -81,11 +82,14 @@ def eager_reason(scatter_impl: str, **options) -> Optional[str]:
 
 def _counted() -> Tuple[Callable, ...]:
     """The launch-counting wrappers (`.launches`) of the kernels that a
-    replayed route's step launches: kernel 1, kernel 2, kernel 7 (and
-    `span_scatter.launch_parts`, which counts kernels 2 and 7 reading the
-    step's rows from their parts) and the banded u-sum."""
-    return (fused_context_pallas, span_scatter.scatter_add_span_planned,
-            scatter_add_grmw_planned, span_scatter.launch_parts, band_usum)
+    replayed route's step launches: kernel 1 (and `fused_context_rows`,
+    which counts its launches that read the rows from the table by id),
+    kernel 2, kernel 7 (and `span_scatter.launch_parts`, which counts
+    kernels 2 and 7 reading the step's rows from their parts) and the
+    banded u-sum."""
+    return (fused_context_pallas, fused_context_rows,
+            span_scatter.scatter_add_span_planned, scatter_add_grmw_planned,
+            span_scatter.launch_parts, band_usum)
 
 
 @dataclass

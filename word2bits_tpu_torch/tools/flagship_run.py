@@ -71,7 +71,8 @@ from word2bits_tpu_torch.eval.analogy import (evaluate_analogies,
                                               load_questions)
 from word2bits_tpu_torch.io.vectors import read_vectors
 from word2bits_tpu_torch.kernels.band_usum import band_usum
-from word2bits_tpu_torch.kernels.context_pallas import fused_context_pallas
+from word2bits_tpu_torch.kernels.context_pallas import (fused_context_pallas,
+                                                         fused_context_rows)
 from word2bits_tpu_torch.kernels.group_rmw import scatter_add_grmw_planned
 from word2bits_tpu_torch.kernels.quantize_pallas import quantize_pallas
 from word2bits_tpu_torch.kernels.scatter_pallas import scatter_add_rmw
@@ -191,10 +192,12 @@ def flagship_fields(args) -> dict:
 
 
 def launch_counts() -> dict:
-    """The launch counters of the kernels this path can run (`row_parts`:
-    kernel 7's launches that read the step's rows from their three parts,
-    span_scatter.launch_parts)."""
+    """The launch counters of the kernels this path can run (`context_rows`:
+    kernel 1's launches that read the rows from the table by id,
+    fused_context_rows; `row_parts`: kernel 7's launches that read the
+    step's rows from their three parts, span_scatter.launch_parts)."""
     return {"fused_context_pallas": fused_context_pallas.launches,
+            "context_rows": fused_context_rows.launches,
             "band_usum": band_usum.launches,
             "scatter_add_grmw": scatter_add_grmw_planned.launches,
             "row_parts": launch_parts.launches,
