@@ -5,11 +5,13 @@
 from the root of a checkout.  It builds the port's CUDA kernels from
 word2bits_tpu_torch/csrc/ (one nvcc per source, all at once; [ptxas]
 prints each kernel's registers, shared memory and spills, and kernels 1,
-2, 3, 5, 6, 7, 8 and 9, the banded u-sum and the subword gather-mean must
-not spill), holds each against its plain PyTorch version at the shapes of
-the paths that run it ([band usum@800] and [band usum@200] at the CBOW
-cells', [subword] kernel 11 at the fasttext cell's (its 2,519,371 spelled
-words' subword rows built on the card, 8,192 centers), [context], [span]
+2, 3, 5, 6, 7, 8 and 9, the banded u-sum, the subword gather-mean and
+the position-weighted context must not spill), holds each against its
+plain PyTorch version at the shapes of the paths that run it ([band
+usum@800] and [band usum@200] at the CBOW cells', [subword] kernel 11 at
+the fasttext cell's (its 2,519,371 spelled words' subword rows built on
+the card, 8,192 centers), [pos_context] kernel 12 at the ftcbow cell's
+(B 8,192, W 5, D 300, the step's masks), [context], [span]
 and [grmw] each printing a digest of the table it wrote, to hold kernels 2
 and 7 bit-equal across commits, and each the same kernel on the fused
 step's rows read from their three parts, bit-equal to it on them
@@ -143,6 +145,12 @@ kernels' launch counts set to 0 just before and read just after:
                 corpus over 400,000 spelled words: kernel 11 once a step
                 and once an export block, the vectors the mean of each
                 word's quantized rows.
+  [ftcbow]      fastText CBOW with position weights at the ftcbow cell's
+                flags (2M buckets x 300, 5-grams, window 5, NEG-10 a
+                center) through the CLI's parser and train.train, one
+                epoch of a 2M-token corpus over 200,000 spelled words:
+                kernel 12 twice a step, kernel 11 once a step and once an
+                export block, d [10, 300] trained and not exported.
 
 Peak disk is about 24 GB, in [flagship] and again in [flagship run]: the
 11.84 GB checkpoint, the 11.9 GB vector file and the 0.4 GB `.pack` (all
@@ -896,6 +904,185 @@ def run_fasttext(work: str, dev) -> dict:
           f"{wps:.0f} words/s on the card's clock; epoch loss "
           f"{res.epoch_losses[-1]:.2f}; vectors the mean of their rows; "
           f"launches {launches}")
+    return launches
+
+
+# ------------------------------- the position-weighted context (row 12)
+# the ftcbow cell: 2,000,000 words + 2,000,000 buckets x 300, 5-grams,
+# window 5, NEG-10 a center, B 8192
+FTC_BUCKETS, FTC_D, FTC_W, FTC_B = 2_000_000, 300, 5, 8192
+FTC_FLAGS = ["-model", "fasttext-cbow", "-minn", "5", "-maxn", "5",
+             "-bucket", str(FTC_BUCKETS), "-size", str(FTC_D), "-window",
+             str(FTC_W), "-negative", "10", "-sample", "1e-4",
+             "-min-count", "5", "-alpha", "0.05", "-dtype", "float32",
+             "-bitlevel", "1", "-batch-size", str(FTC_B),
+             "-steps-per-chunk", "32", "-scatter-impl", "add", "-iter", "1",
+             "-binary", "1"]
+FTC_TOKENS, FTC_TYPES = 2_000_000, 200_000    # [ftcbow]'s reduced corpus
+# dd's tolerance, of the sum of its terms' magnitudes: the kernel adds at
+# most 8 + 8 + 129 partial sums in order, 8.6e-6 of that sum at float32's
+# 2^-24 rounding (tests/test_torch_pos_context_card.py)
+DD_RTOL = 1e-5
+
+
+def check_pos_context(dev) -> dict:
+    """The position-weighted context (kernels/pos_context.py) at the ftcbow
+    cell's shapes: x [8202, 300], d [10, 300] and e [8192, 300] float32
+    drawn on the card, the step's masks (cbow_slab._context_masks) of
+    random sentences (padding at both ends and inside) and random shrinks;
+    h and dx bit-equal to the plain versions, dd within DD_RTOL of its
+    terms' magnitudes of the float64 sum, two launches bit-equal, one
+    launch an entry; then each entry timed beside its bound and its plain
+    version."""
+    from word2bits_tpu_torch.kernels.pos_context import (
+        pos_context, pos_context_grad, pos_context_grad_plain,
+        pos_context_plain)
+    from word2bits_tpu_torch.models import cbow_slab
+    Bc, Dc, Wc = FTC_B, FTC_D, FTC_W
+    n = Bc + 2 * Wc
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sents = torch.cumsum((torch.rand(n, generator=g, device=dev) < 0.05)
+                         .long(), 0)
+    sents[torch.rand(n, generator=g, device=dev) < 0.01] = -1
+    sents[:Wc] = -1
+    sents[-Wc:] = -1
+    inputs = cbow_slab.SlabInputs(
+        slab_tokens=torch.zeros(n, dtype=torch.long, device=dev),
+        slab_sents=sents,
+        shrink=torch.randint(0, Wc, (Bc,), generator=g, device=dev),
+        neg_ids=None)
+    m = cbow_slab._context_masks(inputs, Bc, Wc)[1].float().contiguous()
+    x = torch.randn((n, Dc), generator=g, device=dev) * 0.3
+    d = 1.0 + 0.2 * torch.randn((2 * Wc, Dc), generator=g, device=dev)
+    e = torch.randn((Bc, Dc), generator=g, device=dev) * 0.02
+    pos_context.launches = 0
+    h = pos_context(x, d, m, Wc)
+    dx, dd = pos_context_grad(e, x, d, m, Wc)
+    torch.cuda.synchronize()
+    if pos_context.launches != 2:
+        _fail(f"[pos_context] {pos_context.launches} launches for one "
+              "forward and one backward, 2 expected")
+    if not torch.equal(h, pos_context(x, d, m, Wc)):
+        _fail("[pos_context] two forward launches differ")
+    dx2, dd2 = pos_context_grad(e, x, d, m, Wc)
+    if not (torch.equal(dx, dx2) and torch.equal(dd, dd2)):
+        _fail("[pos_context] two backward launches differ")
+    plain = pos_context_plain(x, d, m, Wc)
+    if not torch.equal(h, plain):
+        _fail(f"[pos_context] h differs from the plain version by "
+              f"{_max_err(h, plain):.3g}")
+    pdx, pdd = pos_context_grad_plain(e, x, d, m, Wc)
+    if not torch.equal(dx, pdx):
+        _fail(f"[pos_context] dx differs from the plain version by "
+              f"{_max_err(dx, pdx):.3g}")
+    md, ed, xd = m.double(), e.double(), x.double()
+    want = torch.empty(d.shape, dtype=torch.float64, device=dev)
+    mag = torch.empty(d.shape, dtype=torch.float64, device=dev)
+    offsets = [o for o in range(-Wc, Wc + 1) if o != 0]
+    for p, o in enumerate(offsets):
+        t = md[:, p, None] * ed * xd[Wc + o:Wc + o + Bc]
+        want[p], mag[p] = t.sum(0), t.abs().sum(0)
+    tol = DD_RTOL * mag + 1e-30
+    for tag, got in (("kernel", dd), ("plain version", pdd)):
+        if not ((got.double() - want).abs() <= tol).all():
+            _fail(f"[pos_context] dd of the {tag} outside {DD_RTOL} of its "
+                  "terms' magnitudes of the float64 sum")
+    err = float((dd.double() - want).abs().max())
+    fwd_ms = _time_ms(lambda: pos_context(x, d, m, Wc))
+    bwd_ms = _time_ms(lambda: pos_context_grad(e, x, d, m, Wc))
+    pfwd_ms = _time_ms(lambda: pos_context_plain(x, d, m, Wc))
+    pbwd_ms = _time_ms(lambda: pos_context_grad_plain(e, x, d, m, Wc))
+    # bytes, as benchmark/kernels/pos_context.py counts them: the forward
+    # reads x, d and m and writes h; the backward reads e, x, d and m and
+    # writes dx and dd; float32
+    N, P = n, 2 * Wc
+    nbytes = 4 * ((N * Dc + P * Dc + Bc * P + Bc * Dc)
+                  + (Bc * Dc + N * Dc + P * Dc + Bc * P + N * Dc + P * Dc))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ms, plain_ms = fwd_ms + bwd_ms, pfwd_ms + pbwd_ms
+    print(f"[pos_context] B={Bc}, D={Dc}, W={Wc}, {int(m.sum())} live "
+          f"(center, position) terms: h and dx bit-equal to the plain "
+          f"versions, dd {err:.3g} from the float64 sum; forward "
+          f"{fwd_ms:.5f} ms (plain {pfwd_ms:.5f}), backward {bwd_ms:.5f} ms "
+          f"(plain {pbwd_ms:.5f}), both {ms:.5f} ms, bound {bound_ms:.5f} "
+          f"ms ({nbytes} bytes)")
+    del x, d, e, m, h, dx, dd, pdx, pdd, plain
+    torch.cuda.empty_cache()
+    return dict(name="pos_context", route="cuda",
+                source="word2bits_tpu_torch/csrc/pos_context.cu",
+                replaces="none: the position-weighted context of fastText "
+                         "CBOW (the JAX package has no such model)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None,
+                forward_ms=fwd_ms, backward_ms=bwd_ms,
+                plain_forward_ms=pfwd_ms, plain_backward_ms=pbwd_ms,
+                shapes=f"B={Bc}, D={Dc}, W={Wc}: x [{N}, {Dc}], d [{P}, "
+                       f"{Dc}], the step's masks")
+
+
+def run_ftcbow(work: str, dev) -> dict:
+    """[ftcbow]: `cli train -model fasttext-cbow` at the cell's flags (2M
+    buckets x 300, 5-grams, window 5, NEG-10 a center) for one epoch of a
+    reduced corpus (2M tokens over 200,000 spelled words, Zipf), through
+    the CLI's config parser and train.train; kernel 12 twice a step and
+    kernel 11 once a step and once an export block; d [10, 300] finite and
+    moved from its ones; the vector file read back and 2,000 of its rows
+    held to the plain mean of each word's quantized G_w rows."""
+    from word2bits_tpu_torch import train as train_mod
+    from word2bits_tpu_torch.config import config_from_argv
+    from word2bits_tpu_torch.data.vocab import subword_rows
+    from word2bits_tpu_torch.io.vectors import read_vectors
+    from word2bits_tpu_torch.kernels.subword_mean import subword_mean_plain
+    rng = np.random.default_rng(SEED + 1)
+    words = np.array(_ft_words(FTC_TYPES + 1)[1:])
+    p = 1.0 / np.arange(1, FTC_TYPES + 1)
+    toks = words[rng.choice(FTC_TYPES, FTC_TOKENS, p=p / p.sum())]
+    corpus = os.path.join(work, "ftcbow.txt")
+    out = os.path.join(work, "ftcbow.bin")
+    with open(corpus, "w") as f:
+        for i in range(0, FTC_TOKENS, 20):
+            f.write(" ".join(toks[i:i + 20]) + "\n")
+    cfg = config_from_argv(["-train", corpus, "-output", out, "-debug", "1"]
+                           + FTC_FLAGS)
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = train_mod.train(cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    V = res.vocab.size
+    u, v, d = res.tables
+    if (u.shape != (V + FTC_BUCKETS, FTC_D) or v.shape != (V, FTC_D)
+            or d.shape != (2 * FTC_W, FTC_D)):
+        _fail(f"[ftcbow] tables {tuple(u.shape)}, {tuple(v.shape)}, "
+              f"{tuple(d.shape)}")
+    if not (torch.isfinite(d).all() and (d != 1).any()):
+        _fail("[ftcbow] the position weights are not finite or never moved")
+    if not all(math.isfinite(x) for x in res.epoch_losses):
+        _fail(f"[ftcbow] epoch loss not finite: {res.epoch_losses}")
+    if launches["pos_context"] != 2 * res.steps:
+        _fail(f"[ftcbow] kernel 12 launched {launches['pos_context']} "
+              f"times, 2 a step of {res.steps} expected")
+    blocks = -(-V // ((1 << 24) // FTC_D))
+    if launches["subword_mean"] != res.steps + blocks:
+        _fail(f"[ftcbow] kernel 11 launched {launches['subword_mean']} "
+              f"times, {res.steps} steps + {blocks} export blocks expected")
+    names, vecs = read_vectors(out)
+    if names != res.vocab.words or vecs.shape != (V, FTC_D):
+        _fail("[ftcbow] the vector file's words or shape")
+    sub = subword_rows(res.vocab.words, 5, 5, FTC_BUCKETS, dev)
+    pick = torch.from_numpy(rng.choice(V, 2000, replace=False)).to(dev)
+    want = subword_mean_plain(u, pick, sub, 1).cpu().numpy()
+    err = float(np.abs(vecs[pick.cpu().numpy()] - want).max())
+    if err > 0:
+        _fail(f"[ftcbow] exported vectors {err:.3g} from the mean of "
+              "their quantized rows")
+    us, wps = _steady(res)
+    print(f"[ftcbow] V={V} + {FTC_BUCKETS} buckets x {FTC_D}, d "
+          f"[{2 * FTC_W}, {FTC_D}]: {res.steps} steps in {wall:.1f} s (the "
+          f"call), {us:.1f} us/step, {wps:.0f} words/s on the card's clock; "
+          f"epoch loss {res.epoch_losses[-1]:.2f}; d in "
+          f"[{float(d.min()):.4f}, {float(d.max()):.4f}]; vectors the mean "
+          f"of their rows; launches {launches}")
     return launches
 
 
@@ -2985,6 +3172,7 @@ def _launch_counters():
         quantized_scores_pallas
     from word2bits_tpu_torch.kernels.span_scatter import (
         launch_parts, scatter_add_span_planned, scatter_add_span_rank1)
+    from word2bits_tpu_torch.kernels.pos_context import pos_context
     from word2bits_tpu_torch.kernels.subword_mean import subword_mean
     from word2bits_tpu_torch.kernels.sweep_scatter import \
         scatter_add_sweep_planned
@@ -3003,7 +3191,8 @@ def _launch_counters():
             "quantize_pallas": quantize_pallas,
             "scatter_add_sweep": scatter_add_sweep_planned,
             "band_usum": band_usum,
-            "subword_mean": subword_mean}
+            "subword_mean": subword_mean,
+            "pos_context": pos_context}
 
 
 def _zero_launches() -> None:
@@ -4639,7 +4828,8 @@ def run_mesh_capacity(dev, vocab, encoded) -> tuple:
 def report_ptxas() -> None:
     """Each kernel's registers, static shared memory and spills as ptxas
     reported them in this run's build; kernels 1, 5 and 9, the banded
-    u-sum and every instantiation of the tile template (kernels 2 and 3,
+    u-sum, the subword gather-mean, the position-weighted context and
+    every instantiation of the tile template (kernels 2 and 3,
     every row source; 6, its head-fold epilogue in hot_slice.cu; 7 and 8 in
     group_rmw.cu) must not spill."""
     from word2bits_tpu_torch.kernels._build import (BUILD_LOGS,
@@ -4656,13 +4846,15 @@ def report_ptxas() -> None:
                   f"spill stores {u['spill_stores']} B, spill loads "
                   f"{u['spill_loads']} B")
             held = (name in ("context", "span_scatter", "sweep_scatter",
-                             "score", "band_usum", "subword_mean")
+                             "score", "band_usum", "subword_mean",
+                             "pos_context")
                     or "tile_scatter_kernel" in u["function"])
             if held and (u["spill_stores"] or u["spill_loads"]):
                 spills.append(u["function"])
     if spills:
-        _fail(f"kernels 1, 2, 3, 5, 6, 7, 8, 9, the banded u-sum and the "
-              f"subword gather-mean must not spill: {spills}")
+        _fail(f"kernels 1, 2, 3, 5, 6, 7, 8, 9, the banded u-sum, the "
+              f"subword gather-mean and the position-weighted context "
+              f"must not spill: {spills}")
 
 
 def main() -> int:
@@ -4694,6 +4886,7 @@ def main() -> int:
     ctx200 = check_context(dev, B, D, "context")
     band = check_band_usum(dev)
     sub = check_subword_mean(dev)
+    pos = check_pos_context(dev)
     span = check_span(dev)
     span["paths"] = check_span_paths(dev)
     score = check_score(dev)
@@ -4795,6 +4988,7 @@ def main() -> int:
         by_path.update(run_parity(dev))
         by_path.update(run_convert_nearest(work))
         by_path["fasttext"] = run_fasttext(work, dev)
+        by_path["ftcbow"] = run_ftcbow(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     at = ("max_abs_err", "ms", "plain_ms", "bound_ms", "shapes")
@@ -4808,7 +5002,7 @@ def main() -> int:
                     if "kernel2" in m}
     rmw["mesh"] = {f"vocab={MESH_CAP_NV}": mesh["capacity"]["kernel8"]}
     kernels = [ctx, span, rank1, score, hot, grmw, rmw, quant, sweep, band,
-               sub]
+               sub, pos]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -4821,7 +5015,8 @@ def main() -> int:
             "plan_ms", "stratified_extra_ms", "stratified_extra_bound_ms",
             "stratified_extra_library_ms", "bf16", "whole_ms",
             "whole_bound_ms", "export_blocks_ms", "export_blocks_plain_ms",
-            "mesh", "paths")
+            "mesh", "paths", "forward_ms", "backward_ms",
+            "plain_forward_ms", "plain_backward_ms")
     print(f"card: {card}; total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys if k in kd}
                                   for kd in kernels]}))

@@ -52,10 +52,12 @@ def train_main(argv=None) -> int:
               "Update routes: [-rmw-scatter 0|1 -dedup-block M -hot-rows H "
               "-hot-pallas 0|1 -neg-stratify 0|1 -neg-dense-hot 0|1 "
               "-device-epoch 0|1]\n"
-              "Model: [-model cbow|skipgram|fasttext (-cbow 1|0) "
-              "-neg-per-pair 0|1 (skip-gram: K negatives for each context "
-              "pair); fasttext (subword skip-gram, K negatives a pair): "
-              "-minn 3 -maxn 6 -bucket 2000000]\n"
+              "Model: [-model cbow|skipgram|fasttext|fasttext-cbow "
+              "(-cbow 1|0) -neg-per-pair 0|1 (skip-gram: K negatives for "
+              "each context pair); fasttext (subword skip-gram, K negatives "
+              "a pair) and fasttext-cbow (subword CBOW with position "
+              "weights, K negatives a center): -minn 3 -maxn 6 -bucket "
+              "2000000]\n"
               "Checkpoints: [-checkpoint-dir DIR -resume 0|1 "
               "-checkpoint-every-epoch 0|1] Trace: [-profile-dir DIR]\n"
               "Subcommands: train (default) | accuracy FILE [bitlevel "

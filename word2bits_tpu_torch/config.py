@@ -8,9 +8,10 @@ resolves to equal fields in both packages.  What each extension does is
 documented there.  The port has four fields more: `neg_per_pair`
 (`-neg-per-pair 1`, skip-gram's per-pair negatives as word2vec draws
 them, models/skipgram.py), and fastText's `minn`, `maxn` and `bucket`
-(`-minn`, `-maxn`, `-bucket`, the subword model `-model fasttext`,
-models/subword.py); with those at their defaults and another model, every
-field equals the JAX package's.
+(`-minn`, `-maxn`, `-bucket`, the subword models `-model fasttext`,
+models/subword.py, and `-model fasttext-cbow`, models/subword_cbow.py);
+with those at their defaults and another model, every field equals the
+JAX package's.
 
 The port implements everything the JAX package runs: the
 two CBOW engines, the split-table slab engine (the reference default:
@@ -24,7 +25,10 @@ windowed sums, optionally the fused context kernel (`-context-pallas`) and
 the fused score kernel (`-use-pallas`); skip-gram (`-model skipgram`,
 `-cbow 0`, models/skipgram.py) on split tables; fastText's subword
 skip-gram (`-model fasttext`, models/subword.py) on split tables whose
-input table holds the n-gram buckets too; any `-loop-mode` (all three run
+input table holds the n-gram buckets too, and fastText's CBOW with
+position weights (`-model fasttext-cbow`, models/subword_cbow.py) on the
+same tables and a third, the position weights; any `-loop-mode` (all three
+run
 the same in-place loop); the epoch built on the device
 (`-device-epoch`, resolved by `device_epoch_on` as in the JAX package) or
 on the host; the `-packed 1` export; checkpoint/resume (`-checkpoint-dir`,
@@ -40,6 +44,9 @@ from __future__ import annotations
 import warnings
 from dataclasses import dataclass
 from typing import Optional
+
+# the models whose input table holds fastText's n-gram buckets
+SUBWORD_MODELS = ("fasttext", "fasttext-cbow")
 
 
 @dataclass(frozen=True)
@@ -122,7 +129,7 @@ class Word2BitsConfig:
             object.__setattr__(self, "batch_size", 256)
         if self.neg_per_pair:
             self._validate_per_pair()
-        if self.model == "fasttext":
+        if self.model in SUBWORD_MODELS:
             self._validate_fasttext()
         if self.bitlevel == 3:
             raise ValueError(
@@ -318,9 +325,9 @@ class Word2BitsConfig:
         if self.init not in ("reference", "uniform"):
             raise ValueError(
                 f"init must be 'reference' or 'uniform', got {self.init!r}")
-        if self.model not in ("cbow", "skipgram", "fasttext"):
-            raise ValueError("model must be 'cbow', 'skipgram' or "
-                             f"'fasttext', got {self.model!r}")
+        if self.model not in ("cbow", "skipgram") + SUBWORD_MODELS:
+            raise ValueError("model must be 'cbow', 'skipgram', 'fasttext' "
+                             f"or 'fasttext-cbow', got {self.model!r}")
 
     def _validate_per_pair(self):
         """-neg-per-pair 1 runs on the single-card skip-gram engine with
@@ -341,10 +348,11 @@ class Word2BitsConfig:
                                  "negatives")
 
     def _validate_fasttext(self):
-        """-model fasttext runs on the single-card subword engine: each
-        pair's own K draws, the plain sorted scatter, and an export of
-        word vectors that are means, so nothing that shares or replaces
-        the draws or the scatter, and no bit-packed file."""
+        """-model fasttext and fasttext-cbow run on the single-card subword
+        engines: each pair's (fasttext) or each center's (fasttext-cbow)
+        own K draws, the plain sorted scatter, and an export of word
+        vectors that are means, so nothing that shares or replaces the
+        draws or the scatter, and no bit-packed file."""
         if self.minn < 1 or self.maxn < 0 or (self.maxn
                                                and self.maxn < self.minn):
             raise ValueError(f"-minn {self.minn} -maxn {self.maxn}: need "
@@ -362,16 +370,18 @@ class Word2BitsConfig:
                          ("-mesh-shape", self.mesh_shape),
                          ("-packed 1", self.packed)):
             if on:
-                raise ValueError(f"-model fasttext does not compose with "
-                                 f"{flag}: each pair draws its own K "
-                                 "negatives, the tables are split and a "
+                who = "center" if self.model == "fasttext-cbow" else "pair"
+                raise ValueError(f"-model {self.model} does not compose "
+                                 f"with {flag}: each {who} draws its own "
+                                 "K negatives, the tables are split and a "
                                  "word's vector is the mean of its rows")
 
     @property
     def subword_buckets(self) -> int:
         """The bucket rows of the input table: -bucket with n-grams
-        (-model fasttext, -maxn > 0), else none."""
-        return self.bucket if self.model == "fasttext" and self.maxn else 0
+        (-model fasttext or fasttext-cbow, -maxn > 0), else none."""
+        return (self.bucket if self.model in SUBWORD_MODELS and self.maxn
+                else 0)
 
     def _reject_unported(self):
         """Flags whose code the port does not have yet: rejected by name."""

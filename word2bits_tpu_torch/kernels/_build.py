@@ -32,7 +32,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNEL_SOURCES = ("context", "span_scatter", "group_rmw", "score", "hot_slice",
-                  "quantize", "sweep_scatter", "band_usum", "subword_mean")
+                  "quantize", "sweep_scatter", "band_usum", "subword_mean",
+                  "pos_context")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v"]

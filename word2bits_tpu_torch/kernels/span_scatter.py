@@ -162,9 +162,10 @@ _WORKSPACE: dict = {}
 
 def workspace(device: torch.device, n_part: int, n_count: int):
     """The tiled scatter kernels' workspace on `device` (csrc/w2b_tiles.cuh:
-    kernels 2, 3, 6, 7 and 8): n_part float32 partials (2 per tile of the
-    sorted stream, C wide) and n_count int32 arrival counters (1 per tile
-    and column group), allocated zero once and grown when a call needs more;
+    kernels 2, 3, 6, 7 and 8; kernel 12's backward, kernels/pos_context.py,
+    takes it too): n_part float32 partials (2 per tile of the sorted
+    stream, C wide) and n_count int32 arrival counters (1 per tile and
+    column group), allocated zero once and grown when a call needs more;
     each call leaves the counters zero.  Every call on the device shares
     it, so two calls must not run at once on different streams (no path of
     the port does that)."""

@@ -14,8 +14,10 @@ in row blocks: the reference stream is computed on the device
 values.  fastText's subword model (`-model fasttext`) has `buckets` input
 rows more than output rows: its u rows V.. continue the same stream (the
 reference's u draws run on past V*D), so its first V rows of u and v equal
-the word2vec tables'.  `init_param_rows` fills only given row ranges of
-the split tables: a mesh shard's (parallel/trainer.py).
+the word2vec tables'; its CBOW with position weights (`-model
+fasttext-cbow`) has a third table, the position weights d [2W, D],
+float32 ones (`init_position_weights`).  `init_param_rows` fills only
+given row ranges of the split tables: a mesh shard's (parallel/trainer.py).
 """
 
 from __future__ import annotations
@@ -80,6 +82,15 @@ def init_params(vocab_size: int, size: int, init: str = "reference",
     v = torch.empty((vocab_size, size), dtype=dtype, device=device)
     _fill(u, v, init, seed)
     return u, v
+
+
+def init_position_weights(window: int, size: int,
+                          device=None) -> torch.Tensor:
+    """d [2 * window, size] float32 ones on `device` (default cuda): one
+    weight vector a window position -W..-1, 1..W, each starting as the
+    plain average's weight."""
+    return torch.ones((2 * window, size), dtype=torch.float32,
+                      device=_device(device))
 
 
 def init_fused_table(vocab_size: int, size: int, init: str = "reference",

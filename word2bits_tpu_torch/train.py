@@ -10,10 +10,12 @@ the JAX package's train.build_engine chooses them: the fused (V, 2D) table
 on split tables (`-model skipgram`, models/skipgram.py) and the split
 (u, v) slab engine (every other CBOW configuration, the reference default
 among them: per-center negatives, models/cbow_slab.py); and the port's
-fourth, fastText's subword skip-gram (`-model fasttext`, models/
-subword.py) on split tables whose u has the n-gram buckets' rows after
-the words', each word's subword rows built once a call
-(data/vocab.subword_rows) and its negatives drawn from count^0.5.
+fourth and fifth, fastText's subword skip-gram (`-model fasttext`,
+models/subword.py) and its CBOW with position weights (`-model
+fasttext-cbow`, models/subword_cbow.py, a third table d [2W, D] of
+position weights) on split tables whose u has the n-gram buckets' rows
+after the words', each word's subword rows built once a call
+(data/vocab.subword_rows) and the negatives drawn from count^0.5.
 
 The epoch is built where the JAX package builds it (`device_epoch_on`):
 under the auto -device-epoch on the training device from the encoded
@@ -36,7 +38,8 @@ streamed in the same row blocks, and -resume 1 reads them back the same
 way into tables allocated once (`save_checkpoint`, `load_checkpoint`).
 The loss accumulates on the device and is fetched once per epoch (and for
 progress lines at -debug > 1).  `on_epoch_end(epoch, u, v, loss)` gets
-each epoch's tables as host arrays; `-profile-dir` traces one steady chunk
+each epoch's tables as host arrays (`on_epoch_end(epoch, u, v, d, loss)`
+with -model fasttext-cbow); `-profile-dir` traces one steady chunk
 with torch.profiler into a Chrome trace there.  While a torch profiler
 records, the loop's phases, chunks and steps record their spans
 (utils/trace.py); TrainResult.seconds comes from the same sites.
@@ -67,7 +70,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from word2bits_tpu_torch.config import Word2BitsConfig
+from word2bits_tpu_torch.config import SUBWORD_MODELS, Word2BitsConfig
 from word2bits_tpu_torch.data.corpus import build_vocab, encode_corpus
 from word2bits_tpu_torch.data.device_pipeline import \
     make_device_epoch_builder
@@ -83,9 +86,12 @@ from word2bits_tpu_torch.models.cbow import CBOWHyper, ChunkScalars
 from word2bits_tpu_torch.models.cbow_fused import (deinterleave,
                                                    make_fused_train_chunk)
 from word2bits_tpu_torch.models.cbow_slab import make_slab_train_chunk
-from word2bits_tpu_torch.models.init import init_fused_table, init_params
+from word2bits_tpu_torch.models.init import (init_fused_table, init_params,
+                                             init_position_weights)
 from word2bits_tpu_torch.models.skipgram import make_skipgram_train_chunk
 from word2bits_tpu_torch.models.subword import make_subword_train_chunk
+from word2bits_tpu_torch.models.subword_cbow import \
+    make_subword_cbow_train_chunk
 from word2bits_tpu_torch.models.step_graph import StepCounts
 from word2bits_tpu_torch.sampling.unigram import (AliasTable,
                                                   build_alias_table,
@@ -98,7 +104,8 @@ _EXPORT_VALUES = 1 << 24
 CHECKPOINT_FILE = "state.npz"
 
 
-Tables = Tuple[torch.Tensor, ...]   # (fused (V, 2D) table,) or (u, v)
+Tables = Tuple[torch.Tensor, ...]   # (fused (V, 2D) table,), (u, v) or
+#                                     fasttext-cbow's (u, v, d)
 
 
 @dataclass
@@ -191,7 +198,8 @@ def init_tables(cfg: Word2BitsConfig, vocab_size: int, device,
                 comm=None) -> Tables:
     """The engine's tables, filled on `device`: (the fused (V, 2D) table,)
     with -fused-tables 1 on CBOW, else (u, v), u with the n-gram buckets'
-    rows after the words' with -model fasttext; on a mesh (`comm`, a
+    rows after the words' with -model fasttext, and (u, v, d), d the
+    position weights, with -model fasttext-cbow; on a mesh (`comm`, a
     parallel.mesh.Collectives) this shard's rows of (u, v)."""
     if comm is not None:
         from word2bits_tpu_torch.parallel.trainer import init_local_tables
@@ -200,8 +208,11 @@ def init_tables(cfg: Word2BitsConfig, vocab_size: int, device,
               device=device)
     if cfg.fused_on:
         return (init_fused_table(vocab_size, cfg.size, **kw),)
-    return init_params(vocab_size, cfg.size, buckets=cfg.subword_buckets,
-                       **kw)
+    tables = init_params(vocab_size, cfg.size, buckets=cfg.subword_buckets,
+                         **kw)
+    if cfg.model == "fasttext-cbow":
+        tables += (init_position_weights(cfg.window, cfg.size, device),)
+    return tables
 
 
 def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
@@ -214,14 +225,16 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
     score kernels), skip-gram with -model skipgram (per-center, shared or,
     with -neg-per-pair 1, per-pair negatives, dense-hot, the block
     dedup), the subword skip-gram with -model fasttext (per-pair
-    negatives from count^0.5, each word's subword rows built here), else
+    negatives from count^0.5, each word's subword rows built here) and its
+    CBOW with position weights with -model fasttext-cbow (per-center
+    negatives from count^0.5, the same rows), else
     the split-table slab
     engine (per-center or shared negatives; the `add` or `span` scatter or
     the block dedup; optional context and score kernels)."""
     B, S, V = cfg.batch_size, cfg.steps_per_chunk, vocab.size
     dev = tables[0].device
     strat_lanes = dense_hot = subwords = None
-    if cfg.model == "fasttext":
+    if cfg.model in SUBWORD_MODELS:
         # fastText's negatives table: count^0.5 (Dictionary::getCounts)
         alias = build_alias_table(vocab.unigram_weights(0.5)).to(dev)
         subwords = subword_rows(vocab.words, cfg.minn, cfg.maxn, cfg.bucket,
@@ -269,6 +282,8 @@ def build_engine(cfg: Word2BitsConfig, vocab: Vocab, tables: Tables,
             rmw_scatter=cfg.rmw_scatter)
     elif cfg.model == "fasttext":
         chunk_fn = make_subword_train_chunk(hyper, V, B, S, subwords)
+    elif cfg.model == "fasttext-cbow":
+        chunk_fn = make_subword_cbow_train_chunk(hyper, V, B, S, subwords)
     elif cfg.model == "skipgram":
         chunk_fn = make_skipgram_train_chunk(
             hyper, V, B, S, neg_sharing=cfg.neg_sharing,
@@ -540,9 +555,10 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
             tables = init_tables(cfg, V, dev, comm)
             _sync(dev)
         shape = " x ".join(str(n) for n in tables[0].shape)
-        _log(cfg, f"Init: {shape} {cfg.dtype} "
-                  f"{'table' if len(tables) == 1 else 'tables u, v'} "
-                  f"({sum(t.numel() for t in tables)} draws) in "
+        names = ("table" if len(tables) == 1
+                 else "tables " + ", ".join("uvd"[:len(tables)]))
+        _log(cfg, f"Init: {shape} {cfg.dtype} {names} "
+                  f"({sum(t.numel() for t in tables[:2])} draws) in "
                   f"{seconds['init']:.2f} s")
     with phase("alias", seconds):
         engine = build_engine(cfg, vocab, tables, hyper, comm)
@@ -702,8 +718,9 @@ def _train(cfg: Word2BitsConfig, vocab: Optional[Vocab],
                       f"{seconds['checkpoint'] - ck0:.2f} s")
         if on_epoch_end is not None and root:
             with span("fetch"):
-                u_h, v_h = (_host_half(h) for h in table_halves(full))
-            on_epoch_end(epoch, u_h, v_h, epoch_loss)
+                host = [_host_half(h) for h in
+                        table_halves(full) + tuple(full[2:])]
+            on_epoch_end(epoch, *host, epoch_loss)
         if stop:
             break
     profile.finish()
@@ -768,12 +785,12 @@ def _host_half(half: torch.Tensor) -> np.ndarray:
 
 
 def table_halves(tables: Tables) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(u, v) of either engine's tables: the 1-tuple of a fused (V, 2D)
-    table gives its two column halves, as views."""
+    """(u, v) of any engine's tables: the 1-tuple of a fused (V, 2D)
+    table gives its two column halves, as views; fasttext-cbow's position
+    weights (the third table) are not among them."""
     if len(tables) == 1:
         return deinterleave(tables[0])
-    u, v = tables
-    return u, v
+    return tables[0], tables[1]
 
 
 def write_output(path: str, vocab: Vocab, tables: Tables,
@@ -787,12 +804,14 @@ def write_output(path: str, vocab: Vocab, tables: Tables,
     the host.  `tables`: the fused (V, 2D) table or the
     engine's tables.  Byte-identical to the JAX package's
     train._write_output (output_vectors + write_vectors + write_packed).
-    With -model fasttext (`subwords`, built here if not given) a word's
-    vector is instead the mean of its quantized subword rows (its hidden
-    vector h: the gather-mean kernel, kernels/subword_mean.py), float32."""
+    With -model fasttext or fasttext-cbow (`subwords`, built here if not
+    given) a word's vector is instead the mean of its quantized subword
+    rows (fastText's getWordVector: the gather-mean kernel,
+    kernels/subword_mean.py), float32; the position weights are not
+    written."""
     u, v = table_halves(tables)
     V, D = v.shape
-    if cfg.model == "fasttext":
+    if cfg.model in SUBWORD_MODELS:
         sub = subwords or subword_rows(vocab.words, cfg.minn, cfg.maxn,
                                        cfg.bucket, u.device)
         rows = max(1, _EXPORT_VALUES // max(D, 1))
@@ -864,6 +883,7 @@ def save_checkpoint(path: str, tables: Tables, epoch: int,
     """Write `path` as np.savez writes the JAX package's state.npz (an
     uncompressed zip of .npy members): `u` and `v` as (V, D) halves
     (bfloat16 as uint16 bits, with `u_dtype`/`v_dtype` tags; else
+    float32), fasttext-cbow's position weights `d` (the third table,
     float32), `epoch`, `words_done`, and in place of the JAX `key` the
     generator's state (`torch_generator`, uint8, and its device type
     `torch_generator_device`).  The halves stream from the device in row
@@ -875,7 +895,8 @@ def save_checkpoint(path: str, tables: Tables, epoch: int,
     tmp = path + ".tmp"
     with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
-        for name, half in (("u", u), ("v", v)):
+        for name, half in [("u", u), ("v", v)] + [("d", t)
+                                                   for t in tables[2:]]:
             dt, tag = _ckpt_dtype(half)
             V = half.shape[0]     # u holds the subword model's buckets too
             with zf.open(name + ".npy", "w", force_zip64=True) as f:
@@ -959,8 +980,10 @@ def load_checkpoint(path: str, cfg: Word2BitsConfig, device,
     streaming each half in row blocks: no initialization runs first, and
     the host holds one block.  `ranges` ((r0, r1) global row ranges, a
     mesh shard's: parallel/trainer.local_ranges): split tables of those
-    rows alone, rows past the vocabulary zero.  A JAX checkpoint carries a
-    JAX key, which cannot be continued: `generator` is None then."""
+    rows alone, rows past the vocabulary zero.  With -model fasttext-cbow
+    the position weights `d` are read too (float32).  A JAX checkpoint
+    carries a JAX key, which cannot be continued: `generator` is None
+    then."""
     dtype = getattr(torch, cfg.dtype)
     with zipfile.ZipFile(path) as zf:
         with zf.open("u.npy") as f:
@@ -985,6 +1008,14 @@ def load_checkpoint(path: str, cfg: Word2BitsConfig, device,
         _read_half(zf, "u", u, ranges)
         _read_half(zf, "v", v, ranges)
         names = zf.namelist()
+        if cfg.model == "fasttext-cbow":
+            if "d.npy" not in names:
+                raise ValueError(f"{path} holds no position weights d: not "
+                                 "a -model fasttext-cbow checkpoint")
+            d = torch.empty((2 * cfg.window, D), dtype=torch.float32,
+                            device=device)
+            _read_half(zf, "d", d)
+            tables = tables + (d,)
         generator = gen_device = None
         if "torch_generator.npy" in names:
             generator = torch.from_numpy(_read_small(zf, "torch_generator"))
